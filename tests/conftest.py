@@ -46,3 +46,8 @@ def lw_nn_both_file():
 def rng():
     # function-scoped: every test gets identical, order-independent draws
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; skips elsewhere")
