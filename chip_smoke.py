@@ -43,7 +43,32 @@ non-zero and prints no result line):
      input through both paths on CUDA against the same paths in float64
      on the CPU;
  10. timing of K3, K4, K5, K7 and their twins, the general LW core (3
-     angles) and the staged SW core, and the fused cores once more.
+     angles) and the staged SW core, and the fused cores once more;
+ 11. the cloud modes of K1 and K2 (lookup tables inside the kernel; band
+     lanes) and their lane input modes (K8: lw_clearsky_mega5 on raw lanes;
+     K9: sw_clearsky_megakernel(input_mode="lanes")) against their twins on
+     the same atmosphere with the all-sky driver's cloud placement; the
+     share of liquid, ice and mixed cells is printed and none may be 0;
+     then K8 through its core (_lw_core_mega5) and K9 through its wrapper
+     with the counts read around: no driver routes to these two modes;
+ 12. the all-sky main path: a synthetic Garand file and lookup-table and
+     Pade coefficient files for LW and SW are written to a temporary
+     directory, then allsky_lw / allsky_sw run on the card for both
+     flavours on the fused route (one launch of K1 or K2 in its cloud mode,
+     nothing else) and on the staged routes (3 Gauss angles: K3 once, K7
+     three times; megakernel off: K3 + K7, K5), each with the counts set to
+     0 just before and read just after; finite fluxes, fused against staged
+     and against float64 on the CPU, more LW down and less direct SW at the
+     surface under clouds, SW TOA down = sum(solar) * mu0;
+ 13. timing of the cloud modes, K8, K9, their twins and the all-sky cores
+     on both routes.
+
+Before the last line one JSON line lists every kernel with its launches and
+the call they were counted around ("counted_around": a driver of a main
+path, or for K8 and K9 a core or the wrapper, since no driver reaches
+them), its error against the twin, its time, the twin's, and the
+least time the card could take (``bound_ms``: bytes moved once over 3.35
+TB/s, or operations over 67 TFLOP/s float32, whichever is larger).
 
 The models are the repository's in-repo stand-ins (artifacts/): the g-128
 LW demo net; the g-112 SW absorption demo net, used as both the absorption
@@ -76,6 +101,27 @@ N_ANGLES = 3  # Gauss angles of the general LW path
 # W/m2: the SW float32 resonance columns' err * |k*mu0 - 1| limit, about
 # twice the largest measured (hold_sw_f1; ROADMAP Queue 3 F1)
 F1_LAW = 4e-3
+# NVIDIA H100 SXM data sheet: device memory rate and float32 rate outside
+# the tensor cores (TF32 and bf16 are excluded by the accuracy contract)
+PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# arithmetic per (layer, g-point) after the MLPs, counted from the kernels'
+# sources: transmittance, source and sweeps (LW); coefficients, direct beam
+# and both adding sweeps (SW); the transport alone (K7, per angle); an MLP
+# output's postprocessing (mlp)
+ELEMENT_FLOPS = {"lw": 40, "sw": 110, "k7": 20, "mlp": 10}
+# what the cloud modes add, counted from csrc/ at the resolution the function
+# needs it and only for the cells that hold cloud (the others come out 0):
+#   lut_phase: one phase's table lookup per (cell, band): radius index and
+#     fraction (6), a lerp per table (3 each: ext, ssa[, asy]), the products;
+#   lut_band: per (cell, band) after both lookups: the absorption tau (LW);
+#     the phase sums and the delta scaling in its subtraction form (SW);
+#   gpt: per (cell, g-point), in both cloud modes: the add to the gas tau
+#     (LW); the increment (7) and what the general-g gammas cost beyond the
+#     g = 0 ones (9) (SW).
+# The band-lane modes get their band values from outside and do "gpt" only.
+CLOUD_FLOPS = {"lw": {"lut_phase": 14, "lut_band": 3, "gpt": 1},
+               "sw": {"lut_phase": 18, "lut_band": 9, "gpt": 16}}
+ALLSKY_MU0 = 0.86  # the all-sky driver's cosine of the solar zenith angle
 
 
 class SmokeFailure(Exception):
@@ -134,6 +180,59 @@ def adjudicate(name, err, tol, kernel, plain, ref64):
                       f"further from float64 ({ek:.3e}) than the twin ({ep:.3e})")
 
 
+def adjudicate_lazy(name, err, tol, kernel, plain, make_ref64):
+    """adjudicate with the float64 twin computed only if it has to decide."""
+    if err > tol:
+        adjudicate(name, err, tol, kernel, plain, make_ref64())
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (lists and tuples of tensors are walked; other
+    values count 0)."""
+    import torch
+
+    n = 0
+    for t in tensors:
+        if torch.is_tensor(t):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, (list, tuple)):
+            n += nbytes(*t)
+    return n
+
+
+def model_bytes(*models) -> int:
+    return sum(nbytes(list(m.weights), list(m.biases), m.output_mean, m.output_std)
+               for m in models)
+
+
+def mlp_flops(model, rows: int) -> float:
+    """2 * multiply-adds of the net's matrix products over ``rows`` rows."""
+    return 2.0 * rows * sum(a * b for a, b in zip(model.dims[:-1], model.dims[1:]))
+
+
+def cloud_flops(kind: str, mode: str, cld_fields, nband: int, ngpt: int) -> float:
+    """Operations a cloud mode ("cld_lut" or "cld_bands") of the LW or SW
+    kernel (``kind``) adds to the clear-sky ones on these (lwp, iwp, rel,
+    rei) fields: CLOUD_FLOPS over the cells that hold liquid, ice or either."""
+    c = CLOUD_FLOPS[kind]
+    liq, ice = cld_fields[0] > 0, cld_fields[1] > 0
+    n_liq, n_ice, n_any = int(liq.sum()), int(ice.sum()), int((liq | ice).sum())
+    ops = c["gpt"] * ngpt * n_any
+    if mode == "cld_lut":
+        ops += (c["lut_phase"] * (n_liq + n_ice) + c["lut_band"] * n_any) * nband
+    return float(ops)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once at the peak memory rate, or the operations at the
+    peak float32 rate, whichever is larger."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}  # no single PyTorch call computes any of these functions
+
+
 def to64(args):
     import torch
 
@@ -163,9 +262,10 @@ def hold(name, kernel, twin, twin64, rtol, atol) -> dict:
     return r
 
 
-def mlp_phase(dev, lw_model, sw_model, data) -> tuple[dict, dict]:
+def mlp_phase(dev, lw_model, sw_model, data) -> tuple[dict, dict, dict]:
     """Phase 7: K3/K4/K5 against their twins on the full-size NN inputs.
-    Returns (max |kernel - twin| per kernel, the timing closures)."""
+    Returns (max |kernel - twin| per kernel, the timing closures, each
+    kernel's bound at the timed shapes)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
@@ -223,13 +323,24 @@ def mlp_phase(dev, lw_model, sw_model, data) -> tuple[dict, dict]:
         "k5": lambda: mlp.fused_predict_sw(sw_model, sw_model, x_sw, col_dry),
         "k5_plain": lambda: mlp.fused_predict_sw_plain(sw_model, sw_model, x_sw, col_dry),
     }
-    return errs, timers
+    rows = NCOL * NLAY
+    out = lambda m: rows * m.dims[-1] * 4  # bytes of one (rows, n_outputs) float32 result
+    post = lambda m: ELEMENT_FLOPS["mlp"] * rows * m.dims[-1]
+    bounds = {
+        "k3": bound(nbytes(x_lw, col_dry) + model_bytes(lw_model) + out(lw_model),
+                    mlp_flops(lw_model, rows) + post(lw_model)),
+        "k4": bound(nbytes(x_lw, col_dry) + model_bytes(tau_net) + out(tau_net),
+                    mlp_flops(tau_net, rows) + post(tau_net)),
+        "k5": bound(nbytes(x_sw, col_dry) + 2 * model_bytes(sw_model) + 2 * out(sw_model),
+                    2 * (mlp_flops(sw_model, rows) + post(sw_model))),
+    }
+    return errs, timers, bounds
 
 
-def k7_phase(dev, lw_model, table, lw_spec, data) -> tuple[float, dict]:
+def k7_phase(dev, lw_model, table, lw_spec, data) -> tuple[float, dict, dict]:
     """Phase 8: K7 against its twin for 1-4 Gauss angles and with
     per-(column, g-point) secants and an incident flux. Returns (max
-    |kernel - twin| in W/m2, the timing closures)."""
+    |kernel - twin| in W/m2, the timing closures, the bound of one angle)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
@@ -273,7 +384,8 @@ def k7_phase(dev, lw_model, table, lw_spec, data) -> tuple[float, dict]:
     d = torch.full((NCOL, ngpt), float(GAUSS_DS[0, 0]), device=dev)
     timers = {"k7": lambda: k7.lw_noscat_broadband(*args, d, LW_WEIGHT),
               "k7_plain": lambda: k7.lw_noscat_broadband_plain(*args, d, LW_WEIGHT)}
-    return worst, timers
+    return worst, timers, bound(nbytes(*args, d) + 2 * NCOL * (NLAY + 1) * 4,
+                                ELEMENT_FLOPS["k7"] * NCOL * NLAY * ngpt)
 
 
 def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
@@ -304,17 +416,35 @@ def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
     g1, g2 = (8.0 - 5.0 * ssa) * 0.25, 0.75 * ssa  # PIFM gammas, g = 0 (ops/sw_solver.py)
     k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
     dist = (k * mu0[:, None, None] - 1.0).abs().amin((1, 2)).numpy()
-    limit = np.maximum(SW_ATOL, F1_LAW / dist)
+    return f1_law("staged SW", sw_col_err(got, ref), dist, mu0.numpy())
+
+
+def sw_col_err(got, ref):
+    """Per column, the largest |got - ref| over levels and the three SW
+    fluxes, in float64 on the CPU."""
+    import torch
+
     col_err = torch.stack([(getattr(got, n).double().cpu() - getattr(ref, n).double().cpu())
                            .abs().amax(1) for n in ("flux_up", "flux_dn", "flux_dn_dir")])
-    col_err = col_err.amax(0).numpy()
+    return col_err.amax(0).numpy()
+
+
+def f1_law(name, col_err, dist, mu0, show=12) -> tuple[float, int, float]:
+    """Hold per-column SW errors within max(SW_ATOL, F1_LAW / dist), dist
+    the column's smallest |k*mu0 - 1|; print (the first ``show`` of) the
+    columns beyond SW_ATOL. Returns (max error, columns beyond SW_ATOL, max
+    error of the other columns)."""
+    limit = np.maximum(SW_ATOL, F1_LAW / dist)
     over = np.nonzero(col_err > SW_ATOL)[0]
-    for c in over:
-        print(f"F1 column {c}: mu0 {float(mu0[c]):.6f}, min |k*mu0 - 1| {dist[c]:.2e}, "
+    for c in over[:show]:
+        print(f"F1 column {c} ({name}): mu0 {float(mu0[c]):.6f}, min |k*mu0 - 1| {dist[c]:.2e}, "
               f"|staged - float64| {col_err[c]:.3e} W/m2, err*|k*mu0 - 1| "
               f"{col_err[c] * dist[c]:.3e} (limit {limit[c]:.3e} W/m2)")
+    if len(over) > show:
+        print(f"F1 ({name}): {len(over) - show} more columns beyond {SW_ATOL}, largest "
+              f"err*|k*mu0 - 1| {float((col_err * dist)[over].max()):.3e}")
     bad = np.nonzero(col_err > limit)[0]
-    require(bad.size == 0, f"staged SW: columns {bad.tolist()} are beyond "
+    require(bad.size == 0, f"{name}: columns {bad.tolist()[:20]} are beyond "
                            f"max({SW_ATOL}, {F1_LAW}/|k*mu0 - 1|) from float64")
     rest = np.delete(col_err, over)
     return float(col_err.max()), len(over), float(rest.max()) if rest.size else 0.0
@@ -413,6 +543,426 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     return launches
 
 
+def synthetic_cloud_optics(spec, flavour, dev, dtype=None):
+    """Seeded cloud-optics data on ``spec``'s bands, on ``dev``."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.spectral import SpectralMapping
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_cloud_optics
+
+    return cloud_optics_from_arrays(
+        synthesize_cloud_optics(spec, SEED, flavour),
+        SpectralMapping.bands_only(spec.band_lims_wvn_array), dev, dtype or torch.float32)
+
+
+def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
+                lw_in, sw_in, model64, table64) -> tuple[dict, dict, dict]:
+    """Phase 11: K1 and K2 in both cloud modes, K8 and K9, each against its
+    plain twin on the card at full size; then K8 and K9 through their cores
+    with the counts read around. Returns (per-kernel results, launches,
+    timing closures)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, rfmip
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    results, timers = {}, {}
+    lw_co = {f: synthetic_cloud_optics(lw_spec, f, dev) for f in ("lut", "pade")}
+    sw_co = {f: synthetic_cloud_optics(sw_spec, f, dev) for f in ("lut", "pade")}
+    cld = allsky.cloud_fields_lay_major(data.play, data.tlay, lw_co["lut"], True, dev)
+    lwp, iwp = cld[0] > 0, cld[1] > 0
+    share = {"liquid": float((lwp & ~iwp).float().mean()), "ice": float((iwp & ~lwp).float().mean()),
+             "mixed": float((lwp & iwp).float().mean())}
+    print(f"clouds at {NCOL}x{NLAY}: share of cells liquid-only {share['liquid']:.4f}, ice-only "
+          f"{share['ice']:.4f}, mixed {share['mixed']:.4f}")
+    require(all(v > 0 for v in share.values()), f"a kind of cloudy cell is missing: {share}")
+
+    def lw64_args(args, kw):
+        a = to64(args)
+        a[0], a[9] = model64(lw_model), table64
+        kw64 = {k: (tuple(to64(v)) if isinstance(v, tuple) else v.double()) for k, v in kw.items()}
+        if "cld_lut" in kw:
+            kw64["cld_lut"] = kw["cld_lut"]
+        return a, kw64
+
+    def sw64_args(args, kw):
+        a = to64(args)
+        a[0] = a[1] = model64(sw_model)
+        kw64 = dict(kw)
+        for k in ("cld_fields", "cld_bands"):
+            if k in kw:
+                kw64[k] = tuple(to64(kw[k]))
+        return a, kw64
+
+    rows, ncell = NCOL * NLAY, NCOL * NLAY
+    lw_flops = mlp_flops(lw_model, rows) + ELEMENT_FLOPS["lw"] * ncell * lw_spec.ngpt
+    sw_flops = 2 * mlp_flops(sw_model, rows) + ELEMENT_FLOPS["sw"] * ncell * sw_spec.ngpt
+    play_t, plev_t, tlay_t, _, _, _, _, concs_t = sw_in
+    mu0 = torch.full((NCOL,), ALLSKY_MU0, device=dev)
+    alb = torch.full((NCOL, sw_spec.nband), 0.06, device=dev)
+    clear_dn = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in))[1]
+    for flavour, mode in (("lut", "cld_lut"), ("pade", "cld_bands")):
+        # K1 in the cloud mode
+        args, kw = allsky.allsky_lw_mega_args([lw_model], table, lw_spec, lw_co[flavour],
+                                              *lw_in[:6], *cld, lw_in[6])
+        got = k1.lw_clearsky_mega4(*args, **kw)
+        torch.cuda.synchronize()
+        ref = k1.lw_clearsky_mega4_plain(*args, **kw)
+        require(all(bool(torch.isfinite(o).all()) for o in got), f"K1 {mode} output not finite")
+        e = max(maxabs(a, b) for a, b in zip(got, ref))
+        moved = maxabs(got[1], clear_dn)
+        print(f"K1 lw_clearsky_mega4[{mode}] {NCOL}x{NLAY}: max|kernel-plain| {e:.3e} W/m2 (tol "
+              f"{LW_ATOL}); the clouds move flux_dn by up to {moved:.3f} W/m2; mean dn "
+              f"{float(got[1].mean()):.4f}")
+        require(moved > 1.0, f"K1 {mode}: the clouds do not show in the fluxes")
+
+        def ref64(args=args, kw=kw):
+            a, k = lw64_args(args, kw)
+            return k1.lw_clearsky_mega4_plain(*a, **k)
+
+        adjudicate_lazy(f"K1 {mode}", e, LW_ATOL, got, ref, ref64)
+        cloud_ops = cloud_flops("lw", mode, cld, lw_spec.nband, lw_spec.ngpt)
+        results[f"k1_{mode}"] = {"max_abs_err": e, **bound(
+            nbytes(*args[1:3], *args[5:9], args[11], list(kw.values())) + model_bytes(lw_model)
+            + nbytes(table.totplnk, table.totplnk_diff) + 2 * NCOL * (NLAY + 1) * 4,
+            lw_flops + cloud_ops)}
+        timers[f"k1_{mode}"] = lambda a=args, k=kw: k1.lw_clearsky_mega4(*a, **k)
+        timers[f"k1_{mode}_plain"] = lambda a=args, k=kw: k1.lw_clearsky_mega4_plain(*a, **k)
+
+        # K2 in the cloud mode
+        args, kw = allsky.allsky_sw_mega_args([sw_model, sw_model], sw_spec, solar, sw_co[flavour],
+                                              play_t, plev_t, tlay_t, mu0, alb, alb, *cld, concs_t)
+        got = k2.sw_clearsky_megakernel(*args, **kw)
+        torch.cuda.synchronize()
+        ref = k2.sw_clearsky_megakernel_plain(*args, **kw)
+        clear = k2.sw_clearsky_megakernel(*args)
+        require(all(bool(torch.isfinite(o).all()) for o in got), f"K2 {mode} output not finite")
+        errs = {n: maxabs(a, b) for n, a, b in zip(("up", "dn", "dn_dir"), got, ref)}
+        e = max(errs.values())
+        moved = maxabs(got[2], clear[2])
+        print(f"K2 sw_clearsky_megakernel[{mode}] {NCOL}x{NLAY}: max|kernel-plain| "
+              + " ".join(f"{n} {v:.3e}" for n, v in errs.items())
+              + f" W/m2 (tol {SW_ATOL}); the clouds move the direct beam by up to {moved:.3f} W/m2")
+        require(moved > 1.0, f"K2 {mode}: the clouds do not show in the fluxes")
+
+        def ref64(args=args, kw=kw):
+            a, k = sw64_args(args, kw)
+            return k2.sw_clearsky_megakernel_plain(*a, **k)
+
+        adjudicate_lazy(f"K2 {mode}", e, SW_ATOL, got, ref, ref64)
+        cloud_ops = cloud_flops("sw", mode, cld, sw_spec.nband, sw_spec.ngpt)
+        results[f"k2_{mode}"] = {"max_abs_err": e, **bound(
+            nbytes(*args[2:4], *args[5:], list(kw.values())) + model_bytes(sw_model, sw_model)
+            + 3 * NCOL * (NLAY + 1) * 4, sw_flops + cloud_ops)}
+        timers[f"k2_{mode}"] = lambda a=args, k=kw: k2.sw_clearsky_megakernel(*a, **k)
+        timers[f"k2_{mode}_plain"] = lambda a=args, k=kw: k2.sw_clearsky_megakernel_plain(*a, **k)
+
+    # K8: the LW kernel on raw lanes
+    args5 = rfmip.lw_mega5_args([lw_model], table, lw_spec, *lw_in)
+    got = k8_out = k1.lw_clearsky_mega5(*args5)
+    torch.cuda.synchronize()
+    ref = k1.lw_clearsky_mega5_plain(*args5)
+    stacked = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in))
+    e = max(maxabs(a, b) for a, b in zip(got, ref))
+    e_st = max(maxabs(a, b) for a, b in zip(got, stacked))
+    print(f"K8 lw_clearsky_mega5 (raw lanes, codes {args5[2]}) {NCOL}x{NLAY}: max|kernel-plain| "
+          f"{e:.3e}, vs the stacked-input mode {e_st:.3e} W/m2 (tol {LW_ATOL})")
+
+    def ref64_k8():
+        a = to64(args5)
+        a[0], a[1], a[10] = model64(lw_model), to64(args5[1]), table64
+        return k1.lw_clearsky_mega5_plain(*a)
+
+    adjudicate_lazy("K8", e, LW_ATOL, got, ref, ref64_k8)
+    if e_st > LW_ATOL:
+        # two float32 evaluations on features that differ in the last bit
+        # ((x - min) * inv here, (x - min) / (max - min) there): neither is
+        # the other's reference, so each is held to float64
+        r64 = ref64_k8()
+        e8, e1 = (max(maxabs(a, b) for a, b in zip(o, r64)) for o in (got, stacked))
+        print(f"K8 vs the stacked-input mode beyond {LW_ATOL}; against float64: K8 {e8:.3e}, "
+              f"stacked {e1:.3e} W/m2")
+        require(max(e8, e1) <= LW_ATOL, "K8 or the stacked-input mode is off float64")
+    results["k8"] = {"max_abs_err": e, **bound(
+        nbytes(args5[1], args5[3], args5[4], *args5[7:10], args5[12]) + model_bytes(lw_model)
+        + nbytes(table.totplnk, table.totplnk_diff) + 2 * NCOL * (NLAY + 1) * 4, lw_flops)}
+    timers["k8"] = lambda: k1.lw_clearsky_mega5(*args5)
+    timers["k8_plain"] = lambda: k1.lw_clearsky_mega5_plain(*args5)
+
+    # K9: the SW kernel with one array per feature
+    sargs = rfmip.sw_mega_args([sw_model, sw_model], solar, *sw_in)
+    lanes = [l.contiguous() for l in sargs[2].unbind(-1)]
+    largs = sargs[:2] + (lanes,) + sargs[3:]
+    got = k2.sw_clearsky_megakernel(*largs, input_mode="lanes")
+    torch.cuda.synchronize()
+    ref = k2.sw_clearsky_megakernel_plain(*largs, input_mode="lanes")
+    stacked = k2.sw_clearsky_megakernel(*sargs)
+    e = max(maxabs(a, b) for a, b in zip(got, ref))
+    e_st = max(maxabs(a, b) for a, b in zip(got, stacked))
+    print(f"K9 sw_clearsky_megakernel(input_mode='lanes') {NCOL}x{NLAY}: max|kernel-plain| "
+          f"{e:.3e} W/m2 (tol {SW_ATOL}), vs the stacked-input mode {e_st:.3e}")
+    require(e_st == 0.0, "K9 differs from the stacked-input mode of the same kernel")
+
+    def ref64_k9():
+        a = to64(largs)
+        a[0] = a[1] = model64(sw_model)
+        a[2] = to64(lanes)
+        return k2.sw_clearsky_megakernel_plain(*a, input_mode="lanes")
+
+    adjudicate_lazy("K9", e, SW_ATOL, got, ref, ref64_k9)
+    results["k9"] = {"max_abs_err": e, **bound(
+        nbytes(lanes, *sargs[3:4], *sargs[5:]) + model_bytes(sw_model, sw_model)
+        + 3 * NCOL * (NLAY + 1) * 4, sw_flops)}
+    timers["k9"] = lambda: k2.sw_clearsky_megakernel(*largs, input_mode="lanes")
+    timers["k9_plain"] = lambda: k2.sw_clearsky_megakernel_plain(*largs, input_mode="lanes")
+
+    # No driver routes to K8 or K9 (in the JAX package too only benchmarks and
+    # tests call them), so their counts are read around the raw-lane LW core
+    # from column-major inputs and around the lane-input SW wrapper itself
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    for m in (k1.MODE_LAUNCHES, k2.MODE_LAUNCHES):
+        for k in m:
+            m[k] = 0
+    fb = rfmip._lw_core_mega5([lw_model], table, lw_spec, *rfmip.lw_staged_inputs(data, lw_spec, dev),
+                              top_at_1=True)
+    sw_out = k2.sw_clearsky_megakernel(*largs, input_mode="lanes")
+    torch.cuda.synchronize()
+    launches = {"k8": k1.MODE_LAUNCHES["lanes"], "k9": k2.MODE_LAUNCHES["lanes"]}
+    print(f"lane-mode launches (core and wrapper level, no driver route): lw_clearsky_mega5 "
+          f"{launches['k8']} (of {k1.LAUNCHES} LW launches), sw_clearsky_megakernel[lanes] "
+          f"{launches['k9']} (of {k2.LAUNCHES} SW)")
+    require((launches["k8"], k1.LAUNCHES, launches["k9"], k2.LAUNCHES) == (1, 1, 1, 1),
+            "the lane-mode cores did not launch K8 and K9 once each and nothing else")
+    require(maxabs(fb.flux_up, k8_out[0]) <= 1e-6 and maxabs(fb.flux_dn, k8_out[1]) <= 1e-6
+            and maxabs(sw_out[0], stacked[0]) == 0.0,
+            "the lane-mode cores disagree with their kernels")
+    return results, launches, timers
+
+
+def allsky_sw_resonance_distance(paths, flavour, sw64, ncol):
+    """Per column the smallest |k*mu0 - 1| over layers and g-points of the
+    all-sky SW problem (gas + delta-scaled clouds), k the two-stream
+    eigenvalue, from the float64 optical properties on the CPU."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.config import config
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics, load_cloud_optics
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalProps2str, delta_scale, increment
+
+    f64 = torch.float64
+    spec = sw_spectral_g112()
+    atm = allsky.read_garand(paths["garand"], ncol)
+    co = load_cloud_optics(paths[f"sw_{flavour}"], dtype=f64, device="cpu")
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
+    clouds = [t(a) for a in allsky.make_clouds(atm.play, atm.tlay, co)]
+    concs = {k: v.double() for k, v in atm.gas_concs.concs.items()}
+    tau, ssa, _ = go.gas_optics_sw_nn(sw64, t(atm.play), t(atm.plev), t(atm.tlay), GasConcs(concs),
+                                      spec, torch.zeros(spec.ngpt, dtype=f64))
+    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
+                   delta_scale(cloud_optics(co, *clouds, as_2str=True)))
+    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
+    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
+    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    return (k * ALLSKY_MU0 - 1.0).abs().amin((1, 2)).numpy()
+
+
+def write_allsky_files(directory) -> dict:
+    """Write the all-sky drivers' input files, made from SEED, into
+    ``directory``: a Garand-format atmosphere of NLAY layers, and
+    lookup-table and Pade cloud-optics coefficient files for the LW and the
+    SW bands. Returns their paths by "garand" and "<lw|sw>_<lut|pade>"."""
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.testing import (
+        cloud_optics_nc_variables, garand_nc_variables, synthesize_cloud_optics,
+        synthesize_garand)
+    from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc
+
+    paths = {"garand": os.path.join(directory, "garand-synthetic.nc")}
+    write_nc(paths["garand"], *garand_nc_variables(synthesize_garand(NLAY, SEED)))
+    for band, spec in (("lw", lw_spectral_g128()), ("sw", sw_spectral_g112())):
+        for flavour in ("lut", "pade"):
+            paths[f"{band}_{flavour}"] = os.path.join(directory, f"cloud-coeffs-{band}-{flavour}.nc")
+            write_nc(paths[f"{band}_{flavour}"], *cloud_optics_nc_variables(
+                synthesize_cloud_optics(spec, SEED, flavour)))
+    print(f"all-sky files: {sorted(os.path.basename(p) for p in paths.values())}")
+    return paths
+
+
+def allsky_core_closures(dev, lw_model, sw_model, paths) -> dict:
+    """The four all-sky cores (LW and SW, fused and staged route) as
+    closures over device-resident inputs read from the files ``paths``
+    (write_allsky_files), lookup-table cloud optics, NCOL columns."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        PlanckTable, lw_spectral_g128, sw_spectral_g112)
+
+    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
+    atm = allsky.read_garand(paths["garand"], NCOL)
+    table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
+    solar = torch.as_tensor(allsky.resolve_solar_source(sw_spec), dtype=torch.float32, device=dev)
+    tsfc = torch.as_tensor(atm.tlev[:, -1], device=dev)
+    emis = torch.full((NCOL, lw_spec.nband), 0.98, device=dev)
+    mu0 = torch.full((NCOL,), ALLSKY_MU0, device=dev)
+    alb = torch.full((NCOL, sw_spec.nband), 0.06, device=dev)
+    lw_co = allsky.load_cloud_optics_checked(paths["lw_lut"], device=dev)
+    sw_co = allsky.load_cloud_optics_checked(paths["sw_lut"], device=dev)
+    clouds = allsky.make_clouds(atm.play, atm.tlay, lw_co)
+    (play_t, plev_t, tlay_t, tlev_t, *cld_t), concs_t = allsky._canonical_tensors(
+        atm, clouds, True, dev, torch.float32)
+    (play, plev, tlay, tlev, *cld), concs = allsky._staged_tensors(atm, clouds, dev, torch.float32)
+    return {
+        "allsky_lw_core_fused": lambda: allsky._allsky_lw_core_mega(
+            [lw_model], table, lw_spec, lw_co, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t,
+            concs_t, top_at_1=True),
+        "allsky_sw_core_fused": lambda: allsky._allsky_sw_core_mega(
+            [sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
+            *cld_t, concs_t, top_at_1=True),
+        "allsky_lw_core_staged": lambda: allsky._allsky_lw_core(
+            [lw_model], table, lw_spec, lw_co, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
+            top_at_1=True, n_gauss_angles=1),
+        "allsky_sw_core_staged": lambda: allsky._allsky_sw_core_lay_major(
+            [sw_model, sw_model], sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
+            concs, top_at_1=True),
+    }
+
+
+def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
+    """Phase 12: allsky_lw / allsky_sw on the card from files written here,
+    each call with every kernel count set to 0 just before and read just
+    after. Returns (launches per kernel mode on the fused route, timing
+    closures of the all-sky cores)."""
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    def reset():
+        k1.LAUNCHES = k2.LAUNCHES = k7.LAUNCHES = 0
+        for m in (k1.MODE_LAUNCHES, k2.MODE_LAUNCHES, mlp.LAUNCHES):
+            for k in m:
+                m[k] = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        c = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "k7": k7.LAUNCHES}
+        c.update({f"k1_{k}": v for k, v in k1.MODE_LAUNCHES.items() if v})
+        c.update({f"k2_{k}": v for k, v in k2.MODE_LAUNCHES.items() if v})
+        c.update({k: v for k, v in mlp.LAUNCHES.items() if v})
+        return {k: v for k, v in c.items() if v}
+
+    def finite(fb, names):
+        for n in names:
+            v = getattr(fb, n)
+            require(v.device.type == dev.type and tuple(v.shape) == (NCOL, NLAY + 1),
+                    f"all-sky {n}: {v.device} {tuple(v.shape)}")
+            require(bool(torch.isfinite(v).all()), f"all-sky {n} not finite")
+
+    lw_names, sw_names = ("flux_up", "flux_dn", "flux_net"), ("flux_up", "flux_dn", "flux_dn_dir")
+    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
+    cpu, f64 = torch.device("cpu"), torch.float64
+    lw64 = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
+    sw64 = load_model_netcdf(SW_MODEL, device=cpu, dtype=f64)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_allsky_files(tmp)
+        # the file's 2 profiles and the 3-column cloud pattern repeat every 6
+        # columns: 6 columns in float64 on the CPU are the reference of all
+        tile = torch.arange(NCOL) % 6
+        for flavour, mode in (("lut", "cld_lut"), ("pade", "cld_bands")):
+            garand, lw_co, sw_co = paths["garand"], paths[f"lw_{flavour}"], paths[f"sw_{flavour}"]
+            reset()
+            lw = allsky.allsky_lw(garand, lw_co, [lw_model], ncol=NCOL, device=dev)
+            c_lw = counts()
+            reset()
+            sw = allsky.allsky_sw(garand, sw_co, [sw_model, sw_model], ncol=NCOL, device=dev)
+            c_sw = counts()
+            print(f"all-sky {flavour}, fused route: allsky_lw launches {c_lw}, allsky_sw {c_sw}")
+            require(c_lw == {"k1": 1, f"k1_{mode}": 1} and c_sw == {"k2": 1, f"k2_{mode}": 1},
+                    f"the fused all-sky route did not launch K1 and K2 once in the {mode} mode "
+                    "and nothing else")
+            launches[f"k1_{mode}"], launches[f"k2_{mode}"] = c_lw[f"k1_{mode}"], c_sw[f"k2_{mode}"]
+            finite(lw, lw_names)
+            finite(sw, sw_names + ("flux_net",))
+
+            reset()
+            lw3 = allsky.allsky_lw(garand, lw_co, [lw_model], ncol=NCOL, n_gauss_angles=N_ANGLES,
+                                   device=dev)
+            c_lw3 = counts()
+            with config_override(use_megakernel=False):
+                reset()
+                lw1 = allsky.allsky_lw(garand, lw_co, [lw_model], ncol=NCOL, device=dev)
+                c_lw1 = counts()
+                reset()
+                sws = allsky.allsky_sw(garand, sw_co, [sw_model, sw_model], ncol=NCOL, device=dev)
+                c_sws = counts()
+            print(f"all-sky {flavour}, staged routes: allsky_lw {N_ANGLES} angles {c_lw3}, 1 angle "
+                  f"{c_lw1}, allsky_sw {c_sws}")
+            require(c_lw3 == {"fused_predict_lw_both": 1, "k7": N_ANGLES}
+                    and c_lw1 == {"fused_predict_lw_both": 1, "k7": 1}
+                    and c_sws == {"fused_predict_sw": 1},
+                    "the staged all-sky routes did not launch K3 once and K7 once per angle, or K5 once")
+            finite(lw3, lw_names)
+            finite(sws, sw_names)
+
+            ref_lw = {n: allsky.allsky_lw(garand, lw_co, [lw64], ncol=6, n_gauss_angles=n,
+                                          device=cpu, dtype=f64) for n in (1, N_ANGLES)}
+            ref_sw = allsky.allsky_sw(garand, sw_co, [sw64, sw64], ncol=6, device=cpu, dtype=f64)
+            tiled = lambda fb, n: getattr(fb, n)[tile]
+            e_mega = max(maxabs(getattr(lw, n).cpu(), tiled(ref_lw[1], n)) for n in lw_names)
+            e_st1 = max(maxabs(getattr(lw1, n).cpu(), tiled(ref_lw[1], n)) for n in lw_names)
+            e_st3 = max(maxabs(getattr(lw3, n).cpu(), tiled(ref_lw[N_ANGLES], n)) for n in lw_names)
+            e_ms = max(maxabs(getattr(lw, n), getattr(lw1, n)) for n in lw_names)
+            print(f"all-sky {flavour} LW vs float64 on the CPU: fused {e_mega:.3e}, staged 1 angle "
+                  f"{e_st1:.3e}, staged {N_ANGLES} angles {e_st3:.3e}; fused vs staged {e_ms:.3e} "
+                  f"W/m2 (tol {LW_ATOL}); mean dn {float(lw.flux_dn.mean()):.4f} up "
+                  f"{float(lw.flux_up.mean()):.4f}")
+            require(max(e_mega, e_st1, e_st3, e_ms) <= LW_ATOL, "all-sky LW routes disagree")
+            ref_tiled = type(ref_sw)(**{n: tiled(ref_sw, n) for n in sw_names})
+            e_mega = max(maxabs(getattr(sw, n).cpu(), getattr(ref_tiled, n)) for n in sw_names)
+            dist = allsky_sw_resonance_distance(paths, flavour, [sw64, sw64], 6)[tile.numpy()]
+            mu0 = np.full(NCOL, ALLSKY_MU0)
+            e_st, over, rest = f1_law(f"all-sky {flavour} staged SW", sw_col_err(sws, ref_tiled),
+                                      dist, mu0)
+            f1_law(f"all-sky {flavour} fused vs staged SW", sw_col_err(sw, sws), dist, mu0)
+            print(f"all-sky {flavour} SW vs float64 on the CPU: fused {e_mega:.3e} (tol {SW_ATOL}), "
+                  f"staged {e_st:.3e} with {over} columns beyond {SW_ATOL} (min |k*mu0 - 1| "
+                  f"{float(dist.min()):.3e}), the others {rest:.3e} W/m2; mean dn "
+                  f"{float(sw.flux_dn.mean()):.4f} up {float(sw.flux_up.mean()):.4f} dir "
+                  f"{float(sw.flux_dn_dir.mean()):.4f}")
+            require(e_mega <= SW_ATOL, "all-sky fused SW disagrees with float64")
+
+            # columns 0 and 2 share a profile, as do 1 and 5; 2 and 5 are cloud-free
+            for cloudy, clear_col in ((0, 2), (1, 5)):
+                d_lw = float(lw.flux_dn[cloudy, -1] - lw.flux_dn[clear_col, -1])
+                d_sw = float(sw.flux_dn_dir[cloudy, -1] - sw.flux_dn_dir[clear_col, -1])
+                print(f"all-sky {flavour}: column {cloudy} (cloudy) against {clear_col} (clear): LW "
+                      f"flux_dn at the surface {d_lw:+.3f}, SW direct beam {d_sw:+.3f} W/m2")
+                require(d_lw > 0 and d_sw < 0, "clouds do not raise the LW down flux and cut the "
+                                               "SW direct beam at the surface")
+            toa = float((sw.flux_dn[:, 0].double() - solar_sum * ALLSKY_MU0).abs().max()
+                        / (solar_sum * ALLSKY_MU0))
+            require(toa <= 1e-5, f"all-sky SW TOA down differs from sum(solar)*mu0 by {toa:.2e}")
+
+        timers = allsky_core_closures(dev, lw_model, sw_model, paths)
+    return launches, timers
+
+
 def run() -> dict:
     import torch
 
@@ -489,7 +1039,11 @@ def run() -> dict:
           f"{max(maxabs(up_k, up_64), maxabs(dn_k, dn_64)):.3e}, plain "
           f"{max(maxabs(up_p, up_64), maxabs(dn_p, dn_64)):.3e}; mean dn {float(dn_k.mean()):.4f}")
     adjudicate("K1", e1, LW_ATOL, (up_k, dn_k), (up_p, dn_p), (up_64, dn_64))
-    results["k1"] = {"max_abs_err": e1}
+    ncell = NCOL * NLAY
+    results["k1"] = {"max_abs_err": e1, **bound(
+        nbytes(*lw_args[1:3], *lw_args[5:9], lw_args[11]) + model_bytes(lw_model)
+        + nbytes(table.totplnk, table.totplnk_diff) + 2 * NCOL * (NLAY + 1) * 4,
+        mlp_flops(lw_model, ncell) + ELEMENT_FLOPS["lw"] * ncell * lw_spec.ngpt)}
 
     # ---- 4. K2 vs plain -----------------------------------------------------
     outs_k = k2.sw_clearsky_megakernel(*sw_args)
@@ -515,7 +1069,9 @@ def run() -> dict:
     for n in ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"):
         require(bool((getattr(fb, n)[night] == 0).all()), f"night columns of {n} not zero")
     print(f"K2 night columns: {int(night.sum())} of {NCOL}, all fluxes exactly 0")
-    results["k2"] = {"max_abs_err": e2}
+    results["k2"] = {"max_abs_err": e2, **bound(
+        nbytes(*sw_args[2:4], *sw_args[5:]) + 2 * model_bytes(sw_model) + 3 * NCOL * (NLAY + 1) * 4,
+        2 * mlp_flops(sw_model, ncell) + ELEMENT_FLOPS["sw"] * ncell * sw_spec.ngpt)}
 
     # ---- 5. main path: the fused kernels -------------------------------------
     k1.LAUNCHES = 0
@@ -578,13 +1134,13 @@ def run() -> dict:
     timed["drivers_host"] = (time.perf_counter() - t0) / 5 * 1e3
 
     # ---- 7. K3 / K4 / K5 vs plain ------------------------------------------
-    mlp_errs, mlp_timers = mlp_phase(dev, lw_model, sw_model, data)
+    mlp_errs, mlp_timers, mlp_bounds = mlp_phase(dev, lw_model, sw_model, data)
     for k, e in mlp_errs.items():
-        results[k] = {"max_abs_err": e}
+        results[k] = {"max_abs_err": e, **mlp_bounds[k]}
 
     # ---- 8. K7 vs plain -----------------------------------------------------
-    e7, k7_timers = k7_phase(dev, lw_model, table, lw_spec, data)
-    results["k7"] = {"max_abs_err": e7}
+    e7, k7_timers, k7_bound = k7_phase(dev, lw_model, table, lw_spec, data)
+    results["k7"] = {"max_abs_err": e7, **k7_bound}
 
     # ---- 9. main path: the general RTE path ---------------------------------
     launches.update(general_main_path(dev, lw_model, sw_model, main))
@@ -634,8 +1190,34 @@ def run() -> dict:
     print(f"timing general LW core ({N_ANGLES} angles, K3 + {N_ANGLES} x K7) "
           f"{timed['lw_core_general']:.4f} ms, staged SW core (K5) {timed['sw_core_staged']:.4f} "
           f"ms | {card}")
-    for k in ("k1", "k2", "k3", "k4", "k5", "k7"):
+    # ---- 11. cloud modes of K1/K2, K8, K9 ------------------------------------
+    mode_results, mode_launches, mode_timers = modes_phase(
+        dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data, lw_in, sw_in, model64,
+        a64[9])
+    results.update(mode_results)
+    launches.update(mode_launches)
+
+    # ---- 12. the all-sky main path ---------------------------------------------
+    allsky_launches, allsky_timers = allsky_main_path(dev, lw_model, sw_model, float(solar.double().sum()))
+    launches.update(allsky_launches)
+
+    # ---- 13. timing of the new modes and the all-sky cores ---------------------
+    # kernels and cores: the median of 25 samples; the plain twins, which
+    # are launch-bound and slow, of 9
+    late = {k: cuda_ms(fn, reps=9 if k.endswith("_plain") else 25)
+            for k, fn in {**mode_timers, **allsky_timers}.items()}
+    for k, ms in late.items():
+        print(f"timing {k}: {ms:.4f} ms, {NCOL / ms * 1e3:.0f} columns/s at {NCOL}x{NLAY} | {card}")
+    for route in ("fused", "staged"):
+        ms = late[f"allsky_lw_core_{route}"] + late[f"allsky_sw_core_{route}"]
+        print(f"timing all-sky LW+SW cores, {route} route: {ms:.4f} ms, "
+              f"{NCOL / ms * 1e3:.0f} columns/s | {card}")
+    timed.update(late)
+    for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
+        r = results[k]
+        print(f"bound {k}: {r['bound_ms']:.4f} ms by {r['bound_by']}, measured {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.3f} of it) | {card}")
     results["card"] = card
     return results
 
@@ -656,22 +1238,52 @@ def main() -> int:
     kernels = [
         {"name": "lw_clearsky_mega4", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:558", **r["k1"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:558", **r["k1"],
+         "counted_around": "rfmip_clear_sky_lw, both orientations"},
         {"name": "sw_clearsky_megakernel", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"],
+         "counted_around": "rfmip_clear_sky_sw, both orientations"},
         {"name": "fused_predict_lw_both", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
+         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations"},
         {"name": "fused_predict_tau", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"],
+         "counted_around": "rfmip_clear_sky_lw, two models, use_megakernel=False"},
         {"name": "fused_predict_sw", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"],
+         "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations"},
         {"name": "lw_noscat_broadband", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
-         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"]},
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],
+         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations"},
+        {"name": "lw_clearsky_mega4[cld_lut]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:431", **r["k1_cld_lut"],
+         "counted_around": "allsky_lw, lookup-table cloud optics"},
+        {"name": "lw_clearsky_mega4[cld_bands]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:448", **r["k1_cld_bands"],
+         "counted_around": "allsky_lw, Pade cloud optics"},
+        {"name": "sw_clearsky_megakernel[cld_lut]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:303", **r["k2_cld_lut"],
+         "counted_around": "allsky_sw, lookup-table cloud optics"},
+        {"name": "sw_clearsky_megakernel[cld_bands]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:321", **r["k2_cld_bands"],
+         "counted_around": "allsky_sw, Pade cloud optics"},
+        {"name": "lw_clearsky_mega5", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:931", **r["k8"],
+         "counted_around": "drivers.rfmip._lw_core_mega5: a core, no driver routes to it"},
+        {"name": "sw_clearsky_megakernel[lanes]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:491", **r["k9"],
+         "counted_around": "sw_clearsky_megakernel(input_mode='lanes'): the wrapper, no driver route"},
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(r["card"])

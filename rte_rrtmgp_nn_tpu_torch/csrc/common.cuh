@@ -16,6 +16,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace rte {
 
 constexpr int kThreads = 128;  // threads per block: one per g-point
@@ -53,20 +55,28 @@ __device__ inline void mlp_const_part(const Mlp3& m, const float* cf, int nc, fl
 // Hidden layers for kRows rows: s_x (kRows, n_in) -> s_h2 (kRows, h2) via
 // s_h1 (kRows, h1). The caller makes s_x and s_hc visible first; this
 // function ends with a barrier, after which s_h2 is readable by all.
+// kRank1 takes the first layer as the raw-lane Pallas kernel does: starting
+// from the const block's share plus the bias, one rounded product and one
+// rounded sum per feature, in feature order (no fused multiply-add), so the
+// raw-lane mode rounds as its plain version does.
+template <bool kRank1 = false>
 __device__ inline void mlp_hidden(const Mlp3& m, const float* s_x, int n_in, const float* s_hc,
                                   float* s_h1, float* s_h2) {
   for (int j = threadIdx.x; j < m.h1; j += blockDim.x) {
     float acc[kRows];
+    const float hc = s_hc[j], b = __ldg(m.b1 + j);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < kRows; ++r) acc[r] = kRank1 ? hc + b : 0.0f;
     for (int k = 0; k < n_in; ++k) {
       const float w = __ldg(m.w1a + k * m.h1 + j);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_x[r * n_in + k], w, acc[r]);
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = kRank1 ? __fadd_rn(acc[r], __fmul_rn(s_x[r * n_in + k], w))
+                        : fmaf(s_x[r * n_in + k], w, acc[r]);
     }
-    const float hc = s_hc[j], b = __ldg(m.b1 + j);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s_h1[r * m.h1 + j] = softsign((acc[r] + hc) + b);
+    for (int r = 0; r < kRows; ++r)
+      s_h1[r * m.h1 + j] = softsign(kRank1 ? acc[r] : (acc[r] + hc) + b);
   }
   __syncthreads();
   for (int j = threadIdx.x; j < m.h2; j += blockDim.x) {
@@ -117,6 +127,87 @@ __device__ inline void load_rows(const float* x, int l0, int nlay, int ncol, int
     const int l = l0 + r;
     s_x[i] = l < nlay ? x[((size_t)l * ncol + col) * n_in + k] : 0.0f;
   }
+}
+
+// The fused kernels' input and cloud modes (template parameter of both).
+enum MegaMode {
+  kClear = 0,     // stacked scaled features, gases only
+  kCldLut = 1,    // + clouds from lwp/iwp/rel/rei through the LUT, in the kernel
+  kCldBands = 2,  // + clouds as band-resolved lanes computed outside
+  kLanes = 3,     // clear-sky, one array per feature (LW: raw, transformed here)
+};
+
+// One (nlay, ncol) array per input feature, passed by value with the
+// kLanes kernel's arguments. ``code`` is the LW raw-lane transform: 0
+// identity, 1 log, 2 fourth root.
+constexpr int kMaxLanes = 32;
+struct LaneList {
+  const float* p[kMaxLanes];
+  int code[kMaxLanes];
+};
+
+// A kernel instance takes the lane list and the cloud tables among its
+// arguments only in the mode that reads them; the others take this instead.
+struct Unused {};
+
+// load_rows for one array per feature. With ``scale`` (2, n_in) =
+// [min; 1/(max - min)] the lanes are raw: transform by code, then
+// (x - min) * inv. Without it they are already scaled. No barrier.
+__device__ inline void load_rows_lanes(const LaneList& lanes, const float* scale, int l0, int nlay,
+                                       int ncol, int col, int n_in, float* s_x) {
+  for (int i = threadIdx.x; i < kRows * n_in; i += blockDim.x) {
+    const int r = i / n_in, k = i - r * n_in;
+    const int l = l0 + r;
+    float v = 0.0f;
+    if (l < nlay) {
+      v = lanes.p[k][(size_t)l * ncol + col];
+      if (scale != nullptr) {
+        const int code = lanes.code[k];
+        if (code == 1) v = logf(v);
+        else if (code == 2) v = sqrtf(sqrtf(v));
+        v = (v - __ldg(scale + k)) * __ldg(scale + n_in + k);
+      }
+    }
+    s_x[i] = v;
+  }
+}
+
+// Cloud-optics lookup tables, one per phase: (nsize, 3 * nband) rows of
+// [extinction | single-scattering albedo | asymmetry] on an even grid of
+// effective radius starting at ``off`` with spacing ``step``. They stay in
+// device memory and are read through the cache (a few KB, shared by every
+// block).
+struct CloudLut {
+  const float* liq;
+  const float* ice;
+  int n_liq, n_ice, nband;
+  float liq_off, liq_step, ice_off, ice_step;
+};
+
+template <int kMode>
+using CloudLutOf = std::conditional_t<kMode == kCldLut, CloudLut, Unused>;
+template <int kMode>
+using LaneListOf = std::conditional_t<kMode == kLanes, LaneList, Unused>;
+
+// One phase's band-b (tau, tau*ssa, tau*ssa*g) from water path wp and
+// effective radius re: linear in radius, index clamped to [0, nsize-2],
+// fraction NOT clamped, tau masked by wp > 0 (a cell without cloud has
+// re = 0 and a large negative fraction; the mask zeroes it).
+__device__ __forceinline__ void cloud_lut_phase(const float* tab, int nsize, int nband, int b,
+                                                float off, float step, float wp, float re,
+                                                float& t, float& ts, float& tsg) {
+  const float fidx = (re - off) / step;
+  const float i0f = fminf(fmaxf(floorf(fidx), 0.0f), (float)(nsize - 2));
+  const float frac = fidx - i0f;
+  const float* lo = tab + (size_t)((int)i0f) * 3 * nband + b;
+  const float* hi = lo + 3 * nband;
+  const float e_lo = __ldg(lo), s_lo = __ldg(lo + nband), a_lo = __ldg(lo + 2 * nband);
+  const float e = e_lo + frac * (__ldg(hi) - e_lo);
+  const float s = s_lo + frac * (__ldg(hi + nband) - s_lo);
+  const float a = a_lo + frac * (__ldg(hi + 2 * nband) - a_lo);
+  t = wp > 0.0f ? wp * e : 0.0f;
+  ts = t * s;
+  tsg = ts * a;
 }
 
 // The band-b Planck radiance at temperature t: reference interpolate1D

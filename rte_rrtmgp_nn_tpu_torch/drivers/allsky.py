@@ -1,0 +1,439 @@
+"""All-sky (clouds + gases) example driver.
+
+Port of rte_rrtmgp_nn_tpu/drivers/allsky.py (reference
+examples/all-sky/rrtmgp_allsky.F90: a Garand atmosphere replicated to ncol
+columns; idealized cloud placement, clouds in 2/3 of the columns between
+100 and 900 hPa, liquid where T > 263 K and ice where T < 273 K, lwp = iwp
+= 10 g/m2, effective radii at the middle of the valid range, :329-350;
+cloud optics -> (SW) delta-scale -> increment into the gas optical props ->
+solver; SW albedo 0.06, mu0 = 0.86, LW emissivity 0.98, :280-304). Gas
+optics is the NN path.
+
+The route is taken once per call by ``config.resolve_use_megakernel``:
+  - "megakernel" (one angle, float32, nets the fused kernels take):
+    ``_allsky_lw_core_mega`` / ``_allsky_sw_core_mega`` on canonical
+    layer-major inputs. With lookup-table cloud optics the cloud fields
+    (lwp, iwp, rel, rei) go into the fused kernel, which does the table
+    interpolation, the delta scaling, the band -> g-point expansion and the
+    increment itself; with Pade cloud optics the band-resolved cloud
+    properties are computed here and go in as band lanes. On CUDA tensors
+    that is one launch of K1 or K2 in a cloud mode; on CPU tensors their
+    plain twins;
+  - "staged" LW: on CUDA, and for more than one angle anywhere,
+    ``_allsky_lw_core`` (NN gas optics through the MLP kernel, ``increment``
+    by band, then ``rte_lw``: the transport kernel once per angle); on the
+    CPU with one angle ``_allsky_lw_core_lay_major``, whose sweeps are
+    PyTorch ops (the oracle of the fused core, not a CUDA route);
+  - "staged" SW: ``_allsky_sw_core_lay_major`` (the MLP kernel, then the
+    two-stream coefficients and the adding sweeps in PyTorch);
+  - "refuse": NotImplementedError with the reason (parallel scans, float64
+    on CUDA, a net the MLP kernel does not take).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import resolve_use_megakernel
+from ..extensions.cloud_optics import CloudOptics, cloud_optics, load_cloud_optics
+from ..fluxes import FluxesBroadband
+from ..gas_concs import GasConcs
+from ..gasoptics.nn_gas_optics import (
+    compute_nn_inputs,
+    gas_optics_lw_nn,
+    gas_optics_sw_nn,
+    get_col_dry_lay_major,
+    predict_nn_lw,
+    predict_nn_sw,
+    split_first_layer,
+)
+from ..gasoptics.planck import (
+    PlanckTable,
+    compute_planck_source_nn,
+    lw_spectral_g128,
+    sw_spectral_g112,
+)
+from ..models.network import NNModel
+from ..ops.cuda.lw_megakernel import lw_clearsky_mega4
+from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
+from ..ops.lw_solver import lw_solver_noscat_lay_major
+from ..ops.sw_solver import sw_solver_2stream_lay_major
+from ..optical_props import OpticalProps1scl, OpticalProps2str, delta_scale, increment
+from ..rte import rte_lw, rte_sw
+from ..spectral import SpectralMapping
+from .allsky_io import GarandAtmosphere  # noqa: F401 (re-export)
+from .allsky_io import read_garand
+from .rfmip import _check_sw_scaling, _stack_lanes, _to_lay_major, resolve_solar_source
+
+# Idealized cloud-placement thresholds (reference rrtmgp_allsky.F90:329-350).
+CLOUD_P_MIN = 100.0 * 100.0   # Pa
+CLOUD_P_MAX = 900.0 * 100.0   # Pa
+CLOUD_T_LIQ = 263.0           # K: liquid where tlay > this
+CLOUD_T_ICE = 273.0           # K: ice where tlay < this
+
+
+def make_clouds(play, tlay, co: CloudOptics, cloud_col=None):
+    """Idealized cloud fields (reference rrtmgp_allsky.F90:329-350) from
+    play/tlay (ncol, nlay), numpy arrays or tensors: (lwp, iwp, rel, rei).
+    ``cloud_col`` optionally gives the per-column "may hold cloud" mask
+    (default: two columns of every three, by 1-based column index)."""
+    is_t = torch.is_tensor(play)
+    ncol, nlay = play.shape
+    if cloud_col is None:
+        icol = (torch.arange(ncol, device=play.device) if is_t else np.arange(ncol))[:, None] + 1
+        cloud_col = (icol % 3) != 0
+    else:
+        cloud_col = cloud_col > 0.5
+        if cloud_col.ndim == 1:
+            cloud_col = cloud_col[:, None]
+    cloud_mask = (play > CLOUD_P_MIN) & (play < CLOUD_P_MAX) & cloud_col
+    rel_val = 0.5 * (co.min_radius_liq + co.max_radius_liq)
+    rei_val = 0.5 * (co.min_radius_ice + co.max_radius_ice)
+    where = (lambda c, v: c.to(play.dtype) * v) if is_t else (lambda c, v: np.where(c, v, 0.0))
+    lwp = where(cloud_mask & (tlay > CLOUD_T_LIQ), 10.0)
+    iwp = where(cloud_mask & (tlay < CLOUD_T_ICE), 10.0)
+    rel = where(lwp > 0.0, rel_val)
+    rei = where(iwp > 0.0, rei_val)
+    return lwp, iwp, rel, rei
+
+
+def cloud_fields_lay_major(play, tlay, co: CloudOptics, top_at_1: bool, device,
+                           dtype=torch.float32):
+    """make_clouds on host arrays play/tlay (ncol, nlay), as the fused
+    cores take the fields: four contiguous (nlay, ncol) top-at-0 tensors on
+    ``device``."""
+    def canon(a):
+        a = np.asarray(a, np.float32)
+        return np.ascontiguousarray((a if top_at_1 else a[:, ::-1]).T)
+
+    return tuple(torch.as_tensor(canon(a), dtype=dtype, device=device)
+                 for a in make_clouds(np.asarray(play), np.asarray(tlay), co))
+
+
+def _allsky_lw_core(
+    models, table, spectral, cloud_co,
+    play, plev, tlay, tlev, tsfc, emis_band, lwp, iwp, rel, rei, concs,
+    top_at_1, n_gauss_angles,
+):
+    """General all-sky LW core, column-major: NN gas optics, cloud
+    absorption added by band (``increment``), then rte_lw with
+    ``n_gauss_angles`` Gauss angles and broadband output."""
+    tau, sources = gas_optics_lw_nn(
+        models, play, plev, tlay, tsfc, GasConcs(concs), spectral, table,
+        tlev=tlev, top_at_1=top_at_1)
+    clouds = cloud_optics(cloud_co, lwp, iwp, rel, rei, as_2str=False)
+    atmos = increment(OpticalProps1scl(tau, spectral), clouds)
+    sol = rte_lw(atmos, top_at_1, sources, emis_band, n_gauss_angles=n_gauss_angles,
+                 broadband=True)
+    return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
+                           flux_net=sol.flux_dn - sol.flux_up)
+
+
+def _allsky_sw_core(
+    models, spectral, solar, cloud_co,
+    play, plev, tlay, mu0, sfc_alb_dir, sfc_alb_dif, lwp, iwp, rel, rei, concs,
+    top_at_1,
+):
+    """General all-sky SW core, column-major: NN gas optics (g = 0), cloud
+    optics delta-scaled and incremented by band, then rte_sw with broadband
+    output. The JAX package takes it for parallel-scan SW, which the port
+    still refuses (ROADMAP Queue 1 item 6); until then no driver calls it."""
+    tau, ssa, toa_src = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs),
+                                         spectral, solar)
+    atmos = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral)
+    clouds = delta_scale(cloud_optics(cloud_co, lwp, iwp, rel, rei, as_2str=True))
+    atmos = increment(atmos, clouds)
+    sol = rte_sw(atmos, top_at_1, mu0, toa_src, spectral.expand(sfc_alb_dir),
+                 spectral.expand(sfc_alb_dif), broadband=True)
+    return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
+                           flux_net=sol.flux_dn - sol.flux_up, flux_dn_dir=sol.flux_dn_dir)
+
+
+def _flip_all(top_at_1, *arrs):
+    return arrs if top_at_1 else tuple(a.flip(1) for a in arrs)
+
+
+def _allsky_lw_core_lay_major(
+    models, table, spectral, cloud_co,
+    play, plev, tlay, tlev, tsfc, emis_band, lwp, iwp, rel, rei, concs,
+    top_at_1,
+):
+    """Layer-major all-sky LW core: the cloud absorption tau is expanded
+    band -> g-point and added to the gas tau before the broadband solve,
+    whose sweeps are PyTorch ops. Same numbers as _allsky_lw_core."""
+    ncol, nlay = play.shape
+    play, plev, tlay, tlev, lwp, iwp, rel, rei = _flip_all(
+        top_at_1, play, plev, tlay, tlev, lwp, iwp, rel, rei)
+    gd_t = _to_lay_major(GasConcs(concs), ncol, nlay, top_at_1)
+    col_dry_t = get_col_dry_lay_major(gd_t.get_raw("h2o"), plev.T)
+    x = compute_nn_inputs(play.T, tlay.T, gd_t, models[0])
+    tau, pfrac = predict_nn_lw(models, x, col_dry_t)
+    lay_src, lev_src, sfc_src, _ = compute_planck_source_nn(
+        pfrac, tlay.T, tlev.T, tsfc, spectral, table, top_at_1=True, lay_axis=0)
+    cld = cloud_optics(cloud_co, lwp.T, iwp.T, rel.T, rei.T, as_2str=False)
+    tau = tau + spectral.expand(cld.tau)
+    sol = lw_solver_noscat_lay_major(tau, lay_src, lev_src, spectral.expand(emis_band), sfc_src)
+    up, dn = sol.flux_up, sol.flux_dn
+    if not top_at_1:
+        up, dn = up.flip(1), dn.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+
+
+def _allsky_sw_core_lay_major(
+    models, spectral, solar, cloud_co,
+    play, plev, tlay, mu0, sfc_alb_dir, sfc_alb_dif, lwp, iwp, rel, rei, concs,
+    top_at_1,
+):
+    """Layer-major all-sky SW core: the delta-scaled cloud two-stream
+    properties are combined with the (g = 0) gas ones in the g-point domain
+    (inc_2stream_by_2stream_bybnd, mo_optical_props_kernels.F90:269-305,
+    without the zero gas-asymmetry terms) before the broadband solve. Same
+    numbers as _allsky_sw_core. Honors fast_exponential."""
+    ncol, nlay = play.shape
+    play, plev, tlay, lwp, iwp, rel, rei = _flip_all(
+        top_at_1, play, plev, tlay, lwp, iwp, rel, rei)
+    gd_t = _to_lay_major(GasConcs(concs), ncol, nlay, top_at_1)
+    col_dry_t = get_col_dry_lay_major(gd_t.get_raw("h2o"), plev.T)
+    x = compute_nn_inputs(play.T, tlay.T, gd_t, models[0])
+    tau, ssa = predict_nn_sw(models, x, col_dry_t)  # gas: g = 0
+
+    cld = delta_scale(cloud_optics(cloud_co, lwp.T, iwp.T, rel.T, rei.T, as_2str=True))
+    eps = torch.finfo(tau.dtype).eps
+    tau_c = spectral.expand(cld.tau)
+    ssa_c = spectral.expand(cld.ssa)
+    g_c = spectral.expand(cld.g)
+    tau12 = tau + tau_c
+    tauscat12 = tau * ssa + tau_c * ssa_c
+    g12 = (tau_c * ssa_c * g_c) / torch.clamp_min(tauscat12, eps)
+    ssa12 = tauscat12 / torch.clamp_min(tau12, eps)
+
+    toa_src = solar[None, :].expand(ncol, spectral.ngpt)
+    sol = sw_solver_2stream_lay_major(
+        tau12, ssa12, g12, mu0, toa_src, spectral.expand(sfc_alb_dir),
+        spectral.expand(sfc_alb_dif))
+    up, dn, dn_dir = sol.flux_up, sol.flux_dn, sol.flux_dn_dir
+    if not top_at_1:
+        up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
+
+
+def canonicalize_allsky_inputs(
+    play, plev, tlay, tlev, lwp, iwp, rel, rei, gas_concs, top_at_1,
+    dtype=np.float32,
+):
+    """Host-side layout canonicalization for the fused-kernel cores: every
+    (ncol, nlay[+1]) field becomes a contiguous (nlay[+1], ncol) top-at-0
+    numpy array, and every gas VMR is materialized to layer-major 2-D.
+    Returns ((play_t, plev_t, tlay_t, tlev_t, lwp_t, iwp_t, rel_t, rei_t),
+    concs_t)."""
+    def canon(a):
+        a = np.asarray(a, dtype)
+        if not top_at_1:
+            a = a[:, ::-1]
+        return np.ascontiguousarray(a.T)
+
+    ncol, nlay = np.asarray(play).shape
+    fields = tuple(canon(a) for a in (play, plev, tlay, tlev, lwp, iwp, rel, rei))
+    concs_t = {name: canon(gas_concs.get_vmr(name, ncol, nlay).cpu().numpy())
+               for name in gas_concs.concs}
+    return fields, concs_t
+
+
+def allsky_lw_mega_args(
+    models, table, spectral, cloud_co,
+    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
+    lwp_t, iwp_t, rel_t, rei_t, concs_t,
+):
+    """The fused LW kernel's positional and cloud arguments
+    (lw_clearsky_mega4) from canonical layer-major top-at-0 inputs: (args,
+    cloud keywords). Lookup-table cloud optics goes in as the four cloud
+    fields and the packed tables; Pade cloud optics as the band absorption
+    tau computed here."""
+    gas_desc = GasConcs(concs_t)
+    nlay, ncol = play_t.shape
+    col_dry = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
+    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gas_desc, models[0])
+    w1a, w1c = split_first_layer(models[0], perm, x2d.shape[-1])
+    if cloud_co.is_lut:
+        cld_kw = dict(cld_fields=(lwp_t, iwp_t, rel_t, rei_t), cld_lut=cloud_co.lut_pack)
+    else:
+        cld = cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t, as_2str=False)
+        cld_kw = dict(cld_tau_band=cld.tau.contiguous())
+    args = (models[0], x2d, const_feats, w1a, w1c, col_dry, tlay_t, tlev_t, tsfc, table,
+            spectral.gpt2band_tensor(play_t.device), spectral.expand(emis_band).contiguous())
+    return args, cld_kw
+
+
+def _allsky_lw_core_mega(
+    models, table, spectral, cloud_co,
+    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
+    lwp_t, iwp_t, rel_t, rei_t, concs_t,
+    top_at_1,
+):
+    """All-sky LW through the fused kernel in a cloud mode, on canonical
+    layer-major top-at-0 inputs (canonicalize_allsky_inputs); top_at_1 only
+    flips the output. Same numbers as _allsky_lw_core_lay_major."""
+    args, cld_kw = allsky_lw_mega_args(
+        models, table, spectral, cloud_co, play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
+        lwp_t, iwp_t, rel_t, rei_t, concs_t)
+    up, dn = lw_clearsky_mega4(*args, **cld_kw)
+    if not top_at_1:
+        up, dn = up.flip(1), dn.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+
+
+def allsky_sw_mega_args(
+    models, spectral, solar, cloud_co,
+    play_t, plev_t, tlay_t, mu0, sfc_alb_dir, sfc_alb_dif,
+    lwp_t, iwp_t, rel_t, rei_t, concs_t,
+):
+    """The fused SW kernel's positional and cloud arguments
+    (sw_clearsky_megakernel) from canonical layer-major top-at-0 inputs:
+    (args, cloud keywords). Lookup-table cloud optics goes in as the four
+    cloud fields and the packed tables (the kernel delta-scales); Pade cloud
+    optics as the three delta-scaled band products computed here."""
+    gd_t = GasConcs(concs_t)
+    nlay, ncol = play_t.shape
+    col_dry_t = get_col_dry_lay_major(gd_t.get_vmr("h2o", nlay, ncol), plev_t)
+    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gd_t, models[0])
+    cld_kw = dict(gpt2band=spectral.gpt2band_tensor(play_t.device))
+    if cloud_co.is_lut:
+        cld_kw.update(cld_fields=(lwp_t, iwp_t, rel_t, rei_t), cld_lut=cloud_co.lut_pack)
+    else:
+        cld = delta_scale(cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t, as_2str=True))
+        tauscat_c = cld.tau * cld.ssa
+        cld_kw.update(cld_bands=(cld.tau.contiguous(), tauscat_c.contiguous(),
+                                 (tauscat_c * cld.g).contiguous()))
+    toa_src = solar[None, :].expand(ncol, spectral.ngpt)
+    args = (models[0], models[1], x2d, const_feats, perm, col_dry_t, mu0,
+            (toa_src * mu0[:, None]).contiguous(), spectral.expand(sfc_alb_dir).contiguous(),
+            spectral.expand(sfc_alb_dif).contiguous())
+    return args, cld_kw
+
+
+def _allsky_sw_core_mega(
+    models, spectral, solar, cloud_co,
+    play_t, plev_t, tlay_t, mu0, sfc_alb_dir, sfc_alb_dif,
+    lwp_t, iwp_t, rel_t, rei_t, concs_t,
+    top_at_1,
+):
+    """All-sky SW through the fused kernel in a cloud mode, on canonical
+    layer-major top-at-0 inputs. Same numbers as _allsky_sw_core_lay_major
+    up to float32 rounding (and the float64 two-stream coefficients)."""
+    args, cld_kw = allsky_sw_mega_args(
+        models, spectral, solar, cloud_co, play_t, plev_t, tlay_t, mu0, sfc_alb_dir,
+        sfc_alb_dif, lwp_t, iwp_t, rel_t, rei_t, concs_t)
+    up, dn, dn_dir = sw_clearsky_megakernel(*args, **cld_kw)
+    if not top_at_1:
+        up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
+
+
+def _canonical_tensors(atm, clouds, top_at_1, device, dtype):
+    """canonicalize_allsky_inputs moved to ``device``: (the eight fields,
+    concs_t)."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    fields, concs_t = canonicalize_allsky_inputs(
+        atm.play, atm.plev, atm.tlay, atm.tlev, *clouds, atm.gas_concs, top_at_1)
+    return tuple(t(a) for a in fields), {k: t(v) for k, v in concs_t.items()}
+
+
+def _staged_tensors(atm, clouds, device, dtype):
+    """The staged cores' inputs on ``device``, in the file's orientation:
+    (play, plev, tlay, tlev, the four cloud fields, concs)."""
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    fields = tuple(t(a) for a in (atm.play, atm.plev, atm.tlay, atm.tlev, *clouds))
+    return fields, {k: v.to(device=device, dtype=dtype)
+                    for k, v in atm.gas_concs.concs.items()}
+
+
+def allsky_lw(
+    garand_path: str,
+    cloud_optics_path: str,
+    models: Sequence[NNModel],
+    ncol: int = 128,
+    spectral: Optional[SpectralMapping] = None,
+    n_gauss_angles: int = 1,
+    scan_mode: str = "sequential",
+    dtype=torch.float32,
+    *,
+    device,
+) -> FluxesBroadband:
+    """Full all-sky LW run on ``device`` (reference rrtmgp_allsky LW
+    branch); ``models`` must be on ``device``. Returns (ncol, nlay+1)
+    fluxes on ``device``."""
+    device = torch.device(device)
+    route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
+                                   n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
+    if route.kind == "refuse":
+        raise NotImplementedError(f"allsky_lw: {route.reason}")
+    spectral = spectral or lw_spectral_g128()
+    atm = read_garand(garand_path, ncol)
+    co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
+    table = PlanckTable.compute(spectral.band_lims_wvn_array, device=device, dtype=dtype)
+    clouds = make_clouds(atm.play, atm.tlay, co)
+
+    top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
+    tsfc = torch.as_tensor(atm.tlev[:, -1 if top_at_1 else 0], dtype=dtype, device=device)
+    emis = torch.full((ncol, spectral.nband), 0.98, dtype=dtype, device=device)
+
+    if route.kind == "megakernel":
+        (play_t, plev_t, tlay_t, tlev_t, *cld_t), concs_t = _canonical_tensors(
+            atm, clouds, top_at_1, device, dtype)
+        return _allsky_lw_core_mega(models, table, spectral, co, play_t, plev_t, tlay_t,
+                                    tlev_t, tsfc, emis, *cld_t, concs_t, top_at_1=top_at_1)
+    (play, plev, tlay, tlev, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
+    if n_gauss_angles == 1 and device.type == "cpu":
+        return _allsky_lw_core_lay_major(models, table, spectral, co, play, plev, tlay, tlev,
+                                         tsfc, emis, *cld, concs, top_at_1=top_at_1)
+    return _allsky_lw_core(models, table, spectral, co, play, plev, tlay, tlev, tsfc, emis,
+                           *cld, concs, top_at_1=top_at_1, n_gauss_angles=n_gauss_angles)
+
+
+def allsky_sw(
+    garand_path: str,
+    cloud_optics_path: str,
+    models: Sequence[NNModel],
+    ncol: int = 128,
+    spectral: Optional[SpectralMapping] = None,
+    kdist=None,
+    solar_source: Optional[np.ndarray] = None,
+    scan_mode: str = "sequential",
+    dtype=torch.float32,
+    *,
+    device,
+) -> FluxesBroadband:
+    """Full all-sky SW run on ``device`` (reference rrtmgp_allsky SW
+    branch); ``models`` = [absorption, rayleigh], on ``device``."""
+    device = torch.device(device)
+    route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
+                                   scan_mode=scan_mode)
+    if route.kind == "refuse":
+        raise NotImplementedError(f"allsky_sw: {route.reason}")
+    spectral = spectral or sw_spectral_g112()
+    atm = read_garand(garand_path, ncol)
+    co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
+    if solar_source is None:
+        solar_source = resolve_solar_source(spectral, kdist)
+    solar = torch.as_tensor(solar_source, dtype=dtype, device=device)
+    clouds = make_clouds(atm.play, atm.tlay, co)
+
+    top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
+    mu0 = torch.full((ncol,), 0.86, dtype=dtype, device=device)
+    alb = torch.full((ncol, spectral.nband), 0.06, dtype=dtype, device=device)
+
+    if route.kind == "megakernel":
+        _check_sw_scaling(models)
+        (play_t, plev_t, tlay_t, _, *cld_t), concs_t = _canonical_tensors(
+            atm, clouds, top_at_1, device, dtype)
+        return _allsky_sw_core_mega(models, spectral, solar, co, play_t, plev_t, tlay_t, mu0,
+                                    alb, alb, *cld_t, concs_t, top_at_1=top_at_1)
+    (play, plev, tlay, _, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
+    return _allsky_sw_core_lay_major(models, spectral, solar, co, play, plev, tlay, mu0,
+                                     alb, alb, *cld, concs, top_at_1=top_at_1)
+
+
+def load_cloud_optics_checked(path: str, *, device, dtype=torch.float32) -> CloudOptics:
+    return load_cloud_optics(path, dtype=dtype, device=device)

@@ -48,7 +48,7 @@ from ..gasoptics.planck import (
     sw_spectral_g112,
 )
 from ..models.network import NNModel
-from ..ops.cuda.lw_megakernel import lw_clearsky_mega4
+from ..ops.cuda.lw_megakernel import lw_clearsky_mega4, lw_clearsky_mega5
 from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
 from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str
@@ -146,6 +146,64 @@ def _lw_core_mega4_canon(
     if not top_at_1:
         up, dn = up.flip(1), dn.flip(1)
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+
+
+def lw_mega5_args(
+    models: Sequence[NNModel],
+    planck_table: PlanckTable,
+    spectral: SpectralMapping,
+    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
+):
+    """The raw-lane fused LW kernel's arguments (lw_clearsky_mega5) from
+    canonical layer-major top-at-0 inputs: no feature is staged, only
+    col_dry and the emissivity expansion precede the kernel."""
+    gas_desc = GasConcs(concs_t)
+    nlay, ncol = play_t.shape
+    col_dry = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
+    lanes, const_feats, perm, tf_codes, scale_rows = compute_nn_inputs_split(
+        play_t, tlay_t, gas_desc, models[0], raw_lanes=True)
+    if models[0].input_names[perm[0]] != "tlay":
+        raise ValueError("the raw-lane kernel requires 'tlay' as the first 2-D lane "
+                         f"(got {models[0].input_names[perm[0]]!r})")
+    w1a, w1c = split_first_layer(models[0], perm, len(lanes))
+    return (models[0], [l.contiguous() for l in lanes], tf_codes, scale_rows, const_feats,
+            w1a, w1c, col_dry, tlev_t, tsfc, planck_table,
+            spectral.gpt2band_tensor(play_t.device),
+            spectral.expand(sfc_emis_band).contiguous())
+
+
+def _lw_core_mega5_canon(
+    models: Sequence[NNModel],
+    planck_table: PlanckTable,
+    spectral: SpectralMapping,
+    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
+    top_at_1: bool,
+):
+    """_lw_core_mega4_canon through the fused kernel's raw-lane mode."""
+    up, dn = lw_clearsky_mega5(*lw_mega5_args(
+        models, planck_table, spectral, play_t, plev_t, tlay_t, tlev_t, tsfc,
+        sfc_emis_band, concs_t))
+    if not top_at_1:
+        up, dn = up.flip(1), dn.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+
+
+def _lw_core_mega5(
+    models: Sequence[NNModel],
+    planck_table: PlanckTable,
+    spectral: SpectralMapping,
+    play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
+    top_at_1: bool,
+):
+    """Column-major front of _lw_core_mega5_canon: flips to top-at-0 and
+    transposes on the device."""
+    ncol, nlay = play.shape
+    canon = lambda a: (a if top_at_1 else a.flip(1)).T.contiguous()
+    gd_t = _to_lay_major(GasConcs(concs_dict), ncol, nlay, top_at_1)
+    concs_t = {k: v.contiguous() for k, v in gd_t.concs.items()}
+    return _lw_core_mega5_canon(
+        models, planck_table, spectral, canon(play), canon(plev), canon(tlay), canon(tlev),
+        tsfc, sfc_emis_band, concs_t, top_at_1=top_at_1)
 
 
 def _to_lay_major(gas_desc: GasConcs, ncol: int, nlay: int, top_at_1: bool) -> GasConcs:
@@ -310,6 +368,8 @@ def sw_canonical_inputs(data: RFMIPData, device, dtype=torch.float32):
 
 def _check_sw_scaling(models):
     a, r = models
+    if a is r:  # one net standing in for both
+        return
     if not (torch.equal(a.input_min, r.input_min) and torch.equal(a.input_max, r.input_max)):
         # the features are scaled once, with the absorption net's coefficients
         raise ValueError("SW megakernel requires matching abs/ray input scaling "

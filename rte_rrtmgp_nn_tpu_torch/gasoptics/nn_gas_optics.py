@@ -115,6 +115,7 @@ def compute_nn_inputs_split(
     tlay: torch.Tensor,
     gas_desc: GasConcs,
     model: NNModel,
+    raw_lanes: bool = False,
 ):
     """compute_nn_inputs factored for the fused kernels, on LAYER-MAJOR
     inputs: play/tlay and every 2-D gas VMR are (nlay, ncol); 1-D VMRs are
@@ -126,7 +127,14 @@ def compute_nn_inputs_split(
     (lanes, const_feats, perm) where ``perm`` maps [lane order | const
     order] to positions in the model's input_names: apply it to the rows of
     the first-layer weight (w1[perm]). With no missing gas the const block
-    is one zero feature, and the caller pairs it with a zero weight row."""
+    is one zero feature, and the caller pairs it with a zero weight row.
+
+    ``raw_lanes=True`` (the fused LW kernel's raw-lane mode): the lanes stay
+    RAW, before the transform, and two more values come back: the per-lane
+    transform codes (0 identity, 1 log, 2 fourth root) and ``scale_rows``
+    (2, n2d) = [input_min; 1 / (input_max - input_min)] of the lanes. The
+    kernel computes (transform(x) - min) * inv, at most 1 ulp from the
+    division here."""
     nlay, ncol = play.shape
 
     def vmr(name):
@@ -137,25 +145,29 @@ def compute_nn_inputs_split(
             return raw.expand(nlay, ncol)
         return raw
 
-    lanes, idx2d, consts, idxc = [], [], [], []
+    lanes, codes, idx2d, consts, idxc = [], [], [], [], []
     for i, name in enumerate(model.input_names):
         if name == "tlay":
-            v = tlay
+            v, code = tlay, 0
         elif name == "play":
-            v = torch.log(play)
+            v, code = play, 1
         elif name in ("h2o", "o3"):
-            v = torch.sqrt(torch.sqrt(vmr(name)))
+            v, code = vmr(name), 2
         elif name in gas_desc:
-            v = vmr(name)
+            v, code = vmr(name), 0
         else:
             consts.append(_missing_gas_vmr(name))
             idxc.append(i)
             continue
         lanes.append(v.to(play.dtype))
+        codes.append(code)
         idx2d.append(i)
 
     mn, mx = model.input_min, model.input_max
-    lanes = [(v - mn[i]) / (mx[i] - mn[i]) for v, i in zip(lanes, idx2d)]
+    if not raw_lanes:
+        transform = (lambda v: v, torch.log, lambda v: torch.sqrt(torch.sqrt(v)))
+        lanes = [(transform[c](v) - mn[i]) / (mx[i] - mn[i])
+                 for v, c, i in zip(lanes, codes, idx2d)]
     if consts:
         ic = torch.as_tensor(idxc, device=play.device)
         cf = torch.tensor(consts, dtype=play.dtype, device=play.device)
@@ -163,6 +175,10 @@ def compute_nn_inputs_split(
         cf = (cf - mn[ic]) / (mx[ic] - mn[ic])
     else:
         cf = torch.zeros((ncol, 1), dtype=play.dtype, device=play.device)
+    if raw_lanes:
+        ii = torch.as_tensor(idx2d, dtype=torch.long, device=play.device)
+        scale_rows = torch.stack([mn[ii], 1.0 / (mx[ii] - mn[ii])], dim=0)
+        return lanes, cf.contiguous(), idx2d + idxc, tuple(codes), scale_rows
     return lanes, cf.contiguous(), idx2d + idxc
 
 

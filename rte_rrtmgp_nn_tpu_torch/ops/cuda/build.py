@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` (Hopper), one nvcc
 per source, all started together, and the objects are linked into one
-shared library with a plain C interface, loaded with ctypes. The build runs
+shared library with a plain C interface, loaded with ctypes; the fused
+kernels' entries take their arguments as structs, mirrored here. The build runs
 at the first CUDA use in a process, into ``build/kernels/`` beside the
 package, under a name that hashes the sources, so an edited source is
 rebuilt and an unchanged one is loaded as built. No ``--use_fast_math``:
@@ -95,15 +96,74 @@ def build() -> Path:
     return out
 
 
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_LANES = 32  # csrc/common.cuh kMaxLanes
+
+
+def _fields(ctype, names: str) -> list:
+    return [(n, ctype) for n in names.split()]
+
+
+# The structs the fused kernels' launch entries read, field by field as the
+# sources declare them (a test holds each against its C declaration). A
+# wrapper fills them by field name; fields it leaves out are null or 0.
+class Mlp3(ctypes.Structure):  # csrc/common.cuh
+    _fields_ = _fields(P, "w1a w1c b1 w2 b2 w3 b3 omean ostd") + _fields(I, "h1 h2 nout")
+
+
+class PlanckTab(ctypes.Structure):  # csrc/common.cuh
+    _fields_ = _fields(P, "tab dtab") + _fields(I, "nband ntab") + _fields(F, "t_min t_delta")
+
+
+class CloudLut(ctypes.Structure):  # csrc/common.cuh
+    _fields_ = (_fields(P, "liq ice") + _fields(I, "n_liq n_ice nband")
+                + _fields(F, "liq_off liq_step ice_off ice_step"))
+
+
+class LaneList(ctypes.Structure):  # csrc/common.cuh
+    _fields_ = [("p", P * MAX_LANES), ("code", I * MAX_LANES)]
+
+
+class LwArgs(ctypes.Structure):  # csrc/lw_megakernel.cu
+    _fields_ = (_fields(P, "x cf col_dry tlay tlev tsfc emis gpt2band up dn")
+                + _fields(I, "ncol nlay n2d nc ngpt")
+                + _fields(F, "d_secant two_pi_w tau_thresh")
+                + _fields(P, "lwp iwp rel rei cld_band scale"))
+
+
+class SwArgs(ctypes.Structure):  # csrc/sw_megakernel.cu
+    _fields_ = (_fields(P, "x cf col_dry mu0 inc_dir inc_dif alb_dir alb_dif up dn dir")
+                + _fields(I, "ncol nlay n2d nc ngpt") + _fields(F, "k_min eps cld_eps")
+                + _fields(P, "gpt2band") + _fields(I, "nband")
+                + _fields(P, "lwp iwp rel rei cld_tau cld_ts cld_tsg"))
+
+
+def mlp3(w1a, w1c, model) -> Mlp3:
+    """The Mlp3 of a 3-layer model whose first layer is split into the
+    lanes' rows ``w1a`` and the const block's rows ``w1c``."""
+    _, w2, w3 = model.weights
+    b1, b2, b3 = model.biases
+    ptrs = (w1a, w1c, b1, w2, b2, w3, b3, model.output_mean, model.output_std)
+    return Mlp3(*(t.data_ptr() for t in ptrs), w1a.shape[1], w2.shape[1], w3.shape[1])
+
+
+def lane_list(lanes, codes=None) -> LaneList:
+    """The LaneList of up to MAX_LANES tensors (and their transform codes)."""
+    ll = LaneList()
+    for k, t in enumerate(lanes):
+        ll.p[k] = t.data_ptr()
+        ll.code[k] = int(codes[k]) if codes is not None else 0
+    return ll
+
+
 def _declare(lib) -> None:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lw_clearsky_mega4_launch.argtypes = (
-        [P] * 21 + [I] * 9 + [F] * 5 + [I, P])
+    # (args, net, planck, cloud, lanes, mode, device, stream)
+    lib.lw_clearsky_mega4_launch.argtypes = [P] * 5 + [I, I, P]
     lib.lw_clearsky_mega4_launch.restype = I
     lib.lw_clearsky_mega4_smem_bytes.argtypes = [I] * 5
     lib.lw_clearsky_mega4_smem_bytes.restype = ctypes.c_size_t
-    lib.sw_clearsky_megakernel_launch.argtypes = (
-        [P] * 29 + [I] * 9 + [F] * 2 + [I, P])
+    # (args, abs_net, ray_net, cloud, lanes, mode, device, stream)
+    lib.sw_clearsky_megakernel_launch.argtypes = [P] * 5 + [I, I, P]
     lib.sw_clearsky_megakernel_launch.restype = I
     lib.sw_clearsky_megakernel_smem_bytes.argtypes = [I] * 7
     lib.sw_clearsky_megakernel_smem_bytes.restype = ctypes.c_size_t

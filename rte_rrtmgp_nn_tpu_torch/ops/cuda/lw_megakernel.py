@@ -1,65 +1,75 @@
-"""Fused LW clear-sky pipeline: NN gas optics + Planck sources + the
-no-scattering broadband transport in one CUDA kernel (``csrc/
-lw_megakernel.cu``), and its plain PyTorch twin.
+"""Fused LW pipeline: NN gas optics + optional cloud absorption + Planck
+sources + the no-scattering broadband transport in one CUDA kernel
+(``csrc/lw_megakernel.cu``), and its plain PyTorch twin.
 
 Replaces rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py::lw_clearsky_mega4
-(the Pallas ``_mega4_kernel``), clear-sky only. What bounds the kernel on
-an H100 and how its design answers it is written at the top of the CUDA
-source: the MLP's weight reads bound it, each weight load serves several
-layers, and the per-layer fields stay in shared memory, one block per
-column, one thread per g-point.
+(the Pallas ``_mega4_kernel`` with its cloud options) and
+::lw_clearsky_mega5 (``_mega5_kernel``: the same pipeline on raw input
+lanes; its ``mxu_first`` variant is the same arithmetic, so one raw-lane
+mode covers both). What bounds the kernel on an H100 and how its design
+answers it is written at the top of the CUDA source: the MLP's weight reads
+bound it, each weight load serves several layers, and the per-layer fields
+stay in shared memory, one block per column, one thread per g-point.
 
-``lw_clearsky_mega4`` launches the kernel for CUDA tensors and runs
-``lw_clearsky_mega4_plain`` for CPU tensors; it never falls back on CUDA.
-``LAUNCHES`` counts kernel launches.
+The kernel has four modes: clear-sky; clouds from (lwp, iwp, rel, rei)
+through the lookup tables inside the kernel (``cld_fields`` + ``cld_lut``);
+clouds as band lanes of absorption tau (``cld_tau_band``); and clear-sky on
+raw lanes (``lw_clearsky_mega5``). ``lw_clearsky_mega4`` /
+``lw_clearsky_mega5`` launch the kernel for CUDA tensors and run their
+``_plain`` twins for CPU tensors; they never fall back on CUDA.
+``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` the same launches by
+mode.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ...config import megakernel_model_ok, tau_thresh_for
+from ...extensions.cloud_optics import lut_lerp
 from ...gasoptics.planck import PlanckTable
 from ...models.network import NNModel
 from ..lw_solver import LW_DIFFUSIVITY, LW_WEIGHT, lw_broadband_sweeps, source_fact
 from . import build
 
-LAUNCHES = 0  # kernel launches by lw_clearsky_mega4 (not plain-path calls)
+LAUNCHES = 0  # kernel launches by the wrappers here (not plain-path calls)
+# the same launches by kernel mode (csrc/common.cuh MegaMode)
+MODE_LAUNCHES = {"clear": 0, "cld_lut": 0, "cld_bands": 0, "lanes": 0}
+MODE_CODES = {"clear": 0, "cld_lut": 1, "cld_bands": 2, "lanes": 3}
+MAX_LANES = build.MAX_LANES
+
+
+def cloud_lut_phases(cld_fields, cld_lut):
+    """Both phases' (tau, tau*ssa, tau*ssa*g) at band resolution from the
+    (lwp, iwp, rel, rei) fields and a ``CloudOptics.lut_pack``: the kernels'
+    lookup, in tensor ops."""
+    lwp, iwp, rel, rei = cld_fields
+    liq, ice, (liq_off, liq_step, ice_off, ice_step) = cld_lut
+    return (lut_lerp(lwp, rel, liq.to(lwp.dtype), liq_off, liq_step),
+            lut_lerp(iwp, rei, ice.to(iwp.dtype), ice_off, ice_step))
 
 
 def _softsign(x):
     return x / (1.0 + torch.abs(x))
 
 
-def lw_clearsky_mega4_plain(
-    model: NNModel,
-    x2d: torch.Tensor,          # (nlay, ncol, n2d) scaled layer-varying features
-    const_feats: torch.Tensor,  # (ncol, nc) scaled per-column constant features
-    w1a: torch.Tensor,          # (n2d, h) first-layer rows of the lanes
-    w1c: torch.Tensor,          # (nc, h) first-layer rows of the const block
-    col_dry: torch.Tensor,      # (nlay, ncol)
-    tlay: torch.Tensor,         # (nlay, ncol) [K]
-    tlev: torch.Tensor,         # (nlay+1, ncol) [K]
-    tsfc: torch.Tensor,         # (ncol,) [K]
-    planck_table: PlanckTable,
-    gpt2band: torch.Tensor,     # (ngpt,) int band of each g-point
-    sfc_emis: torch.Tensor,     # (ncol, ngpt)
-    d_secant: float = LW_DIFFUSIVITY,
-    weight: float = LW_WEIGHT,
-):
-    """The kernel's function in tensor ops. Canonical top-at-0, single
-    angle, zero incident flux, exact exponential and linear-in-tau source.
-    Returns broadband (flux_up, flux_dn), each (ncol, nlay+1)."""
+def _lw_plain(model, h1_pre, col_dry_d, tau_cld, tlay, tlev, tsfc,
+              planck_table, gpt2band, sfc_emis, weight):
+    """The pipeline after the first layer's pre-activation ``h1_pre``
+    (nlay, ncol, h): ``col_dry_d(y8, tau_cld)`` turns the net's (ystd*y +
+    ymean)**8 into the optical depth along the diffusivity angle (the modes
+    group that product differently)."""
     ngpt = model.n_outputs // 2
     _, w2, w3 = model.weights
-    b1, b2, b3 = model.biases
-    hc = const_feats @ w1c
-    h = _softsign(x2d @ w1a + hc[None] + b1)
+    _, b2, b3 = model.biases
+    h = _softsign(h1_pre)
     h = _softsign(h @ w2 + b2)
     y = h @ w3 + b3
     yt = model.output_std[:ngpt] * y[..., :ngpt] + model.output_mean[:ngpt]
     y2 = yt * yt
     y4 = y2 * y2
-    tl = (y4 * y4) * col_dry[..., None] * d_secant
+    tl = col_dry_d(y4 * y4, tau_cld)
     pf = y[..., ngpt:] * y[..., ngpt:]
 
     trans = torch.exp(-tl)
@@ -80,6 +90,94 @@ def lw_clearsky_mega4_plain(
     return sol.flux_up, sol.flux_dn
 
 
+def lw_clearsky_mega4_plain(
+    model: NNModel,
+    x2d: torch.Tensor,          # (nlay, ncol, n2d) scaled layer-varying features
+    const_feats: torch.Tensor,  # (ncol, nc) scaled per-column constant features
+    w1a: torch.Tensor,          # (n2d, h) first-layer rows of the lanes
+    w1c: torch.Tensor,          # (nc, h) first-layer rows of the const block
+    col_dry: torch.Tensor,      # (nlay, ncol)
+    tlay: torch.Tensor,         # (nlay, ncol) [K]
+    tlev: torch.Tensor,         # (nlay+1, ncol) [K]
+    tsfc: torch.Tensor,         # (ncol,) [K]
+    planck_table: PlanckTable,
+    gpt2band: torch.Tensor,     # (ngpt,) int band of each g-point
+    sfc_emis: torch.Tensor,     # (ncol, ngpt)
+    d_secant: float = LW_DIFFUSIVITY,
+    weight: float = LW_WEIGHT,
+    cld_tau_band=None,          # (nlay, ncol, nband) cloud absorption tau, or None
+    cld_fields=None,            # (lwp, iwp, rel, rei), each (nlay, ncol); needs cld_lut
+    cld_lut=None,               # CloudOptics.lut_pack, on the fields' device
+):
+    """The kernel's function in tensor ops. Canonical top-at-0, single
+    angle, zero incident flux, exact exponential and linear-in-tau source.
+    With clouds the band absorption tau (given, or tau - tau*ssa per phase
+    from the lookup tables) is expanded to g-points and added to the gas
+    tau before the diffusivity factor. Returns broadband (flux_up,
+    flux_dn), each (ncol, nlay+1)."""
+    tau_cld = None
+    if cld_fields is not None:
+        if cld_lut is None:
+            raise ValueError("cld_fields requires cld_lut (CloudOptics.lut_pack)")
+        (lt, lts, _), (it, its, _) = cloud_lut_phases(cld_fields, cld_lut)
+        tau_cld = (lt - lts) + (it - its)
+    elif cld_tau_band is not None:
+        tau_cld = cld_tau_band
+    if tau_cld is None:
+        group = lambda y8, _: y8 * col_dry[..., None] * d_secant
+    else:
+        tau_cld = tau_cld[..., gpt2band.long()]
+        group = lambda y8, tc: (y8 * col_dry[..., None] + tc) * d_secant
+    h1_pre = x2d @ w1a + (const_feats @ w1c)[None] + model.biases[0]
+    return _lw_plain(model, h1_pre, group, tau_cld, tlay, tlev, tsfc,
+                     planck_table, gpt2band, sfc_emis, weight)
+
+
+def scale_raw_lanes(lanes, tf_codes, scale_rows) -> list:
+    """Raw lanes -> the scaled (nlay, ncol) features, as the raw-lane
+    kernel mode makes them: transform by code (0 identity, 1 log, 2 fourth
+    root), then (x - min) * inv with scale_rows = [min; 1 / (max - min)]."""
+    out = []
+    for k, (x, code) in enumerate(zip(lanes, tf_codes)):
+        if code == 1:
+            x = torch.log(x)
+        elif code == 2:
+            x = torch.sqrt(torch.sqrt(x))
+        out.append((x - scale_rows[0, k]) * scale_rows[1, k])
+    return out
+
+
+def lw_clearsky_mega5_plain(
+    model: NNModel,
+    lanes,                      # n2d RAW (nlay, ncol) lanes; lanes[0] is tlay
+    tf_codes,                   # per-lane transform: 0 identity, 1 log, 2 x**(1/4)
+    scale_rows: torch.Tensor,   # (2, n2d) [input_min; 1 / (max - min)]
+    const_feats: torch.Tensor,  # (ncol, nc) SCALED per-column constant features
+    w1a: torch.Tensor,
+    w1c: torch.Tensor,
+    col_dry: torch.Tensor,      # (nlay, ncol)
+    tlev: torch.Tensor,         # (nlay+1, ncol) [K]
+    tsfc: torch.Tensor,         # (ncol,) [K]
+    planck_table: PlanckTable,
+    gpt2band: torch.Tensor,
+    sfc_emis: torch.Tensor,
+    d_secant: float = LW_DIFFUSIVITY,
+    weight: float = LW_WEIGHT,
+):
+    """The raw-lane mode's function in tensor ops: lw_clearsky_mega4_plain
+    with the feature transform and scaling done here and the layer
+    temperature read from lane 0; the first layer accumulated lane by
+    lane on top of the const block's share and the bias, and tau = y**8 *
+    (col_dry * D): the raw-lane Pallas kernel's order and grouping.
+    Clear-sky only."""
+    h1_pre = ((const_feats @ w1c) + model.biases[0])[None]
+    for k, xs in enumerate(scale_raw_lanes(lanes, tf_codes, scale_rows)):
+        h1_pre = h1_pre + xs[..., None] * w1a[k]
+    group = lambda y8, _: y8 * (col_dry * d_secant)[..., None]
+    return _lw_plain(model, h1_pre, group, None, lanes[0], tlev, tsfc,
+                     planck_table, gpt2band, sfc_emis, weight)
+
+
 def _smem_limit(dev) -> int:
     """Dynamic shared memory one block may opt into on ``dev``."""
     props = torch.cuda.get_device_properties(dev)
@@ -97,26 +195,24 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def lw_clearsky_mega4(model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev,
-                      tsfc, planck_table, gpt2band, sfc_emis,
-                      d_secant=LW_DIFFUSIVITY, weight=LW_WEIGHT):
-    """Fused LW clear-sky pipeline; arguments as lw_clearsky_mega4_plain.
-    CPU tensors take the plain twin; CUDA float32 tensors launch the
-    kernel; anything else raises."""
+def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
+            planck_table, gpt2band, sfc_emis, d_secant, weight, *, cld_fields=None,
+            cld_lut=None, cld_tau_band=None, lanes=None, tf_codes=None, scale_rows=None):
+    """Check every tensor the mode reads, launch the kernel on the current
+    stream and count the launch. ``x2d`` and ``tlay`` are None in the lanes
+    mode (the kernel reads the lanes)."""
     global LAUNCHES
-    dev = x2d.device
-    if dev.type == "cpu":
-        return lw_clearsky_mega4_plain(
-            model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
-            planck_table, gpt2band, sfc_emis, d_secant, weight)
+    what = f"lw_clearsky_mega4[{mode}]"
+    dev = (lanes[0] if mode == "lanes" else x2d).device
     if dev.type != "cuda":
-        raise ValueError(f"lw_clearsky_mega4: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     if not megakernel_model_ok([model]):
         raise NotImplementedError(
             "lw_clearsky_mega4 hard-codes a 3-layer softsign/softsign/linear "
             "net; other models take the staged path (fused_predict_lw_both)")
     f32 = torch.float32
-    nlay, ncol, n2d = x2d.shape
+    nlay, ncol = col_dry.shape
+    n2d = w1a.shape[0]
     nc = const_feats.shape[1]
     w1, w2, w3 = model.weights
     b1, b2, b3 = model.biases
@@ -124,19 +220,48 @@ def lw_clearsky_mega4(model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev,
     ngpt = w3.shape[1] // 2
     ntab, nband = planck_table.totplnk.shape
     if ngpt > 128:
-        raise ValueError(f"lw_clearsky_mega4: ngpt {ngpt} > 128 threads per block")
-    for name, t, shape in (
-        ("x2d", x2d, (nlay, ncol, n2d)), ("const_feats", const_feats, (ncol, nc)),
+        raise ValueError(f"{what}: ngpt {ngpt} > 128 threads per block")
+    checks = [
+        ("const_feats", const_feats, (ncol, nc)),
         ("w1a", w1a, (n2d, h1)), ("w1c", w1c, (nc, h1)), ("b1", b1, (h1,)),
         ("w2", w2, (h1, h2)), ("b2", b2, (h2,)), ("w3", w3, (h2, 2 * ngpt)),
         ("b3", b3, (2 * ngpt,)), ("output_mean", model.output_mean, (2 * ngpt,)),
         ("output_std", model.output_std, (2 * ngpt,)),
-        ("col_dry", col_dry, (nlay, ncol)), ("tlay", tlay, (nlay, ncol)),
+        ("col_dry", col_dry, (nlay, ncol)),
         ("tlev", tlev, (nlay + 1, ncol)), ("tsfc", tsfc, (ncol,)),
         ("sfc_emis", sfc_emis, (ncol, ngpt)),
         ("totplnk", planck_table.totplnk, (ntab, nband)),
         ("totplnk_diff", planck_table.totplnk_diff, (ntab - 1, nband)),
-    ):
+    ]
+    p = lambda t: t.data_ptr()
+    cloud = lane_list = None
+    # mode_fields: the LwArgs fields only this mode reads
+    if mode == "lanes":
+        if len(lanes) != n2d or len(tf_codes) != n2d:
+            raise ValueError(f"{what}: {len(lanes)} lanes and {len(tf_codes)} codes for "
+                             f"{n2d} first-layer rows")
+        if n2d > MAX_LANES:
+            raise ValueError(f"{what}: {n2d} lanes, the kernel takes {MAX_LANES}")
+        checks += [(f"lanes[{k}]", t, (nlay, ncol)) for k, t in enumerate(lanes)]
+        checks.append(("scale_rows", scale_rows, (2, n2d)))
+        lane_list = build.lane_list(lanes, tf_codes)
+        mode_fields = dict(tlay=p(lanes[0]), scale=p(scale_rows))
+    else:
+        checks += [("x2d", x2d, (nlay, ncol, n2d)), ("tlay", tlay, (nlay, ncol))]
+        mode_fields = dict(x=p(x2d), tlay=p(tlay))
+    if mode == "cld_lut":
+        liq, ice, geom = cld_lut
+        n_liq, n_ice = liq.shape[0], ice.shape[0]
+        names = ("lwp", "iwp", "rel", "rei")
+        checks += [(n, t, (nlay, ncol)) for n, t in zip(names, cld_fields)]
+        checks += [("cld_lut liquid", liq, (n_liq, 3 * nband)),
+                   ("cld_lut ice", ice, (n_ice, 3 * nband))]
+        cloud = build.CloudLut(p(liq), p(ice), n_liq, n_ice, nband, *geom)
+        mode_fields.update(zip(names, map(p, cld_fields)))
+    elif mode == "cld_bands":
+        checks.append(("cld_tau_band", cld_tau_band, (nlay, ncol, nband)))
+        mode_fields["cld_band"] = p(cld_tau_band)
+    for name, t, shape in checks:
         _check(name, t, shape, f32, dev)
     _check("gpt2band", gpt2band, (ngpt,), torch.int32, dev)
 
@@ -144,22 +269,67 @@ def lw_clearsky_mega4(model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev,
     smem = lib.lw_clearsky_mega4_smem_bytes(nlay, n2d, h1, h2, ngpt)
     limit = _smem_limit(dev)
     if smem > limit:
-        raise ValueError(f"lw_clearsky_mega4: {smem} B of shared memory per "
+        raise ValueError(f"{what}: {smem} B of shared memory per "
                          f"block needed, the card allows {limit} (nlay={nlay})")
     up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
-    p = lambda t: t.data_ptr()
+    args = build.LwArgs(
+        cf=p(const_feats), col_dry=p(col_dry), tlev=p(tlev), tsfc=p(tsfc), emis=p(sfc_emis),
+        gpt2band=p(gpt2band), up=p(up), dn=p(dn),
+        ncol=ncol, nlay=nlay, n2d=n2d, nc=nc, ngpt=ngpt,
+        d_secant=d_secant, two_pi_w=2.0 * torch.pi * weight,
+        tau_thresh=tau_thresh_for(torch.float32), **mode_fields)
+    planck = build.PlanckTab(p(planck_table.totplnk), p(planck_table.totplnk_diff), nband, ntab,
+                             planck_table.temp_ref_min, planck_table.totplnk_delta)
+    ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.lw_clearsky_mega4_launch(
-        p(x2d), p(const_feats), p(col_dry), p(tlay), p(tlev), p(tsfc), p(sfc_emis),
-        p(w1a), p(w1c), p(b1), p(w2), p(b2), p(w3), p(b3),
-        p(model.output_mean), p(model.output_std),
-        p(planck_table.totplnk), p(planck_table.totplnk_diff), p(gpt2band),
-        p(up), p(dn),
-        ncol, nlay, n2d, nc, h1, h2, ngpt, nband, ntab,
-        planck_table.temp_ref_min, planck_table.totplnk_delta, d_secant,
-        2.0 * torch.pi * weight, tau_thresh_for(torch.float32),
+        ref(args), ref(build.mlp3(w1a, w1c, model)), ref(planck), ref(cloud), ref(lane_list),
+        MODE_CODES[mode],
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "lw_clearsky_mega4 launch")
+    build.check(err, f"{what} launch")
     LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
     return up, dn
+
+
+def lw_clearsky_mega4(model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev,
+                      tsfc, planck_table, gpt2band, sfc_emis,
+                      d_secant=LW_DIFFUSIVITY, weight=LW_WEIGHT,
+                      cld_tau_band=None, cld_fields=None, cld_lut=None):
+    """Fused LW pipeline; arguments as lw_clearsky_mega4_plain. CPU tensors
+    take the plain twin; CUDA float32 tensors launch the kernel, in the mode
+    the cloud arguments select; anything else raises."""
+    dev = x2d.device
+    if cld_fields is not None and cld_lut is None:
+        raise ValueError("cld_fields requires cld_lut (CloudOptics.lut_pack)")
+    if dev.type == "cpu":
+        return lw_clearsky_mega4_plain(
+            model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
+            planck_table, gpt2band, sfc_emis, d_secant, weight,
+            cld_tau_band=cld_tau_band, cld_fields=cld_fields, cld_lut=cld_lut)
+    mode = ("cld_lut" if cld_fields is not None
+            else "cld_bands" if cld_tau_band is not None else "clear")
+    return _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
+                   planck_table, gpt2band, sfc_emis, d_secant, weight,
+                   cld_fields=cld_fields, cld_lut=cld_lut, cld_tau_band=cld_tau_band)
+
+
+def lw_clearsky_mega5(model, lanes, tf_codes, scale_rows, const_feats, w1a, w1c, col_dry,
+                      tlev, tsfc, planck_table, gpt2band, sfc_emis,
+                      d_secant=LW_DIFFUSIVITY, weight=LW_WEIGHT):
+    """Fused LW clear-sky pipeline on raw lanes; arguments as
+    lw_clearsky_mega5_plain. The same kernel as lw_clearsky_mega4 in its
+    lanes mode: it reads one array per feature, applies the transform and
+    the scaling while it fills its feature rows, and takes the layer
+    temperature from lane 0. CPU tensors take the plain twin; CUDA float32
+    tensors launch the kernel; anything else raises."""
+    lanes = list(lanes)
+    dev = lanes[0].device
+    if dev.type == "cpu":
+        return lw_clearsky_mega5_plain(
+            model, lanes, tf_codes, scale_rows, const_feats, w1a, w1c, col_dry, tlev, tsfc,
+            planck_table, gpt2band, sfc_emis, d_secant, weight)
+    return _launch("lanes", model, None, const_feats, w1a, w1c, col_dry, None, tlev, tsfc,
+                   planck_table, gpt2band, sfc_emis, d_secant, weight,
+                   lanes=lanes, tf_codes=tf_codes, scale_rows=scale_rows)

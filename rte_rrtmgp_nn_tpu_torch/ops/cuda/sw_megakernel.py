@@ -1,20 +1,27 @@
-"""Fused SW clear-sky pipeline: the absorption and Rayleigh NN nets, PIFM
-two-stream coefficients, direct beam and both adding sweeps in one CUDA
-kernel (``csrc/sw_megakernel.cu``), and its plain PyTorch twin.
+"""Fused SW pipeline: the absorption and Rayleigh NN nets, optional clouds,
+PIFM two-stream coefficients, direct beam and both adding sweeps in one
+CUDA kernel (``csrc/sw_megakernel.cu``), and its plain PyTorch twin.
 
 Replaces rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py::
-sw_clearsky_megakernel (the Pallas ``_sw_mega_kernel``), clear-sky only.
-What bounds the kernel on an H100 and how its design answers it is written
-at the top of the CUDA source: the two MLPs' weight reads and the six
-per-layer fields held in shared memory, one block per column, one thread
-per g-point.
+sw_clearsky_megakernel (the Pallas ``_sw_mega_kernel``) with its cloud
+options and its ``input_mode="lanes"``. What bounds the kernel on an H100
+and how its design answers it is written at the top of the CUDA source: the
+two MLPs' weight reads and the six per-layer fields held in shared memory,
+one block per column, one thread per g-point.
 
-``sw_clearsky_megakernel`` launches the kernel for CUDA tensors and runs
+The kernel has four modes: clear-sky; clouds from (lwp, iwp, rel, rei)
+through the lookup tables inside the kernel, delta-scaled in the
+subtraction form (``cld_fields`` + ``cld_lut``); clouds as band lanes of the
+delta-scaled tau, tau*ssa, tau*ssa*g (``cld_bands``); and clear-sky with one
+array per feature (``input_mode="lanes"``). ``sw_clearsky_megakernel``
+launches the kernel for CUDA tensors and runs
 ``sw_clearsky_megakernel_plain`` for CPU tensors; it never falls back on
-CUDA. ``LAUNCHES`` counts kernel launches.
+CUDA. ``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` the same
+launches by mode.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -24,9 +31,15 @@ from ...gasoptics.nn_gas_optics import split_first_layer
 from ...models.network import NNModel
 from ..sw_solver import sw_adding_broadband, sw_two_stream_coeffs
 from . import build
-from .lw_megakernel import _check, _smem_limit, _softsign
+from .lw_megakernel import (
+    MAX_LANES, MODE_CODES, _check, _smem_limit, _softsign, cloud_lut_phases)
 
 LAUNCHES = 0  # kernel launches by sw_clearsky_megakernel (not plain-path calls)
+# the same launches by kernel mode (csrc/common.cuh MegaMode)
+MODE_LAUNCHES = {"clear": 0, "cld_lut": 0, "cld_bands": 0, "lanes": 0}
+# float32's eps guards the cloud combine's divides in every precision; the
+# float64 coefficient guard of the k*mu0 = 1 resonance is another constant
+CLD_EPS = float(torch.finfo(torch.float32).eps)
 
 
 def _net_tau(m: NNModel, x2d, const_feats, perm, col_dry):
@@ -45,7 +58,8 @@ def _net_tau(m: NNModel, x2d, const_feats, perm, col_dry):
 def sw_clearsky_megakernel_plain(
     abs_model: NNModel,
     ray_model: NNModel,
-    x2d: torch.Tensor,            # (nlay, ncol, n2d) scaled layer-varying features
+    x2d,                          # (nlay, ncol, n2d) scaled layer-varying features;
+                                  #   with input_mode="lanes" a list of n2d (nlay, ncol)
     const_feats: torch.Tensor,    # (ncol, nc) scaled per-column constant features
     perm: Sequence[int],          # [lanes | consts] -> model input positions
     col_dry: torch.Tensor,        # (nlay, ncol)
@@ -54,71 +68,119 @@ def sw_clearsky_megakernel_plain(
     sfc_alb_dir: torch.Tensor,    # (ncol, ngpt)
     sfc_alb_dif: torch.Tensor,    # (ncol, ngpt)
     inc_flux_dif: Optional[torch.Tensor] = None,  # (ncol, ngpt) or None
+    cld_bands=None,               # DELTA-SCALED (tau, tau*ssa, tau*ssa*g), each
+                                  #   (nlay, ncol, nband), or None
+    gpt2band=None,                # (ngpt,) int band of each g-point, with clouds
+    cld_fields=None,              # (lwp, iwp, rel, rei), each (nlay, ncol); needs cld_lut
+    cld_lut=None,                 # CloudOptics.lut_pack, on the fields' device
+    input_mode: str = "fused",    # "lanes": x2d is one tensor per feature (clear-sky)
 ):
     """The kernel's function in tensor ops: both nets scaled with the same
     features, tau = tau_abs + tau_ray, ssa = tau_ray / tau (0 where tau is
-    0), g = 0; PIFM two-stream coefficients in float64 (their rdir/tdir are
-    0/0 forms at k*mu0 = 1, where float32 loses up to ~10 W/m2); then the
-    direct beam and the adding sweeps in the input precision with the exact
+    0), g = 0; with clouds, the delta-scaled band products (given, or from
+    the lookup tables with the delta scaling in its subtraction form) are
+    expanded to g-points and incremented into the gas properties; PIFM
+    two-stream coefficients in float64 (their rdir/tdir are 0/0 forms at
+    k*mu0 = 1, where float32 loses up to ~10 W/m2); then the direct beam
+    and the adding sweeps in the input precision with the exact
     exponential. Canonical top-at-0. Returns (flux_up, flux_dn_total,
     flux_dn_dir), each (ncol, nlay+1)."""
+    if input_mode == "lanes":
+        x2d = torch.stack(list(x2d), dim=-1)
     tau_abs = _net_tau(abs_model, x2d, const_feats, perm, col_dry)
     tau_ray = _net_tau(ray_model, x2d, const_feats, perm, col_dry)
     tau = tau_abs + tau_ray
     pos = tau > 0
     ssa = torch.where(pos, tau_ray / torch.where(pos, tau, 1.0), 0.0)
+    g = torch.zeros_like(tau)
+    if cld_fields is not None or cld_bands is not None:
+        idx = gpt2band.long()
+        if cld_fields is not None:
+            (lt, lts, ltsg), (it, its, itsg) = cloud_lut_phases(cld_fields, cld_lut)
+            tau_b, taussa, tsg = lt + it, lts + its, ltsg + itsg
+            # delta scaling with f = g**2: all three products lose
+            # u = (tau*ssa*g)**2 / (tau*ssa)
+            u = tsg * (tsg / torch.clamp_min(taussa, CLD_EPS))
+            bands = (tau_b - u, taussa - u, tsg - u)
+        else:
+            bands = cld_bands
+        tc, tsc, tgc = (b[..., idx] for b in bands)
+        tauscat = tau * ssa + tsc
+        tau = tau + tc
+        g = tgc / torch.clamp_min(tauscat, CLD_EPS)
+        ssa = tauscat / torch.clamp_min(tau, CLD_EPS)
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros_like(inc_flux_dir)
     f64 = torch.float64
-    coeffs = sw_two_stream_coeffs(tau.to(f64), ssa.to(f64), torch.zeros_like(tau, dtype=f64),
+    coeffs = sw_two_stream_coeffs(tau.to(f64), ssa.to(f64), g.to(f64),
                                   mu0.to(f64)[:, None], fast_exp=False)
     rdif, tdif, rdir, tdir = (c.to(tau.dtype) for c in coeffs[:4])
     return sw_adding_broadband(rdif, tdif, rdir, tdir, tau, mu0, inc_flux_dir,
                                sfc_alb_dir, sfc_alb_dif, inc_flux_dif, fast_exp=False)
 
 
-def sw_clearsky_megakernel(abs_model, ray_model, x2d, const_feats, perm,
-                           col_dry, mu0, inc_flux_dir, sfc_alb_dir,
-                           sfc_alb_dif, inc_flux_dif=None):
-    """Fused SW clear-sky pipeline; arguments as
-    sw_clearsky_megakernel_plain. The two nets must share input names (the
-    features are packed once); the caller checks that they share the input
-    scaling too. CPU tensors take the plain twin; CUDA float32 tensors
-    launch the kernel; anything else raises."""
+def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
+            inc_flux_dir, sfc_alb_dir, sfc_alb_dif, inc_flux_dif, cld_bands, gpt2band,
+            cld_fields, cld_lut):
+    """Check every tensor the mode reads, launch the kernel on the current
+    stream and count the launch. In the lanes mode ``x2d`` is the list of
+    feature lanes."""
     global LAUNCHES
-    dev = x2d.device
-    if tuple(abs_model.input_names) != tuple(ray_model.input_names):
-        raise ValueError("SW megakernel requires matching abs/ray inputs")
-    if abs_model.n_outputs != ray_model.n_outputs:
-        raise ValueError("SW megakernel requires equal abs/ray output widths "
-                         f"({abs_model.n_outputs} vs {ray_model.n_outputs})")
-    if dev.type == "cpu":
-        return sw_clearsky_megakernel_plain(
-            abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
-            inc_flux_dir, sfc_alb_dir, sfc_alb_dif, inc_flux_dif)
+    what = f"sw_clearsky_megakernel[{mode}]"
+    lanes = list(x2d) if mode == "lanes" else None
+    dev = (lanes[0] if lanes else x2d).device
     if dev.type != "cuda":
-        raise ValueError(f"sw_clearsky_megakernel: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     if not megakernel_model_ok([abs_model, ray_model]):
         raise NotImplementedError(
             "sw_clearsky_megakernel hard-codes 3-layer softsign/softsign/linear "
             "nets; other models take the staged path (fused_predict_sw)")
     f32 = torch.float32
-    nlay, ncol, n2d = x2d.shape
+    nlay, ncol = col_dry.shape
+    n2d = len(lanes) if lanes else x2d.shape[-1]
     nc = const_feats.shape[1]
     ngpt = abs_model.n_outputs
     if ngpt > 128:
-        raise ValueError(f"sw_clearsky_megakernel: ngpt {ngpt} > 128 threads per block")
+        raise ValueError(f"{what}: ngpt {ngpt} > 128 threads per block")
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros((ncol, ngpt), dtype=f32, device=dev)
-    for name, t, shape in (
-        ("x2d", x2d, (nlay, ncol, n2d)), ("const_feats", const_feats, (ncol, nc)),
+    checks = [
+        ("const_feats", const_feats, (ncol, nc)),
         ("col_dry", col_dry, (nlay, ncol)), ("mu0", mu0, (ncol,)),
         ("inc_flux_dir", inc_flux_dir, (ncol, ngpt)),
         ("inc_flux_dif", inc_flux_dif, (ncol, ngpt)),
         ("sfc_alb_dir", sfc_alb_dir, (ncol, ngpt)),
         ("sfc_alb_dif", sfc_alb_dif, (ncol, ngpt)),
-    ):
+    ]
+    p = lambda t: t.data_ptr()
+    cloud = lane_list = None
+    mode_fields = {}  # the SwArgs fields only this mode reads
+    if lanes:
+        if n2d > MAX_LANES:
+            raise ValueError(f"{what}: {n2d} lanes, the kernel takes {MAX_LANES}")
+        checks += [(f"lanes[{k}]", t, (nlay, ncol)) for k, t in enumerate(lanes)]
+        lane_list = build.lane_list(lanes)
+    else:
+        checks.append(("x2d", x2d, (nlay, ncol, n2d)))
+        mode_fields["x"] = p(x2d)
+    if mode == "cld_lut":
+        liq, ice, geom = cld_lut
+        n_liq, n_ice, nband = liq.shape[0], ice.shape[0], liq.shape[1] // 3
+        names = ("lwp", "iwp", "rel", "rei")
+        checks += [(n, t, (nlay, ncol)) for n, t in zip(names, cld_fields)]
+        checks += [("cld_lut liquid", liq, (n_liq, 3 * nband)),
+                   ("cld_lut ice", ice, (n_ice, 3 * nband))]
+        cloud = build.CloudLut(p(liq), p(ice), n_liq, n_ice, nband, *geom)
+        mode_fields.update(zip(names, map(p, cld_fields)), nband=nband)
+    elif mode == "cld_bands":
+        nband = cld_bands[0].shape[-1]
+        checks += [(f"cld_bands[{k}]", t, (nlay, ncol, nband)) for k, t in enumerate(cld_bands)]
+        mode_fields.update(zip(("cld_tau", "cld_ts", "cld_tsg"), map(p, cld_bands)), nband=nband)
+    for name, t, shape in checks:
         _check(name, t, shape, f32, dev)
+    if mode in ("cld_lut", "cld_bands"):
+        _check("gpt2band", gpt2band, (ngpt,), torch.int32, dev)
+        mode_fields["gpt2band"] = p(gpt2band)
     nets = []
     for tag, m in (("abs", abs_model), ("ray", ray_model)):
         w1a, w1c = split_first_layer(m, perm, n2d)
@@ -132,28 +194,72 @@ def sw_clearsky_megakernel(abs_model, ray_model, x2d, const_feats, perm,
             ("output_std", m.output_std, (ngpt,)),
         ):
             _check(f"{tag}.{name}", t, shape, f32, dev)
-        nets.append(((w1a, w1c, b1, w2, b2, w3, b3, m.output_mean, m.output_std),
-                     (h1, h2)))
-    (wa, (h1a, h2a)), (wr, (h1r, h2r)) = nets
+        # w1a, w1c: new tensors, alive until the launch below is queued
+        nets.append((build.mlp3(w1a, w1c, m), w1a, w1c))
+    (net_a, *_), (net_r, *_) = nets
 
     lib = build.library()
-    smem = lib.sw_clearsky_megakernel_smem_bytes(nlay, n2d, h1a, h2a, h1r, h2r, ngpt)
+    smem = lib.sw_clearsky_megakernel_smem_bytes(nlay, n2d, net_a.h1, net_a.h2,
+                                                 net_r.h1, net_r.h2, ngpt)
     limit = _smem_limit(dev)
     if smem > limit:
-        raise ValueError(f"sw_clearsky_megakernel: {smem} B of shared memory "
+        raise ValueError(f"{what}: {smem} B of shared memory "
                          f"per block needed, the card allows {limit} (nlay={nlay})")
     up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn_dir = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
-    p = lambda t: t.data_ptr()
+    args = build.SwArgs(
+        cf=p(const_feats), col_dry=p(col_dry), mu0=p(mu0), inc_dir=p(inc_flux_dir),
+        inc_dif=p(inc_flux_dif), alb_dir=p(sfc_alb_dir), alb_dif=p(sfc_alb_dif),
+        up=p(up), dn=p(dn), dir=p(dn_dir),
+        ncol=ncol, nlay=nlay, n2d=n2d, nc=nc, ngpt=ngpt,
+        k_min=config.k_min, eps=float(torch.finfo(torch.float64).eps), cld_eps=CLD_EPS,
+        **mode_fields)
+    ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.sw_clearsky_megakernel_launch(
-        p(x2d), p(const_feats), p(col_dry), p(mu0), p(inc_flux_dir),
-        p(inc_flux_dif), p(sfc_alb_dir), p(sfc_alb_dif),
-        *map(p, wa), *map(p, wr), p(up), p(dn), p(dn_dir),
-        ncol, nlay, n2d, nc, h1a, h2a, h1r, h2r, ngpt,
-        config.k_min, float(torch.finfo(torch.float64).eps),
+        ref(args), ref(net_a), ref(net_r), ref(cloud), ref(lane_list), MODE_CODES[mode],
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "sw_clearsky_megakernel launch")
+    build.check(err, f"{what} launch")
     LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
     return up, dn, dn_dir
+
+
+def sw_clearsky_megakernel(abs_model, ray_model, x2d, const_feats, perm,
+                           col_dry, mu0, inc_flux_dir, sfc_alb_dir,
+                           sfc_alb_dif, inc_flux_dif=None, cld_bands=None,
+                           gpt2band=None, cld_fields=None, cld_lut=None,
+                           input_mode: str = "fused"):
+    """Fused SW pipeline; arguments as sw_clearsky_megakernel_plain. The
+    two nets must share input names (the features are packed once); the
+    caller checks that they share the input scaling too. CPU tensors take
+    the plain twin; CUDA float32 tensors launch the kernel, in the mode the
+    cloud arguments and ``input_mode`` select; anything else raises."""
+    if tuple(abs_model.input_names) != tuple(ray_model.input_names):
+        raise ValueError("SW megakernel requires matching abs/ray inputs")
+    if abs_model.n_outputs != ray_model.n_outputs:
+        raise ValueError("SW megakernel requires equal abs/ray output widths "
+                         f"({abs_model.n_outputs} vs {ray_model.n_outputs})")
+    cloudy = cld_fields is not None or cld_bands is not None
+    if cld_fields is not None and cld_lut is None:
+        raise ValueError("cld_fields requires cld_lut (CloudOptics.lut_pack)")
+    if cloudy and gpt2band is None:
+        raise ValueError("clouds require gpt2band")
+    if input_mode not in ("fused", "lanes"):
+        raise ValueError(f"input_mode {input_mode!r}: 'fused' or 'lanes'")
+    lanes_mode = input_mode == "lanes"
+    if lanes_mode and (cloudy or torch.is_tensor(x2d)):
+        raise ValueError("input_mode='lanes' requires a clear-sky lane list input")
+    dev = (x2d[0] if lanes_mode else x2d).device
+    if dev.type == "cpu":
+        return sw_clearsky_megakernel_plain(
+            abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
+            inc_flux_dir, sfc_alb_dir, sfc_alb_dif, inc_flux_dif,
+            cld_bands=cld_bands, gpt2band=gpt2band, cld_fields=cld_fields,
+            cld_lut=cld_lut, input_mode=input_mode)
+    mode = ("lanes" if lanes_mode else "cld_lut" if cld_fields is not None
+            else "cld_bands" if cld_bands is not None else "clear")
+    return _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
+                   inc_flux_dir, sfc_alb_dir, sfc_alb_dif, inc_flux_dif, cld_bands,
+                   gpt2band, cld_fields, cld_lut)

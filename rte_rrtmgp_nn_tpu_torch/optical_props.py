@@ -2,13 +2,14 @@
 
 Port of the containers of rte_rrtmgp_nn_tpu/optical_props.py (reference
 rte/mo_optical_props.F90 ty_optical_props_1scl / _2str / _nstr and
-``validate``). Arrays are (ncol, nlay, ngpt), g-points minor.
-``delta_scale``, ``increment`` and ``subset`` are still to be ported
-(ROADMAP Queue 1 item 6).
+``validate``), ``delta_scale`` (mo_optical_props_kernels.F90:46-107),
+``increment`` (mo_optical_props.F90:882-1023) and ``subset`` (:723-874).
+Arrays are (ncol, nlay, ngpt), g-points minor.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -71,3 +72,90 @@ def validate(op) -> list[str]:
         if bool((op.g < -1).any()) or bool((op.g > 1).any()):
             errs.append("validate: g values out of range [-1,1]")
     return errs
+
+
+def delta_scale(op: OpticalProps2str,
+                forward_frac: Optional[torch.Tensor] = None) -> OpticalProps2str:
+    """Delta-scale two-stream properties. With no ``forward_frac``, f = g**2
+    (delta_scale_2str_kernel); with it, the given forward fraction
+    (delta_scale_2str_f_kernel)."""
+    eps = torch.finfo(op.tau.dtype).eps
+    f = op.g * op.g if forward_frac is None else forward_frac
+    wf = op.ssa * f
+    tau = op.tau * (1.0 - wf)
+    g = (op.g - f) / torch.clamp_min(1.0 - f, eps)
+    ssa = (op.ssa - wf) / torch.clamp_min(1.0 - wf, eps)
+    return dataclasses.replace(op, tau=tau, ssa=ssa, g=g)
+
+
+def _expand_if_byband(arr: torch.Tensor, src: SpectralMapping,
+                      dst: SpectralMapping) -> torch.Tensor:
+    """``arr`` on ``dst``'s g-point grid: unchanged when ``src`` has it
+    already, broadcast band -> g-point when ``src`` is ``dst``'s band grid
+    (the ``inc_X_by_Y_bybnd`` kernels)."""
+    if src.ngpt == dst.ngpt:
+        return arr
+    if src.ngpt == dst.nband:
+        return dst.expand(arr)
+    raise ValueError(
+        f"increment: incompatible spectral discretizations (src ngpt {src.ngpt}, "
+        f"dst ngpt {dst.ngpt}, dst nband {dst.nband})")
+
+
+def increment(op1, op2):
+    """``op1`` with ``op2``'s optical properties added: the nine same-grid
+    pairs of the reference and their by-band broadcasts
+    (mo_optical_props_kernels.F90:109-636). Moment counts must match for
+    nstr + nstr."""
+    eps = torch.finfo(op1.tau.dtype).eps
+    tau2 = _expand_if_byband(op2.tau, op2.spectral, op1.spectral)
+
+    if isinstance(op1, OpticalProps1scl):
+        if isinstance(op2, OpticalProps1scl):
+            return dataclasses.replace(op1, tau=op1.tau + tau2)
+        # absorption only: a scattering medium adds (1 - ssa) * tau
+        ssa2 = _expand_if_byband(op2.ssa, op2.spectral, op1.spectral)
+        return dataclasses.replace(op1, tau=op1.tau + tau2 * (1.0 - ssa2))
+
+    if isinstance(op2, OpticalProps1scl):
+        # an absorber leaves g and p unchanged (increment_2stream_by_1scalar
+        # :169-189, increment_nstream_by_1scalar :255-275)
+        tau12 = op1.tau + tau2
+        ssa = op1.tau * op1.ssa / torch.clamp_min(tau12, eps)
+        return dataclasses.replace(op1, tau=tau12, ssa=ssa)
+
+    ssa2 = _expand_if_byband(op2.ssa, op2.spectral, op1.spectral)
+    if isinstance(op2, OpticalProps2str):
+        g2 = _expand_if_byband(op2.g, op2.spectral, op1.spectral)
+    else:  # nstr: the first moment is the asymmetry
+        g2 = _expand_if_byband(op2.p[0], op2.spectral, op1.spectral)
+    tau12 = op1.tau + tau2
+    tauscat12 = op1.tau * op1.ssa + tau2 * ssa2
+
+    if isinstance(op1, OpticalProps2str):
+        g = (op1.tau * op1.ssa * op1.g + tau2 * ssa2 * g2) / torch.clamp_min(tauscat12, eps)
+        ssa = tauscat12 / torch.clamp_min(tau12, eps)
+        return dataclasses.replace(op1, tau=tau12, ssa=ssa, g=g)
+
+    # nstr destination
+    if isinstance(op2, OpticalPropsNstr):
+        p2 = torch.stack([_expand_if_byband(m, op2.spectral, op1.spectral) for m in op2.p])
+        if p2.shape[0] != op1.p.shape[0]:
+            raise ValueError("increment: moment counts differ for nstr+nstr")
+    else:  # 2str source: moments from the asymmetry, p_m = g**m
+        m = torch.arange(1, op1.p.shape[0] + 1, dtype=op1.tau.dtype, device=op1.tau.device)
+        p2 = g2[None] ** m[:, None, None, None]
+    p = ((op1.p * (op1.tau * op1.ssa)[None] + p2 * (tau2 * ssa2)[None])
+         / torch.clamp_min(tauscat12, eps)[None])
+    ssa = tauscat12 / torch.clamp_min(tau12, eps)
+    return dataclasses.replace(op1, tau=tau12, ssa=ssa, p=p)
+
+
+def subset(op, start: int, n: int):
+    """Columns [start, start + n) of ``op``."""
+    sl = slice(start, start + n)
+    if isinstance(op, OpticalProps1scl):
+        return dataclasses.replace(op, tau=op.tau[sl])
+    if isinstance(op, OpticalProps2str):
+        return dataclasses.replace(op, tau=op.tau[sl], ssa=op.ssa[sl], g=op.g[sl])
+    return dataclasses.replace(op, tau=op.tau[sl], ssa=op.ssa[sl], p=op.p[:, sl])

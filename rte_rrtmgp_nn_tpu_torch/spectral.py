@@ -45,6 +45,14 @@ class SpectralMapping:
             band_lims_wvn=tuple(map(tuple, blw.tolist())),
         )
 
+    @staticmethod
+    def bands_only(band_lims_wvn) -> "SpectralMapping":
+        """One g-point per band (band-resolved cloud optics; reference
+        mo_optical_props.F90 init without band_lims_gpt)."""
+        nband = np.asarray(band_lims_wvn).shape[0]
+        blg = np.stack([np.arange(nband), np.arange(nband) + 1], axis=1)
+        return SpectralMapping.create(blg, band_lims_wvn)
+
     @property
     def nband(self) -> int:
         return len(self.band_lims_gpt)

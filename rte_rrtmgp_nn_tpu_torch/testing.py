@@ -1,6 +1,6 @@
-"""Synthetic inputs for the tests and the chip smoke run (RFMIP-like
-atmospheres and seeded MLPs), and the rule that holds a kernel against its
-plain twin.
+"""Synthetic inputs for the tests and the chip smoke run (RFMIP-like and
+Garand-like atmospheres, cloud-optics coefficient files, seeded MLPs), and
+the rule that holds a kernel against its plain twin.
 
 Input synthesis is numpy only, not physics. One seeded dict of arrays can
 feed both the JAX package's and this package's ``RFMIPData`` (and the
@@ -12,6 +12,8 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+
+from .drivers.allsky_io import GARAND_GASES
 
 
 def synthesize_rfmip(ncol: int, nlay: int, seed: int, top_at_1: bool = True) -> dict:
@@ -68,6 +70,152 @@ def synthesize_rfmip(ncol: int, nlay: int, seed: int, top_at_1: bool = True) -> 
     out["gases"] = {k: np.array(v, dtype=f32) for k, v in gases.items()}
     out["top_at_1"] = bool(top_at_1)
     return out
+
+
+def synthesize_garand(nlay: int, seed: int, top_at_1: bool = True) -> dict:
+    """Two atmospheric profiles in the layout of the all-sky example's
+    Garand file, from ``seed``: float64 numpy arrays ``p_lay``/``t_lay``
+    (nlay, 2), ``p_lev``/``t_lev`` (nlay+1, 2) and ``vmr_<gas>`` (nlay, 2)
+    for the GARAND_GASES, ready for ``write_nc`` with the dimensions
+    (lay, lev, col).
+
+    Pressure runs from 10 Pa to about 1000 hPa, quadratically spaced, so
+    several layers lie between 100 and 900 hPa; a cool and a warm profile
+    cross 263 K and 273 K inside that range at different heights, so with
+    the all-sky driver's cloud placement liquid-only, ice-only, mixed and
+    clear layers all occur (nlay >= 8). ``top_at_1`` False stores the
+    surface first."""
+    rng = np.random.default_rng(seed)
+    psfc = np.array([100500.0, 101300.0]) + rng.uniform(-300.0, 300.0, 2)
+    frac = 1.0e-4 + (1.0 - 1.0e-4) * np.linspace(0.0, 1.0, nlay + 1) ** 2
+    plev = frac[:, None] * psfc[None, :]                   # (nlay+1, 2), top first
+    play = 0.5 * (plev[1:] + plev[:-1])
+    sigma = play / psfc[None, :]
+    t0 = np.array([288.0, 305.0])
+    tlay = np.maximum(215.0, t0[None, :] * sigma ** 0.19) + rng.uniform(-0.2, 0.2, (nlay, 2))
+    tlev = np.concatenate([tlay[:1] - 1.0, 0.5 * (tlay[1:] + tlay[:-1]), t0[None, :]], axis=0)
+    ones = np.ones((nlay, 2))
+    gases = {
+        "h2o": 1.2e-2 * sigma ** 3.0 * rng.uniform(0.8, 1.2, (nlay, 2)) + 3.0e-6,
+        "co2": 4.1e-4 * ones,
+        "o3": (8.0e-6 * np.exp(-((np.log(sigma) - np.log(0.01)) / 1.5) ** 2) + 2.0e-8)
+              * rng.uniform(0.9, 1.1, (nlay, 2)),
+        "n2o": 3.3e-7 * ones, "co": 1.2e-7 * ones, "ch4": 1.8e-6 * ones,
+        "o2": 0.209 * ones, "n2": 0.781 * ones,
+    }
+    out = {"p_lay": play, "p_lev": plev, "t_lay": tlay, "t_lev": tlev}
+    out.update({f"vmr_{g}": gases[g] for g in GARAND_GASES})
+    if not top_at_1:
+        out = {k: v[::-1] for k, v in out.items()}
+    return {k: np.ascontiguousarray(v, dtype=np.float64) for k, v in out.items()}
+
+
+def garand_nc_variables(arrays: dict) -> tuple[dict, dict]:
+    """(dims, variables) of ``write_nc`` for a synthesize_garand dict."""
+    nlay = arrays["p_lay"].shape[0]
+    dims = {"lay": nlay, "lev": nlay + 1, "col": arrays["p_lay"].shape[1]}
+    variables = {k: (("lev" if v.shape[0] == nlay + 1 else "lay", "col"), v)
+                 for k, v in arrays.items()}
+    return dims, variables
+
+
+def synthesize_cloud_optics(spectral, seed: int, flavour: str = "lut") -> dict:
+    """Cloud-optics coefficients on ``spectral``'s bands, from ``seed``, as
+    float64 numpy arrays under the coefficient file's variable names.
+
+    ``flavour`` "lut": ``lut_{ext,ssa,asy}liq`` (nband, 20) and
+    ``lut_{ext,ssa,asy}ice`` (3 roughness classes, nband, 18), smooth in
+    radius. "pade": ``pade_{ext,ssa,asy}{liq,ice}`` with (ncoeff, 3 size
+    regimes, nband) for liquid, a leading roughness axis for ice, 6
+    coefficients for extinction ([2/3]) and 5 for ssa and asymmetry ([2/2]),
+    and the six ``pade_sizreg_*`` bounds; every coefficient is positive, so
+    no denominator has a pole at a positive radius. Both give ext > 0, 0 <
+    ssa < 1 and 0 < g < 1 over the radius ranges 2.5-21.5 (liquid) and
+    10-180 microns (ice), which ``radliq_*``/``radice_*`` hold, with
+    ``bnd_limits_wavenumber`` (nband, 2)."""
+    rng = np.random.default_rng(seed)
+    nband = spectral.nband
+    out = {"bnd_limits_wavenumber": spectral.band_lims_wvn_array,
+           "radliq_lwr": np.float64(2.5), "radliq_upr": np.float64(21.5),
+           "radice_lwr": np.float64(10.0), "radice_upr": np.float64(180.0)}
+    if flavour == "lut":
+        def tables(lo, hi, nsize, scale):
+            re = np.linspace(lo, hi, nsize)[None, :]
+            a = rng.uniform(0.8, 1.2, (nband, 1))
+            ext = scale * a / re * (1.0 + 0.1 * np.sin(re / hi * 3.0))
+            s0 = rng.uniform(0.4, 0.97, (nband, 1))
+            ssa = s0 - 0.25 * s0 * (re - lo) / (hi - lo)
+            g0 = rng.uniform(0.70, 0.80, (nband, 1))
+            asy = g0 + 0.15 * (re - lo) / (hi - lo)
+            return ext, ssa, asy
+
+        for n, t in zip(("ext", "ssa", "asy"), tables(2.5, 21.5, 20, 1.6)):
+            out[f"lut_{n}liq"] = t
+        ice = [tables(10.0, 180.0, 18, 3.0) for _ in range(3)]
+        for k, n in enumerate(("ext", "ssa", "asy")):
+            out[f"lut_{n}ice"] = np.stack([r[k] for r in ice])
+        return out
+    if flavour != "pade":
+        raise ValueError(f"flavour {flavour!r}: 'lut' or 'pade'")
+
+    def pade(hi, scale):
+        # [2/3] extinction, about scale / re; [2/2] co-albedo and asymmetry
+        # between their value at re = 0 and the ratio of the leading terms
+        shape = (3, nband)
+        ext = np.stack([scale * rng.uniform(0.4, 0.6, shape),
+                        scale * rng.uniform(0.01, 0.03, shape),
+                        scale * rng.uniform(0.5e-5, 1.5e-5, shape),
+                        rng.uniform(0.25, 0.35, shape),
+                        rng.uniform(1.0e-3, 3.0e-3, shape),
+                        rng.uniform(0.5e-6, 1.5e-6, shape)])
+
+        def ratio(c0_lo, c0_hi, f_lo, f_hi):
+            c3, c4 = rng.uniform(0.05, 0.2, shape), rng.uniform(1.0e-3, 4.0e-3, shape) * 20.0 / hi
+            f = rng.uniform(f_lo, f_hi, shape)
+            return np.stack([rng.uniform(c0_lo, c0_hi, shape), f * c3, f * c4, c3, c4])
+
+        return ext, ratio(0.02, 0.2, 0.1, 0.6), ratio(0.70, 0.78, 0.80, 0.92)
+
+    for n, t in zip(("ext", "ssa", "asy"), pade(21.5, 1.0)):
+        out[f"pade_{n}liq"] = t
+        out[f"pade_sizreg_{n}liq"] = np.array([2.5, 8.0, 6.0, 21.5])
+    ice = [pade(180.0, 3.0) for _ in range(3)]
+    for k, n in enumerate(("ext", "ssa", "asy")):
+        out[f"pade_{n}ice"] = np.stack([r[k] for r in ice])
+        out[f"pade_sizreg_{n}ice"] = np.array([10.0, 50.0, 60.0, 180.0])
+    return out
+
+
+def cloud_optics_nc_variables(arrays: dict) -> tuple[dict, dict]:
+    """(dims, variables) of ``write_nc`` for synthesize_cloud_optics dicts
+    (one flavour, or both merged into one dict)."""
+    dims = {"nband": arrays["bnd_limits_wavenumber"].shape[0], "pair": 2, "nbound": 4}
+    names = {1: ("nband",), 2: ("nband", "nsize"), 3: ("nrghice", "nband", "nsize")}
+    variables = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if k == "bnd_limits_wavenumber":
+            vd = ("nband", "pair")
+        elif v.ndim == 0:
+            vd = ()
+        elif k.startswith("pade_sizreg"):
+            vd = ("nbound",)
+        elif k.startswith("lut_"):
+            phase = k[-3:]
+            dims[f"nsize_{phase}"] = v.shape[-1]
+            vd = tuple(f"nsize_{phase}" if d == "nsize" else d for d in names[v.ndim])
+        else:  # pade_*: ([nrghice,] ncoeff, nsizereg, nband)
+            nco = f"ncoeff_{v.shape[-3]}"
+            dims[nco] = v.shape[-3]
+            vd = (nco, "nsizereg", "nband")
+            if v.ndim == 4:
+                vd = ("nrghice",) + vd
+        if "nrghice" in vd:
+            dims["nrghice"] = v.shape[0]
+        if "nsizereg" in vd:
+            dims["nsizereg"] = v.shape[-2]
+        variables[k] = (vd, v)
+    return dims, variables
 
 
 # every activation of models/network.py, once each, for a generic-depth net

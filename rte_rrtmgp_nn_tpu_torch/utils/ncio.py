@@ -1,15 +1,18 @@
-"""Minimal netCDF reading without the netCDF4 library.
+"""Minimal netCDF reading and writing without the netCDF4 library.
 
-Copy of the reading side of rte_rrtmgp_nn_tpu/utils/ncio.py, which cannot
-be imported without JAX. Two on-disk formats:
+Copy of rte_rrtmgp_nn_tpu/utils/ncio.py, which cannot be imported without
+JAX. Two on-disk formats are read:
   - netCDF-4 (HDF5-based), via h5py, imported only when such a file is
     opened;
-  - netCDF-3 classic, via scipy.io.
+  - netCDF-3 classic, via scipy.io, which is also the format written.
 
 Arrays come back exactly as stored (C order): a variable the reference's
 Fortran declares as ``var(a, b)`` appears here with shape ``(b, a)``.
 """
 from __future__ import annotations
+
+import os
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 
@@ -116,3 +119,37 @@ class NCFile:
                 out.append("".join(chars).strip().strip("\x00").strip())
             return out
         raise ValueError(f"{name}: cannot decode dtype {arr.dtype} shape {arr.shape} as strings")
+
+
+def write_nc(
+    path: str,
+    dims: Mapping[str, int],
+    variables: Mapping[str, tuple[Sequence[str], Any]],
+    attrs: Mapping[str, Any] | None = None,
+) -> None:
+    """Write a netCDF-3 classic file. ``variables`` maps name -> (dimension
+    names, array); the array's dtype is stored as given. Char data is a 2-D
+    ``dtype='S1'`` array (``strings_to_chararray``)."""
+    from scipy.io import netcdf_file
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with netcdf_file(path, "w") as f:
+        for name, size in dims.items():
+            f.createDimension(name, int(size))
+        for name, (vdims, data) in variables.items():
+            data = np.asarray(data)
+            var = f.createVariable(name, data.dtype, tuple(vdims))
+            var[...] = data
+        if attrs:
+            for k, v in attrs.items():
+                setattr(f, k, v)
+
+
+def strings_to_chararray(strings: Sequence[str], width: int) -> np.ndarray:
+    """Python strings as an (n, width) 'S1' char array, the reference's
+    netCDF string layout."""
+    out = np.full((len(strings), width), b" ", dtype="S1")
+    for i, s in enumerate(strings):
+        b = s.encode()[:width]
+        out[i, : len(b)] = np.frombuffer(b, dtype="S1")
+    return out

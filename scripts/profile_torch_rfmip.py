@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's RFMIP clear-sky path on
-one NVIDIA GPU.
+"""Where the time goes in the PyTorch/CUDA port's RFMIP clear-sky and
+all-sky paths on one NVIDIA GPU.
 
     python3 scripts/profile_torch_rfmip.py
 
@@ -9,8 +9,11 @@ power limit:
   - the host-side stages of one driver call (Planck table, canonicalization,
     host-to-device copies) on the host clock, each ended by a synchronize;
   - a torch.profiler window over ITERS calls of the fused LW and SW cores
-    (K1, K2), and one over the general cores (LW with N_ANGLES Gauss angles:
-    K3 + K7 per angle; staged SW: K5 + the PyTorch sweeps), on
+    (K1, K2), one over the general cores (LW with N_ANGLES Gauss angles:
+    K3 + K7 per angle; staged SW: K5 + the PyTorch sweeps), one over the
+    fused all-sky cores (K1 and K2 in their lookup-table cloud mode, on
+    chip_smoke.py's synthetic Garand and coefficient files) and one over
+    the staged all-sky cores (K3 + K7; K5 + the PyTorch sweeps), on
     device-resident inputs: the window per call (CUDA events), the device
     time per call summed over kernels, the device's idle share (1 - busy /
     window, unclamped: a negative share means the busy total is wrong), the
@@ -24,7 +27,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import LW_MODEL, N_ANGLES, NCOL, NLAY, SEED, SW_MODEL, gpu_line  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    LW_MODEL, N_ANGLES, NCOL, NLAY, SEED, SW_MODEL, allsky_core_closures, gpu_line,
+    write_allsky_files)
 
 ITERS = 20
 
@@ -85,6 +90,17 @@ def main() -> int:
 
     window("fused LW+SW cores", fused_cores, tag)
     window(f"general cores (LW {N_ANGLES} angles + staged SW)", general_cores, tag)
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cores = allsky_core_closures(dev, lw_model, sw_model, write_allsky_files(tmp))
+
+    def both(route):
+        return lambda: (cores[f"allsky_lw_core_{route}"](), cores[f"allsky_sw_core_{route}"]())
+
+    window("fused all-sky LW+SW cores (lookup-table clouds)", both("fused"), tag)
+    window("staged all-sky LW+SW cores (LW 1 angle)", both("staged"), tag)
     return 0
 
 

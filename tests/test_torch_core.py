@@ -216,3 +216,104 @@ def test_nn_model_rejects_unknown_activation():
     arrs = list(random_arrays((4, 8, 2), ("swish", "linear"), seed=1))
     with pytest.raises(ValueError):
         pnet.nn_model_from_arrays(*arrs, device=CPU)
+
+
+# -- optical properties: delta_scale, increment, subset ------------------------------
+
+def _props_pair(kind, spec_pair, rng, ncol=3, nlay=4, nmom=3):
+    """The same random optical properties as a JAX and a port container on
+    the g-point grid of ``spec_pair`` = (JAX mapping, port mapping)."""
+    from rte_rrtmgp_nn_tpu import optical_props as jop
+    from rte_rrtmgp_nn_tpu_torch import optical_props as pop
+
+    js, ps = spec_pair
+    shape = (ncol, nlay, js.ngpt)
+    f = lambda lo, hi, shp=shape: rng.uniform(lo, hi, shp).astype(np.float32)
+    j, t = jnp.asarray, torch.from_numpy
+    tau, ssa = f(0.0, 3.0), f(0.0, 1.0)
+    if kind == "1scl":
+        return jop.OpticalProps1scl(j(tau), js), pop.OpticalProps1scl(t(tau), ps)
+    if kind == "2str":
+        g = f(-0.5, 0.95)
+        return (jop.OpticalProps2str(j(tau), j(ssa), j(g), js),
+                pop.OpticalProps2str(t(tau), t(ssa), t(g), ps))
+    p = f(-0.5, 0.9, (nmom,) + shape)
+    return (jop.OpticalPropsNstr(j(tau), j(ssa), j(p), js),
+            pop.OpticalPropsNstr(t(tau), t(ssa), t(p), ps))
+
+
+def _same_props(port, ref, atol=1e-6):
+    """Every field of two containers agrees to rtol 1e-5 (atol for values
+    that are differences of near-equal terms)."""
+    assert type(port).__name__ == type(ref).__name__
+    for name in ("tau", "ssa", "g", "p"):
+        if hasattr(ref, name):
+            close(getattr(port, name), getattr(ref, name), atol=atol)
+
+
+def _spec_pairs():
+    from rte_rrtmgp_nn_tpu.spectral import SpectralMapping as JS
+    from rte_rrtmgp_nn_tpu_torch.spectral import SpectralMapping as PS
+
+    js, ps = jplanck.sw_spectral_g112(), pplanck.sw_spectral_g112()
+    bands = (JS.bands_only(js.band_lims_wvn_array), PS.bands_only(ps.band_lims_wvn_array))
+    assert bands[1].band_lims_gpt == bands[0].band_lims_gpt
+    return (js, ps), bands
+
+
+@pytest.mark.parametrize("with_f", [False, True], ids=["g_squared", "forward_frac"])
+def test_delta_scale_matches_jax(rng, with_f):
+    from rte_rrtmgp_nn_tpu import optical_props as jop
+    from rte_rrtmgp_nn_tpu_torch import optical_props as pop
+
+    gpt, _ = _spec_pairs()
+    jp, pp = _props_pair("2str", gpt, rng)
+    f = rng.uniform(0.0, 0.9, tuple(pp.tau.shape)).astype(np.float32) if with_f else None
+    ref = jop.delta_scale(jp, None if f is None else jnp.asarray(f))
+    got = pop.delta_scale(pp, None if f is None else torch.from_numpy(f))
+    _same_props(got, ref)
+    assert got.spectral is pp.spectral
+
+
+@pytest.mark.parametrize("grid", ["gpoint", "band"])
+@pytest.mark.parametrize("kind2", ["1scl", "2str", "nstr"])
+@pytest.mark.parametrize("kind1", ["1scl", "2str", "nstr"])
+def test_increment_matches_jax(rng, kind1, kind2, grid):
+    """increment for every pair of containers the JAX function takes, with
+    op2 on op1's g-point grid and on its band grid (the by-band broadcast)."""
+    from rte_rrtmgp_nn_tpu import optical_props as jop
+    from rte_rrtmgp_nn_tpu_torch import optical_props as pop
+
+    gpt, bands = _spec_pairs()
+    j1, p1 = _props_pair(kind1, gpt, rng)
+    j2, p2 = _props_pair(kind2, gpt if grid == "gpoint" else bands, rng)
+    ref, got = jop.increment(j1, j2), pop.increment(p1, p2)
+    _same_props(got, ref)
+    assert tuple(got.tau.shape) == tuple(p1.tau.shape)
+
+
+def test_increment_refuses_mismatched_grids_and_moments(rng):
+    from rte_rrtmgp_nn_tpu_torch import optical_props as pop
+
+    gpt, _ = _spec_pairs()
+    lw = (jplanck.lw_spectral_g128(), pplanck.lw_spectral_g128())
+    _, p1 = _props_pair("1scl", gpt, rng)
+    _, p2 = _props_pair("1scl", lw, rng)
+    with pytest.raises(ValueError, match="incompatible spectral"):
+        pop.increment(p1, p2)
+    _, n1 = _props_pair("nstr", gpt, rng, nmom=3)
+    _, n2 = _props_pair("nstr", gpt, rng, nmom=2)
+    with pytest.raises(ValueError, match="moment counts"):
+        pop.increment(n1, n2)
+
+
+@pytest.mark.parametrize("kind", ["1scl", "2str", "nstr"])
+def test_subset_matches_jax(rng, kind):
+    from rte_rrtmgp_nn_tpu import optical_props as jop
+    from rte_rrtmgp_nn_tpu_torch import optical_props as pop
+
+    gpt, _ = _spec_pairs()
+    jp, pp = _props_pair(kind, gpt, rng, ncol=5)
+    ref, got = jop.subset(jp, 1, 3), pop.subset(pp, 1, 3)
+    _same_props(got, ref, atol=0.0)
+    assert got.tau.shape[0] == 3

@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card against their plain twins on the
 same CUDA tensors: K1 (lw_clearsky_mega4) and K2 (sw_clearsky_megakernel)
-to LW atol 2e-3 and SW atol 2e-2 W/m2; the MLP kernel's three epilogues
-K3/K4/K5 (fused_predict_lw_both, _tau, _sw) to the JAX package's rtol
-2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2. And the CUDA drivers, fused
-and general (multi-angle LW, staged SW), against the same paths in
-float64 on the CPU.
+to LW atol 2e-3 and SW atol 2e-2 W/m2, clear-sky, in both cloud modes
+(lookup tables in the kernel; band lanes) and in their lane input modes
+(K8 lw_clearsky_mega5 on raw lanes; K9 input_mode="lanes"); the MLP
+kernel's three epilogues K3/K4/K5 (fused_predict_lw_both, _tau, _sw) to
+the JAX package's rtol 2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2. And
+the CUDA drivers, RFMIP and all-sky, fused and general (multi-angle LW,
+staged SW), against the same paths in float64 on the CPU.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; elsewhere they
 skip. The file imports neither JAX nor the JAX package, so on a GPU host
@@ -244,3 +246,156 @@ def test_general_drivers_on_cuda_match_float64_cpu(dev, top_at_1):
         assert _maxabs(getattr(got_lw, n), getattr(ref_lw, n)) <= LW_ATOL, n
     for n in ("flux_up", "flux_dn", "flux_dn_dir"):
         assert _maxabs(getattr(got_sw, n), getattr(ref_sw, n)) <= SW_ATOL, n
+
+
+# -- the all-sky path: cloud modes of K1/K2, and the lane input modes K8/K9 ----
+
+def _cloud_optics(spec, flavour, dev, seed=51, dtype=torch.float32):
+    from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.spectral import SpectralMapping
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_cloud_optics
+
+    return cloud_optics_from_arrays(
+        synthesize_cloud_optics(spec, seed, flavour),
+        SpectralMapping.bands_only(spec.band_lims_wvn_array), dev, dtype)
+
+
+def _allsky_args(dev, ncol, nlay, seed, flavour):
+    """((LW args, LW cloud keywords), (SW args, SW cloud keywords)) of the
+    fused kernels on a synthesized atmosphere with the all-sky driver's
+    clouds; the cloudy share of the cells."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+
+    d = synthesize_rfmip(ncol, nlay, seed)
+    data = rfmip_data_from_arrays(d)
+    lw_spec, sw_spec = planck.lw_spectral_g128(), planck.sw_spectral_g112()
+    lw_co, sw_co = _cloud_optics(lw_spec, flavour, dev), _cloud_optics(sw_spec, flavour, dev)
+    cld = allsky.cloud_fields_lay_major(d["play"], d["tlay"], lw_co, True, dev)
+    table = planck.PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
+    lw_in = rfmip.lw_canonical_inputs(data, lw_spec, dev)
+    lw = allsky.allsky_lw_mega_args([load_model_netcdf(LW_MODEL, device=dev)], table, lw_spec,
+                                    lw_co, *lw_in[:6], *cld, lw_in[6])
+    play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, dev)
+    sw_model = load_model_netcdf(SW_MODEL, device=dev)
+    solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
+    mu0 = torch.full((ncol,), 0.86, device=dev)
+    alb = torch.full((ncol, sw_spec.nband), 0.06, device=dev)
+    sw = allsky.allsky_sw_mega_args([sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t,
+                                    tlay_t, mu0, alb, alb, *cld, concs_t)
+    return lw, sw, float(((cld[0] > 0) | (cld[1] > 0)).float().mean())
+
+
+@pytest.mark.parametrize("flavour,mode", [("lut", "cld_lut"), ("pade", "cld_bands")])
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60)])
+def test_cloud_modes_match_twins(dev, ncol, nlay, flavour, mode):
+    """K1 and K2 in each cloud mode against their twins: lookup-table cloud
+    optics goes into the kernel as the four cloud fields, Pade cloud optics
+    as band lanes; clouds are present and move the fluxes."""
+    (lw, lw_kw), (sw, sw_kw), cloudy = _allsky_args(dev, ncol, nlay, 52, flavour)
+    assert cloudy > 0.05
+    n, nm = k1.LAUNCHES, k1.MODE_LAUNCHES[mode]
+    got = k1.lw_clearsky_mega4(*lw, **lw_kw)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k1.MODE_LAUNCHES[mode]) == (n + 1, nm + 1)
+    for a, b in zip(got, k1.lw_clearsky_mega4_plain(*lw, **lw_kw)):
+        assert a.is_cuda and tuple(a.shape) == (ncol, nlay + 1)
+        assert _maxabs(a, b) <= LW_ATOL
+    clear = k1.lw_clearsky_mega4(*lw)
+    assert _maxabs(got[1], clear[1]) > 1.0  # W/m2: the clouds are in the kernel's answer
+    n, nm = k2.LAUNCHES, k2.MODE_LAUNCHES[mode]
+    got = k2.sw_clearsky_megakernel(*sw, **sw_kw)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.MODE_LAUNCHES[mode]) == (n + 1, nm + 1)
+    for a, b in zip(got, k2.sw_clearsky_megakernel_plain(*sw, **sw_kw)):
+        assert a.is_cuda and tuple(a.shape) == (ncol, nlay + 1)
+        assert _maxabs(a, b) <= SW_ATOL
+    clear = k2.sw_clearsky_megakernel(*sw)
+    assert _maxabs(got[2], clear[2]) > 1.0
+
+
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60)])
+def test_lane_modes_match_twins(dev, ncol, nlay):
+    """K8 (the LW kernel on raw lanes, transform and scaling in the kernel)
+    and K9 (the SW kernel with one array per feature) against their twins
+    and against the stacked-input mode of the same kernel."""
+    spec = planck.lw_spectral_g128()
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed=53))
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    model = load_model_netcdf(LW_MODEL, device=dev)
+    lw_in = rfmip.lw_canonical_inputs(data, spec, dev)
+    args5 = rfmip.lw_mega5_args([model], table, spec, *lw_in)
+    n, nm = k1.LAUNCHES, k1.MODE_LAUNCHES["lanes"]
+    got = k1.lw_clearsky_mega5(*args5)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k1.MODE_LAUNCHES["lanes"]) == (n + 1, nm + 1)
+    stacked = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([model], table, spec, *lw_in))
+    for a, b, c in zip(got, k1.lw_clearsky_mega5_plain(*args5), stacked):
+        assert tuple(a.shape) == (ncol, nlay + 1)
+        assert _maxabs(a, b) <= LW_ATOL and _maxabs(a, c) <= LW_ATOL
+    sargs = list(_sw_args(dev, ncol, nlay, seed=54))
+    stacked = k2.sw_clearsky_megakernel(*sargs)
+    sargs[2] = [l.contiguous() for l in sargs[2].unbind(-1)]
+    n, nm = k2.LAUNCHES, k2.MODE_LAUNCHES["lanes"]
+    got = k2.sw_clearsky_megakernel(*sargs, input_mode="lanes")
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.MODE_LAUNCHES["lanes"]) == (n + 1, nm + 1)
+    for a, b, c in zip(got, k2.sw_clearsky_megakernel_plain(*sargs, input_mode="lanes"), stacked):
+        assert _maxabs(a, b) <= SW_ATOL
+        assert _maxabs(a, c) == 0.0  # the same arithmetic on the same numbers
+
+
+def _write_allsky_files(tmp_path, nlay, flavour, top_at_1=True):
+    from rte_rrtmgp_nn_tpu_torch.testing import (
+        cloud_optics_nc_variables, garand_nc_variables, synthesize_cloud_optics,
+        synthesize_garand)
+    from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc
+
+    paths = {k: str(tmp_path / f"{k}-{flavour}.nc") for k in ("garand", "lw", "sw")}
+    write_nc(paths["garand"], *garand_nc_variables(synthesize_garand(nlay, 55, top_at_1)))
+    for k, spec in (("lw", planck.lw_spectral_g128()), ("sw", planck.sw_spectral_g112())):
+        write_nc(paths[k], *cloud_optics_nc_variables(synthesize_cloud_optics(spec, 56, flavour)))
+    return paths
+
+
+@pytest.mark.parametrize("flavour,mode", [("lut", "cld_lut"), ("pade", "cld_bands")])
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_allsky_drivers_on_cuda_match_float64_cpu(dev, tmp_path, top_at_1, flavour, mode):
+    """allsky_lw / allsky_sw on CUDA, on the fused route (one launch of K1
+    or K2 in the cloud mode of the coefficient file's flavour) and on the
+    staged routes (K3 then K7 per angle; K5), against the same request in
+    float64 on the CPU."""
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky import allsky_lw, allsky_sw
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+
+    paths = _write_allsky_files(tmp_path, 12, flavour, top_at_1)
+    cpu, f64, ncol = torch.device("cpu"), torch.float64, 9
+    lw64 = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
+    sw64 = load_model_netcdf(SW_MODEL, device=cpu, dtype=f64)
+    lw, sw = load_model_netcdf(LW_MODEL, device=dev), load_model_netcdf(SW_MODEL, device=dev)
+    ref_lw = {n: allsky_lw(paths["garand"], paths["lw"], [lw64], ncol=ncol, n_gauss_angles=n,
+                           device=cpu, dtype=f64) for n in (1, 3)}
+    ref_sw = allsky_sw(paths["garand"], paths["sw"], [sw64, sw64], ncol=ncol, device=cpu,
+                       dtype=f64)
+    n1, n2 = k1.MODE_LAUNCHES[mode], k2.MODE_LAUNCHES[mode]
+    got_lw = allsky_lw(paths["garand"], paths["lw"], [lw], ncol=ncol, device=dev)
+    got_sw = allsky_sw(paths["garand"], paths["sw"], [sw, sw], ncol=ncol, device=dev)
+    torch.cuda.synchronize()
+    assert (k1.MODE_LAUNCHES[mode], k2.MODE_LAUNCHES[mode]) == (n1 + 1, n2 + 1)
+    n3, n5, n7 = (mlp.LAUNCHES["fused_predict_lw_both"], mlp.LAUNCHES["fused_predict_sw"],
+                  k7.LAUNCHES)
+    got_lw3 = allsky_lw(paths["garand"], paths["lw"], [lw], ncol=ncol, n_gauss_angles=3,
+                        device=dev)
+    with config_override(use_megakernel=False):
+        got_sw_staged = allsky_sw(paths["garand"], paths["sw"], [sw, sw], ncol=ncol, device=dev)
+    torch.cuda.synchronize()
+    assert (mlp.LAUNCHES["fused_predict_lw_both"], mlp.LAUNCHES["fused_predict_sw"],
+            k7.LAUNCHES) == (n3 + 1, n5 + 1, n7 + 3)
+    for got, ref in ((got_lw, ref_lw[1]), (got_lw3, ref_lw[3])):
+        for n in ("flux_up", "flux_dn", "flux_net"):
+            assert getattr(got, n).is_cuda
+            assert _maxabs(getattr(got, n), getattr(ref, n)) <= LW_ATOL, n
+    for got in (got_sw, got_sw_staged):
+        for n in ("flux_up", "flux_dn", "flux_dn_dir"):
+            assert _maxabs(getattr(got, n), getattr(ref_sw, n)) <= SW_ATOL, n

@@ -1,8 +1,11 @@
 """The plain twins of the port's fused kernels against the JAX package's
 Pallas kernels run in interpret mode, on the same inputs: K1
 (lw_clearsky_mega4) to 2e-3 W/m2 and K2 (sw_clearsky_megakernel) to 2e-2
-W/m2, the JAX package's own kernel-vs-staged bounds. The column count is
-not a multiple of the Pallas tile, and the SW columns include night ones.
+W/m2, the JAX package's own kernel-vs-staged bounds, clear-sky, in both
+cloud modes (lookup tables inside the kernel; band lanes) and in the lane
+input modes (K8 lw_clearsky_mega5 on raw lanes, K9 input_mode="lanes"). The
+column count is not a multiple of the Pallas tile, and the SW columns
+include night ones.
 
 The CUDA kernels themselves are tested on the card by
 test_torch_cuda_kernels.py."""
@@ -201,3 +204,286 @@ def test_ctypes_declarations_match_the_c_entry_points():
         assert list(fn.argtypes) == argtypes, name
         assert fn.restype is restypes[ret], name
 
+
+def _c_struct_fields(name):
+    """[(field, ctypes type)] of ``struct name`` as csrc/ declares it."""
+    import ctypes
+    import re
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    text = "".join(p.read_text() for p in sorted(build.CSRC_DIR.glob("*.cu*")))
+    (body,) = re.findall(r"struct %s \{(.*?)\n\};" % name, text, re.S)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if not decl.strip():
+            continue
+        base, star, names = re.fullmatch(r"(?:const\s+)?(float|int)(\*?)\s+(.*)", decl.strip(),
+                                         re.S).groups()
+        ctype = ctypes.c_void_p if star else {"float": ctypes.c_float, "int": ctypes.c_int}[base]
+        for n in names.split(","):
+            n = n.strip()
+            if n.endswith("[kMaxLanes]"):
+                fields.append((n[:-len("[kMaxLanes]")], ctype * build.MAX_LANES))
+            else:
+                fields.append((n, ctype))
+    return fields
+
+
+@pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs"])
+def test_ctypes_structs_mirror_the_c_structs(name):
+    """The fused kernels' launch entries read their arguments from structs;
+    build.py's ctypes mirror of each has the C declaration's fields, in its
+    order and with its types, so a wrapper that fills a field by name fills
+    the field the kernel reads."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    want = _c_struct_fields(name)
+    assert len(want) >= 2
+    assert list(getattr(build, name)._fields_) == want
+
+
+def test_ctypes_struct_helpers_fill_by_name():
+    """mlp3 and lane_list put each tensor's address and each width into the
+    field of that name."""
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    m = load_model_netcdf(LW_MODEL, device=CPU)
+    w1a, w1c = m.weights[0][:5].contiguous(), m.weights[0][5:].contiguous()
+    net = build.mlp3(w1a, w1c, m)
+    assert (net.w1a, net.w1c, net.w2, net.b3, net.ostd) == (
+        w1a.data_ptr(), w1c.data_ptr(), m.weights[1].data_ptr(), m.biases[2].data_ptr(),
+        m.output_std.data_ptr())
+    assert (net.h1, net.h2, net.nout) == (128, 128, 256)
+    lanes = [torch.zeros(3), torch.ones(3)]
+    ll = build.lane_list(lanes, (2, 1))
+    assert (ll.p[0], ll.p[1], ll.p[2]) == (lanes[0].data_ptr(), lanes[1].data_ptr(), None)
+    assert list(ll.code[:3]) == [2, 1, 0]
+    assert list(build.lane_list(lanes).code[:2]) == [0, 0]
+
+
+
+# -- the cloud modes of K1 and K2 ------------------------------------------------------
+
+def _one_hot(spec):
+    return jnp.asarray(spec.gpt2band[None, :] == np.arange(spec.nband)[:, None], jnp.float32)
+
+
+def _cloud_case(tmp_path, which, flavour, ncol=NCOL, nlay=NLAY, seed=13):
+    """(JAX cloud optics, port cloud optics, the four (nlay, ncol) cloud
+    fields, the synthesized atmosphere) with the all-sky driver's cloud
+    placement; a few columns hold liquid, ice and mixed cells."""
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky import cloud_fields_lay_major
+    from test_torch_cloud_optics import cloud_optics_pair
+
+    jco_, pco_ = cloud_optics_pair(tmp_path, which, seed, flavour)
+    d = synthesize_rfmip(ncol, nlay, seed)
+    cld = cloud_fields_lay_major(d["play"], d["tlay"], pco_, True, CPU)
+    assert float((cld[0] > 0).float().mean()) > 0.02 and float((cld[1] > 0).float().mean()) > 0.02
+    return jco_, pco_, cld, d
+
+
+@pytest.mark.parametrize("flavour", ["lut", "pade"])
+def test_lw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
+    """K1's twin with lookup-table cloud optics (the four cloud fields, the
+    table interpolation in the kernel) and with Pade cloud optics (band
+    lanes of absorption tau) against the Pallas kernel's cld_fields +
+    cld_lut and cld_tau_band options; the clouds move the fluxes."""
+    from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import cloud_lut_pack as jax_lut_pack
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    jco_, pco_, cld, d = _cloud_case(tmp_path, "lw", flavour)
+    _, data = rfmip_pair(d)
+    spec = pplanck.lw_spectral_g128()
+    table = pplanck.PlanckTable.compute(spec.band_lims_wvn_array, device=CPU)
+    lw_in = rfmip.lw_canonical_inputs(data, spec, CPU)
+    args, kw = allsky.allsky_lw_mega_args([load_model_netcdf(LW_MODEL, device=CPU)], table, spec,
+                                          pco_, *lw_in[:6], *cld, lw_in[6])
+    assert set(kw) == ({"cld_fields", "cld_lut"} if flavour == "lut" else {"cld_tau_band"})
+    (_, x2d, cf, w1a, w1c, col_dry, tlay, tlev, tsfc, _, _, emis) = args
+    jm, _ = model_pair(LW_MODEL)
+    jspec = jplanck.lw_spectral_g128()
+    jt = jplanck.PlanckTable.compute(jspec.band_lims_wvn_array, dtype=jnp.float32)
+    j = lambda t: jnp.asarray(t.numpy())
+    lanes = [j(x2d[..., i]) for i in range(x2d.shape[-1])]
+    if flavour == "lut":
+        jkw = dict(cld_fields=tuple(j(c) for c in cld), cld_lut=jax_lut_pack(jco_))
+    else:
+        jkw = dict(cld_tau_band=j(kw["cld_tau_band"]))
+    ref_up, ref_dn = jax_lw_mega4(jm, lanes, j(cf), j(w1a), j(w1c), j(col_dry), j(tlay),
+                                  j(tlev), j(tsfc), jt, _one_hot(jspec), j(emis), tile_c=8,
+                                  interpret=True, **jkw)
+    up, dn = k1.lw_clearsky_mega4_plain(*args, **kw)
+    np.testing.assert_allclose(up.numpy(), np.asarray(ref_up), atol=LW_ATOL)
+    np.testing.assert_allclose(dn.numpy(), np.asarray(ref_dn), atol=LW_ATOL)
+    _, clear_dn = k1.lw_clearsky_mega4_plain(*args)
+    assert float((dn - clear_dn).abs().max()) > 1.0
+    # the wrapper takes the same twin on CPU tensors
+    for a, b in zip(k1.lw_clearsky_mega4(*args, **kw), (up, dn)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("flavour", ["lut", "pade"])
+def test_sw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
+    """K2's twin with lookup-table cloud optics (delta scaling in the
+    subtraction form, in the kernel) and with Pade cloud optics (band lanes
+    of the classic delta_scale chain's products) against the Pallas
+    kernel's cld_fields + cld_lut and cld_bands options, with the all-sky
+    driver's mu0 = 0.86 and albedo 0.06."""
+    from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import cloud_lut_pack as jax_lut_pack
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    jco_, pco_, cld, d = _cloud_case(tmp_path, "sw", flavour, seed=14)
+    _, data = rfmip_pair(d)
+    spec = pplanck.sw_spectral_g112()
+    model = load_model_netcdf(SW_MODEL, device=CPU)
+    solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32)
+    play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, CPU)
+    mu0, alb = torch.full((NCOL,), 0.86), torch.full((NCOL, spec.nband), 0.06)
+    args, kw = allsky.allsky_sw_mega_args([model, model], spec, solar, pco_, play_t, plev_t,
+                                          tlay_t, mu0, alb, alb, *cld, concs_t)
+    assert set(kw) == {"gpt2band"} | ({"cld_fields", "cld_lut"} if flavour == "lut"
+                                      else {"cld_bands"})
+    (_, _, x2d, cf, perm, col_dry, _, inc, alb_dir, alb_dif) = args
+    js, _ = model_pair(SW_MODEL)
+    j = lambda t: jnp.asarray(t.numpy())
+    lanes = [j(x2d[..., i]) for i in range(x2d.shape[-1])]
+    if flavour == "lut":
+        jkw = dict(cld_fields=tuple(j(c) for c in cld), cld_lut=jax_lut_pack(jco_))
+    else:
+        jkw = dict(cld_bands=tuple(j(c) for c in kw["cld_bands"]))
+    ref = jax_sw_mega(js, js, lanes, j(col_dry), j(mu0), j(inc), j(alb_dir), j(alb_dif),
+                      tile_c=8, interpret=True, const_feats=j(cf), perm=perm,
+                      one_hot=_one_hot(jplanck.sw_spectral_g112()), **jkw)
+    got = k2.sw_clearsky_megakernel_plain(*args, **kw)
+    for name, g, r in zip(("up", "dn", "dn_dir"), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=SW_ATOL, err_msg=name)
+    clear = k2.sw_clearsky_megakernel_plain(*args)
+    assert float((got[2] - clear[2]).abs().max()) > 1.0
+    for a, b in zip(k2.sw_clearsky_megakernel(*args, **kw), got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_sw_twin_delta_scalings_agree(tmp_path):
+    """The lookup-table mode delta-scales in the subtraction form inside
+    the kernel, the band mode takes the classic chain of delta_scale from
+    outside: on the same tables the two differ by float32 rounding only."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.optical_props import delta_scale
+
+    _, pco_, cld, d = _cloud_case(tmp_path, "sw", "lut", seed=15)
+    _, data = rfmip_pair(d)
+    spec = pplanck.sw_spectral_g112()
+    model = load_model_netcdf(SW_MODEL, device=CPU)
+    solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32)
+    play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, CPU)
+    mu0, alb = torch.full((NCOL,), 0.86), torch.full((NCOL, spec.nband), 0.06)
+    args, kw = allsky.allsky_sw_mega_args([model, model], spec, solar, pco_, play_t, plev_t,
+                                          tlay_t, mu0, alb, alb, *cld, concs_t)
+    c = delta_scale(cloud_optics(pco_, *cld, as_2str=True))
+    ts = c.tau * c.ssa
+    in_kernel = k2.sw_clearsky_megakernel_plain(*args, **kw)
+    outside = k2.sw_clearsky_megakernel_plain(*args, gpt2band=kw["gpt2band"],
+                                              cld_bands=(c.tau, ts, ts * c.g))
+    for a, b in zip(in_kernel, outside):
+        assert float((a - b).abs().max()) <= 2e-3  # W/m2, a tenth of the SW bound
+
+
+# -- the lane input modes: K8 (raw lanes into K1) and K9 (lanes into K2) ------------------
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_lw_raw_lane_twin_matches_jax_core(top_at_1):
+    """The port's raw-lane cores (lw_clearsky_mega5's twin on CPU tensors)
+    against the JAX package's _lw_core_mega5_canon (the Pallas mega5 kernel
+    in interpret mode), and against the port's stacked-input core."""
+    from rte_rrtmgp_nn_tpu.drivers import rfmip as jrfmip
+
+    jd, pd = rfmip_pair(synthesize_rfmip(NCOL, NLAY, seed=16, top_at_1=top_at_1))
+    jm, pm = model_pair(LW_MODEL)
+    jspec, pspec = jplanck.lw_spectral_g128(), pplanck.lw_spectral_g128()
+    jt = jplanck.PlanckTable.compute(jspec.band_lims_wvn_array, dtype=jnp.float32)
+    pt = pplanck.PlanckTable.compute(pspec.band_lims_wvn_array, device=CPU)
+    lw_in = rfmip.lw_canonical_inputs(pd, pspec, CPU)
+    j = lambda t: jnp.asarray(t.numpy())
+    ref = jrfmip._lw_core_mega5_canon(
+        [jm], jt, jspec, *(j(a) for a in lw_in[:6]), {k: j(v) for k, v in lw_in[6].items()},
+        top_at_1=top_at_1, tile_c=8)
+    got = rfmip._lw_core_mega5_canon([pm], pt, pspec, *lw_in, top_at_1=top_at_1)
+    col = rfmip._lw_core_mega5([pm], pt, pspec, *rfmip.lw_staged_inputs(pd, pspec, CPU),
+                               top_at_1=top_at_1)
+    stacked = rfmip._lw_core_mega4_canon([pm], pt, pspec, *lw_in, top_at_1=top_at_1)
+    for n in ("flux_up", "flux_dn", "flux_net"):
+        np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(ref, n)),
+                                   atol=LW_ATOL, err_msg=n)
+        np.testing.assert_allclose(getattr(col, n).numpy(), getattr(got, n).numpy(), atol=1e-4)
+        np.testing.assert_allclose(getattr(stacked, n).numpy(), getattr(got, n).numpy(),
+                                   atol=LW_ATOL)
+    args = rfmip.lw_mega5_args([pm], pt, pspec, *lw_in)
+    assert args[2][:4] == (0, 1, 2, 2) and tuple(args[3].shape) == (2, len(args[1]))
+    with pytest.raises(ValueError, match="first 2-D lane"):
+        names = list(pm.input_names)
+        names[0], names[1] = names[1], names[0]
+        rfmip.lw_mega5_args([type(pm)(pm.weights, pm.biases, pm.activations, tuple(names),
+                                      pm.input_min, pm.input_max, pm.output_mean,
+                                      pm.output_std)], pt, pspec, *lw_in)
+
+
+def test_sw_lane_input_mode_matches_jax_kernel():
+    """K9: the twin with one array per feature against the Pallas kernel's
+    input_mode="lanes"; bit-identical to the stacked input; clouds and a
+    stacked tensor are refused in this mode, as the JAX kernel refuses
+    them."""
+    args, _, _ = _sw_case(CPU)
+    (ma, mr, x2d, cf, perm, col_dry, mu0, inc, alb_dir, alb_dif) = args
+    lanes = [l.contiguous() for l in x2d.unbind(-1)]
+    js, _ = model_pair(SW_MODEL)
+    j = lambda t: jnp.asarray(t.numpy())
+    ref = jax_sw_mega(js, js, [j(l) for l in lanes], j(col_dry), j(mu0), j(inc), j(alb_dir),
+                      j(alb_dif), tile_c=8, interpret=True, const_feats=j(cf), perm=perm,
+                      input_mode="lanes")
+    largs = (ma, mr, lanes) + tuple(args[3:])
+    got = k2.sw_clearsky_megakernel(*largs, input_mode="lanes")
+    for name, g, r, st in zip(("up", "dn", "dn_dir"), got, ref,
+                              k2.sw_clearsky_megakernel_plain(*args)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=SW_ATOL, err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), st.numpy())
+    with pytest.raises(ValueError, match="clear-sky lane list"):
+        k2.sw_clearsky_megakernel(*args, input_mode="lanes")
+    with pytest.raises(ValueError, match="clear-sky lane list"):
+        k2.sw_clearsky_megakernel(*largs, input_mode="lanes", gpt2band=torch.zeros(112),
+                                  cld_bands=(col_dry,) * 3)
+    with pytest.raises(ValueError, match="input_mode"):
+        k2.sw_clearsky_megakernel(*args, input_mode="refs")
+
+
+def test_cloud_and_lane_wrappers_refuse_other_devices(tmp_path):
+    """Every mode's wrapper raises for a tensor on neither the CPU nor CUDA
+    and launches nothing: no mode falls back."""
+    before = (k1.LAUNCHES, k2.LAUNCHES, dict(k1.MODE_LAUNCHES), dict(k2.MODE_LAUNCHES))
+    args = list(_lw_case(CPU, ncol=3, nlay=4))
+    args[1] = args[1].to("meta")
+    band = torch.zeros((4, 3, 16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.lw_clearsky_mega4(*args, cld_tau_band=band)
+    with pytest.raises(ValueError, match="requires cld_lut"):
+        k1.lw_clearsky_mega4(*args, cld_fields=(band,) * 4)
+    _, pd = rfmip_pair(synthesize_rfmip(3, 4, seed=17))
+    spec = pplanck.lw_spectral_g128()
+    table = pplanck.PlanckTable.compute(spec.band_lims_wvn_array, device=CPU)
+    a5 = list(rfmip.lw_mega5_args([args[0]], table, spec, *rfmip.lw_canonical_inputs(pd, spec, CPU)))
+    a5[1] = [l.to("meta") for l in a5[1]]
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.lw_clearsky_mega5(*a5)
+    sargs, _, _ = _sw_case(CPU, ncol=3, nlay=4)
+    sargs = list(sargs)
+    with pytest.raises(ValueError, match="require gpt2band"):
+        k2.sw_clearsky_megakernel(*sargs, cld_bands=(band,) * 3)
+    sargs[2] = [l.to("meta") for l in sargs[2].unbind(-1)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.sw_clearsky_megakernel(*sargs, input_mode="lanes")
+    assert before == (k1.LAUNCHES, k2.LAUNCHES, k1.MODE_LAUNCHES, k2.MODE_LAUNCHES)
