@@ -61,7 +61,27 @@ non-zero and prints no result line):
      and against float64 on the CPU, more LW down and less direct SW at the
      surface under clouds, SW TOA down = sum(solar) * mu0;
  13. timing of the cloud modes, K8, K9, their twins and the all-sky cores
-     on both routes.
+     on both routes;
+ 14. K6 (lw_prep) against its twin on the full-size inputs: the
+     transmittance and the three sources by the MLP kernel's rule (beyond
+     the bound float64 decides), then the broadband sweeps on the kernel's
+     and on the twin's fields; its time, its twin's and its bound;
+ 15. the prep LW core (_lw_core_prep: K6, then the sweeps as PyTorch ops) in
+     both orientations with every count set to 0 just before and read just
+     after (one K6 launch, no other kernel), against the fused LW driver
+     and, at 64 columns, against float64 on the CPU; no driver routes to
+     this core, in the JAX package neither;
+ 16. parallel scans: rfmip_clear_sky_lw / _sw with scan_mode="parallel"
+     against the sequential requests (and, inside phase 12, allsky_lw /
+     allsky_sw likewise), launch counts held;
+ 17. the lookup-table gas optics: synthetic LW (256 g-points) and SW (224)
+     k-distribution files are written to a temporary directory and loaded
+     onto the card; gas_optics_lw_lut -> rte_lw (1 and 3 Gauss angles and
+     the optimal-angle secants: the transport kernel per angle, counted; the
+     two-stream and the rescaled solve after a cloud increment) and
+     gas_optics_sw_lut -> rte_sw at 1800 x 60, each stage timed; SW TOA down
+     = sum(solar) * mu0; the LW heating rate; then 64 columns on the card
+     against the same calls in float64 on the CPU.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -98,6 +118,13 @@ SW_PAIR = [os.path.join(HERE, "artifacts", f"sw-synth56-lut_{k}_128_128_HR_4.22e
            for k in ("absorption", "rayleigh")]
 MLP_RTOL, SSA_ATOL = 2e-5, 2e-5  # the JAX package's MLP kernel bounds (tests/test_pallas_mlp.py)
 N_ANGLES = 3  # Gauss angles of the general LW path
+# K6's outputs: the transmittance by the MLP kernel's relative bound, plus an
+# absolute 1e-7 (under an ulp of a transmittance near 1) for opaque cells,
+# where exp(-tl) carries tl's relative error times tl; the sources, which are
+# differences of nearly equal Planck terms, by an absolute bound of 2e-5 times
+# the largest g-point Planck source of the run
+K6_TRANS_ATOL, K6_SRC_REL = 1e-7, 2e-5
+LUT_GPTS_PER_BAND = 16  # the unreduced k-distributions' width: 256 LW, 224 SW g-points
 # W/m2: the SW float32 resonance columns' err * |k*mu0 - 1| limit, about
 # twice the largest measured (hold_sw_f1; ROADMAP Queue 3 F1)
 F1_LAW = 4e-3
@@ -108,7 +135,8 @@ PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 # sources: transmittance, source and sweeps (LW); coefficients, direct beam
 # and both adding sweeps (SW); the transport alone (K7, per angle); an MLP
 # output's postprocessing (mlp)
-ELEMENT_FLOPS = {"lw": 40, "sw": 110, "k7": 20, "mlp": 10}
+# K6: the postprocessing, exp, source factor and both sources, no sweep
+ELEMENT_FLOPS = {"lw": 40, "sw": 110, "k7": 20, "mlp": 10, "k6": 25}
 # what the cloud modes add, counted from csrc/ at the resolution the function
 # needs it and only for the cells that hold cloud (the others come out 0):
 #   lut_phase: one phase's table lookup per (cell, band): radius index and
@@ -400,6 +428,14 @@ def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
     ssa (the float64 gas optics of the nets ``sw64``); each column beyond
     SW_ATOL is printed. Returns (max error, columns beyond SW_ATOL, max
     error of the other columns)."""
+    dist, mu0 = rfmip_sw_resonance_distance(data, sw64)
+    return f1_law("staged SW", sw_col_err(got, ref), dist, mu0)
+
+
+def rfmip_sw_resonance_distance(data, sw64):
+    """(per column the smallest |k*mu0 - 1| over layers and g-points of the
+    clear-sky SW problem, mu0), k the two-stream eigenvalue from the float64
+    gas optics of the nets ``sw64`` on the CPU."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.config import config
@@ -415,8 +451,7 @@ def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
                                     torch.zeros(spec.ngpt, dtype=f64))
     g1, g2 = (8.0 - 5.0 * ssa) * 0.25, 0.75 * ssa  # PIFM gammas, g = 0 (ops/sw_solver.py)
     k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
-    dist = (k * mu0[:, None, None] - 1.0).abs().amin((1, 2)).numpy()
-    return f1_law("staged SW", sw_col_err(got, ref), dist, mu0.numpy())
+    return (k * mu0[:, None, None] - 1.0).abs().amin((1, 2)).numpy(), mu0.numpy()
 
 
 def sw_col_err(got, ref):
@@ -795,8 +830,8 @@ def write_allsky_files(directory) -> dict:
 
 
 def allsky_core_closures(dev, lw_model, sw_model, paths) -> dict:
-    """The four all-sky cores (LW and SW, fused and staged route) as
-    closures over device-resident inputs read from the files ``paths``
+    """The six all-sky cores (LW and SW; fused, staged and parallel-scan
+    route) as closures over device-resident inputs read from the files ``paths``
     (write_allsky_files), lookup-table cloud optics, NCOL columns."""
     import torch
 
@@ -831,6 +866,12 @@ def allsky_core_closures(dev, lw_model, sw_model, paths) -> dict:
         "allsky_sw_core_staged": lambda: allsky._allsky_sw_core_lay_major(
             [sw_model, sw_model], sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
             concs, top_at_1=True),
+        "allsky_lw_core_parallel": lambda: allsky._allsky_lw_core(
+            [lw_model], table, lw_spec, lw_co, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
+            top_at_1=True, n_gauss_angles=1, scan_mode="parallel"),
+        "allsky_sw_core_parallel": lambda: allsky._allsky_sw_core(
+            [sw_model, sw_model], sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
+            concs, top_at_1=True, scan_mode="parallel"),
     }
 
 
@@ -947,6 +988,30 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
                   f"{float(sw.flux_dn_dir.mean()):.4f}")
             require(e_mega <= SW_ATOL, "all-sky fused SW disagrees with float64")
 
+            if flavour == "lut":
+                # parallel scans: the general cores; LW then solves spectrally
+                # with log-depth scans (no transport kernel), SW with the
+                # log-depth adding
+                reset()
+                lwp = allsky.allsky_lw(garand, lw_co, [lw_model], ncol=NCOL, scan_mode="parallel",
+                                       device=dev)
+                c_lwp = counts()
+                reset()
+                swp = allsky.allsky_sw(garand, sw_co, [sw_model, sw_model], ncol=NCOL,
+                                       scan_mode="parallel", device=dev)
+                c_swp = counts()
+                e_lwp = max(maxabs(getattr(lwp, n), getattr(lw1, n)) for n in lw_names)
+                e_swp, over, rest = f1_law("all-sky parallel-scan vs staged SW",
+                                           sw_col_err(swp, sws), dist, mu0)
+                print(f"all-sky parallel scans: allsky_lw launches {c_lwp}, vs the staged request "
+                      f"{e_lwp:.3e} W/m2 (tol {LW_ATOL}); allsky_sw launches {c_swp}, vs the staged "
+                      f"request {e_swp:.3e} with {over} columns beyond {SW_ATOL}, the others "
+                      f"{rest:.3e}")
+                require(c_lwp == {"fused_predict_lw_both": 1} and c_swp == {"fused_predict_sw": 1},
+                        "the parallel-scan all-sky requests did not take K3 and K5 alone")
+                require(e_lwp <= LW_ATOL, "all-sky parallel-scan LW disagrees with the staged request")
+                finite(swp, sw_names)
+
             # columns 0 and 2 share a profile, as do 1 and 5; 2 and 5 are cloud-free
             for cloudy, clear_col in ((0, 2), (1, 5)):
                 d_lw = float(lw.flux_dn[cloudy, -1] - lw.flux_dn[clear_col, -1])
@@ -961,6 +1026,280 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
 
         timers = allsky_core_closures(dev, lw_model, sw_model, paths)
     return launches, timers
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    k1.LAUNCHES = k2.LAUNCHES = k6.LAUNCHES = k7.LAUNCHES = 0
+    for m in (k1.MODE_LAUNCHES, k2.MODE_LAUNCHES, mlp.LAUNCHES):
+        for k in m:
+            m[k] = 0
+
+
+def read_counts() -> dict:
+    """After a synchronize, the kernels launched since reset_counts: k1, k2
+    (all modes), k6, k7 and the MLP kernel's epilogues by name; kernels
+    that were not launched are left out."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    torch.cuda.synchronize()
+    c = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "k6": k6.LAUNCHES, "k7": k7.LAUNCHES,
+         **mlp.LAUNCHES}
+    return {k: v for k, v in c.items() if v}
+
+
+def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, card):
+    """Phases 14 and 15: K6 against its twin at full size, then the prep LW
+    core end to end. ``main`` maps top_at_1 to (data, fused LW fluxes, ...).
+    Returns (K6's result entry, its launches in the core runs, timings)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import lw_broadband_sweeps
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
+
+    # ---- 14. K6 vs plain ----------------------------------------------------
+    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band, concs_t = lw_in
+    gases = GasConcs(concs_t)
+    col_dry = go.get_col_dry_lay_major(gases.get_vmr("h2o", NLAY, NCOL), plev_t).contiguous()
+    x = go.compute_nn_inputs(play_t, tlay_t, gases, lw_model).contiguous()
+    g2b = lw_spec.gpt2band_tensor(dev)
+    args = (lw_model, x, col_dry, table.interpolate(tlay_t), table.interpolate(tlev_t),
+            table.interpolate(tsfc), g2b)
+    got = k6.lw_prep(*args)
+    torch.cuda.synchronize()
+    ref = k6.lw_prep_plain(*args)
+    a64 = (model64(lw_model), x.double(), col_dry.double(), table64.interpolate(tlay_t.double()),
+           table64.interpolate(tlev_t.double()), table64.interpolate(tsfc.double()), g2b)
+    ref64 = k6.lw_prep_plain(*a64)
+    # the largest g-point Planck source: fraction times band Planck value
+    _, pf = mlp.fused_predict_lw_both_plain(lw_model, x, col_dry)
+    idx = g2b.long()
+    planck_max = max(float((pf * args[3][..., idx]).max()), float((pf * args[4][:-1][..., idx]).max()),
+                     float(ref[3].max()))
+    src_atol = float(f"{K6_SRC_REL * planck_max:.3e}")
+    print(f"K6 lw_prep {NCOL}x{NLAY}x{lw_spec.ngpt}: largest g-point Planck source "
+          f"{planck_max:.4f} W/m2/sr -> source bound {src_atol:.3e}")
+    for o in got:
+        require(bool(torch.isfinite(o).all()), "K6 output not finite")
+    held = [hold("K6 trans", got[0], ref[0], ref64[0], MLP_RTOL, K6_TRANS_ATOL)]
+    held += [hold(f"K6 {n}", g, r, r64, 0.0, src_atol)
+             for n, g, r, r64 in zip(("src_dn", "src_up", "sfc_src"), got[1:], ref[1:], ref64[1:])]
+    emis = lw_spec.expand(emis_band)
+    fk = lw_broadband_sweeps(*got[:3], emis, got[3])
+    fp = lw_broadband_sweeps(*ref[:3], emis, ref[3])
+    e_sweep = max(maxabs(fk.flux_up, fp.flux_up), maxabs(fk.flux_dn, fp.flux_dn))
+    print(f"K6: broadband sweeps on the kernel's and on the twin's fields differ by "
+          f"{e_sweep:.3e} W/m2 (tol {LW_ATOL}); mean dn {float(fk.flux_dn.mean()):.4f}")
+    require(e_sweep <= LW_ATOL, "the sweeps on K6's fields disagree with those on the twin's")
+    ncell = NCOL * NLAY
+    result = {"max_abs_err": max(h["max_abs_err"] for h in held), **bound(
+        nbytes(*args[1:]) + model_bytes(lw_model) + nbytes(*got),
+        mlp_flops(lw_model, ncell) + ELEMENT_FLOPS["k6"] * ncell * lw_spec.ngpt)}
+    timed = {"k6": cuda_ms(lambda: k6.lw_prep(*args)),
+             "k6_plain": cuda_ms(lambda: k6.lw_prep_plain(*args), reps=9)}
+
+    # ---- 15. the prep LW core ------------------------------------------------
+    launches = 0
+    for top, (d, fused, _) in main.items():
+        staged_in = rfmip.lw_staged_inputs(d, lw_spec, dev)
+        reset_counts()
+        fb = rfmip._lw_core_prep([lw_model], table, lw_spec, *staged_in, top_at_1=top)
+        counts = read_counts()
+        e = max(maxabs(fb.flux_up, fused.flux_up), maxabs(fb.flux_dn, fused.flux_dn))
+        print(f"prep LW core top_at_1={top}: launches {counts}; vs the fused driver (K1) "
+              f"{e:.3e} W/m2 (tol {LW_ATOL}); mean up {float(fb.flux_up.mean()):.4f} dn "
+              f"{float(fb.flux_dn.mean()):.4f}")
+        require(counts == {"k6": 1}, "_lw_core_prep did not launch K6 once and nothing else")
+        require(tuple(fb.flux_up.shape) == (NCOL, NLAY + 1)
+                and bool(torch.isfinite(fb.flux_up).all() and torch.isfinite(fb.flux_dn).all()),
+                "_lw_core_prep output")
+        require(e <= LW_ATOL, "the prep LW core disagrees with the fused LW driver")
+        launches += counts.get("k6", 0)
+    cpu, f64 = torch.device("cpu"), torch.float64
+    small = rfmip_data_from_arrays(synthesize_rfmip(64, NLAY, SEED + 1, top_at_1=True))
+    lw_cpu = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
+    t_cpu = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=cpu, dtype=f64)
+    ref_fb = rfmip._lw_core_prep([lw_cpu], t_cpu, lw_spec,
+                                 *rfmip.lw_staged_inputs(small, lw_spec, cpu, f64), top_at_1=True)
+    got_fb = rfmip._lw_core_prep([lw_model], table, lw_spec,
+                                 *rfmip.lw_staged_inputs(small, lw_spec, dev), top_at_1=True)
+    e = max(maxabs(got_fb.flux_up.cpu(), ref_fb.flux_up), maxabs(got_fb.flux_dn.cpu(), ref_fb.flux_dn))
+    print(f"prep LW core 64x{NLAY}: CUDA vs float64 on the CPU {e:.3e} W/m2 (tol {LW_ATOL})")
+    require(e <= LW_ATOL, "the prep LW core on CUDA disagrees with float64 on the CPU")
+    timed["lw_core_prep"] = cuda_ms(lambda: rfmip._lw_core_prep(
+        [lw_model], table, lw_spec, *staged_in, top_at_1=False))
+    for k, ms in timed.items():
+        print(f"timing {k}: {ms:.4f} ms, {NCOL / ms * 1e3:.0f} columns/s at {NCOL}x{NLAY} | {card}")
+    return result, launches, timed
+
+
+def parallel_phase(dev, lw_model, sw_model, main):
+    """Phase 16: the RFMIP drivers with scan_mode="parallel" against the
+    sequential requests of phase 5 (fused) on the same data."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    import torch
+
+    d, lw_seq, sw_seq = main[True]
+    reset_counts()
+    lw_par = rfmip.rfmip_clear_sky_lw(d, [lw_model], scan_mode="parallel", device=dev)
+    c_lw = read_counts()
+    reset_counts()
+    sw_par = rfmip.rfmip_clear_sky_sw(d, [sw_model, sw_model], scan_mode="parallel", device=dev)
+    c_sw = read_counts()
+    e_lw = max(maxabs(lw_par.flux_up, lw_seq.flux_up), maxabs(lw_par.flux_dn, lw_seq.flux_dn))
+    print(f"parallel-scan RFMIP requests: rfmip_clear_sky_lw launches {c_lw}, vs the sequential "
+          f"request (K1) {e_lw:.3e} W/m2 (tol {LW_ATOL}); rfmip_clear_sky_sw launches {c_sw}")
+    # the broadband LW solve does not read the scan mode: the transport kernel runs
+    require(c_lw == {"fused_predict_lw_both": 1, "k7": 1} and c_sw == {"fused_predict_sw": 1},
+            "the parallel-scan RFMIP requests did not take K3 + K7 and K5")
+    require(e_lw <= LW_ATOL, "parallel-scan LW disagrees with the sequential request")
+    for fb, names in ((lw_par, ("flux_up", "flux_dn")), (sw_par, ("flux_up", "flux_dn", "flux_dn_dir"))):
+        for n in names:
+            require(bool(torch.isfinite(getattr(fb, n)).all()), f"parallel-scan {n} not finite")
+    sw64 = load_model_netcdf(SW_MODEL, device=torch.device("cpu"), dtype=torch.float64)
+    dist, mu0 = rfmip_sw_resonance_distance(d, [sw64, sw64])
+    # the general SW core keeps float32 two-stream coefficients (as the JAX
+    # one): against the fused kernel (float64 coefficients) its resonance
+    # columns follow the F1 law
+    e_sw, over, rest = f1_law("parallel-scan SW vs the fused request", sw_col_err(sw_par, sw_seq),
+                              dist, mu0)
+    print(f"parallel-scan SW vs the sequential request (K2): {e_sw:.3e} W/m2 with {over} "
+          f"resonance columns beyond {SW_ATOL}, the other columns {rest:.3e}")
+
+
+def lut_phase(dev, card):
+    """Phase 17: the lookup-table gas optics on the card with the solvers
+    behind it, at full size and, against float64 on the CPU, at 64 columns.
+    Returns the timings of its stages."""
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import (
+        compute_optimal_angles, gas_optics_lw_lut, gas_optics_sw_lut)
+    from rte_rrtmgp_nn_tpu_torch.rte import rte_lw, rte_sw
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = testing.write_lut_files(tmp, LUT_GPTS_PER_BAND, SEED)
+        t0 = time.perf_counter()
+        kd = {k: load_kdist(p, testing.LUT_GASES, device=dev) for k, p in paths.items()}
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        kd64 = {k: load_kdist(p, testing.LUT_GASES, dtype=f64, device=cpu) for k, p in paths.items()}
+        kd32 = {k: load_kdist(p, testing.LUT_GASES, device=cpu) for k, p in paths.items()}
+    print(f"LUT k-distributions: LW {kd['lw'].ngpt} g-points in {kd['lw'].nband} bands, SW "
+          f"{kd['sw'].ngpt} in {kd['sw'].nband}; kmajor {tuple(kd['lw'].kmajor.shape)}; loaded "
+          f"onto the card in {t_load * 1e3:.1f} ms")
+    require((kd["lw"].ngpt, kd["sw"].ngpt) == (256, 224) and kd["lw"].kmajor.is_cuda,
+            "the k-distributions are not at the reference's width on the card")
+
+    data = testing.synthesize_rfmip(NCOL, NLAY, SEED)
+    reset_counts()
+    out = testing.lut_fluxes(kd["lw"], kd["sw"], data, dev, f32)
+    counts = read_counts()
+    print(f"LUT path {NCOL}x{NLAY}: launches {counts} (lw_noscat_broadband: 1 + {N_ANGLES} angles "
+          "+ the optimal-angle solve)")
+    require(counts == {"k7": 2 + N_ANGLES}, "the LUT LW solves did not launch K7 once per angle")
+    for name, v in out.items():
+        require(v.is_cuda, f"LUT path {name} is on {v.device}")
+        require(bool(torch.isfinite(v).all()), f"LUT path {name} not finite")
+        if name.endswith(("_up", "_dn", "_dir")):
+            require(tuple(v.shape) == (NCOL, NLAY + 1), f"LUT path {name}: {tuple(v.shape)}")
+    mu0 = testing.lut_inputs(data, cpu, f64)[5]
+    toa = float(kd64["sw"].solar_source().sum()) * mu0
+    rel = float(((out["sw_dn"][:, 0].double().cpu() - toa).abs() / toa).max())
+    print(f"LUT path: mean LW up {float(out['lw1_up'].mean()):.4f} dn {float(out['lw1_dn'].mean()):.4f} "
+          f"({N_ANGLES} angles dn {float(out['lw3_dn'].mean()):.4f}, optimal angles "
+          f"{float(out['lwopt_dn'].mean()):.4f}, cloudy two-stream {float(out['lw2s_dn'].mean()):.4f}, "
+          f"cloudy rescaled {float(out['lwtang_dn'].mean()):.4f}); SW up {float(out['sw_up'].mean()):.4f} "
+          f"dn {float(out['sw_dn'].mean()):.4f} W/m2; SW TOA dn vs sum(solar)*mu0 max rel {rel:.2e}")
+    require(rel <= 1e-5, f"LUT SW TOA down differs from sum(solar)*mu0 by {rel:.2e}")
+    # the package's heating rate is +g/cp d(F_dn - F_up)/dp, as the JAX
+    # package's: radiative cooling, which LW does to the stratosphere, is
+    # POSITIVE in it (ROADMAP Queue 3, F4)
+    strat = torch.as_tensor(data["play"] < 1.0e4)
+    hr = out["hr_lw"].cpu()[strat]
+    print(f"LUT path: LW heating rate above 100 hPa, the package's sign (cooling > 0): mean "
+          f"{float(hr.mean()):.4f} K/day, {float((hr > 0).float().mean()):.4f} of the cells > 0")
+    require(float(hr.mean()) > 0, "the mean LW heating rate of the stratosphere has the wrong sign")
+
+    # per-stage times at full size (the slow PyTorch stages with fewer samples)
+    play, plev, tlay, tlev, tsfc, mu0_d, gases = testing.lut_inputs(data, dev, f32)
+    props, src = gas_optics_lw_lut(kd["lw"], play, plev, tlay, tsfc, gases, tlev=tlev)
+    sw_props, sw_src = gas_optics_sw_lut(kd["sw"], play, plev, tlay, gases)
+    emis = torch.full((NCOL, kd["lw"].nband), 0.97, device=dev)
+    alb = torch.full((NCOL, kd["sw"].ngpt), 0.1, device=dev)
+    slow = dict(reps=5, batch=3, warmup=1)
+    timed = {
+        "lut_gas_optics_lw": cuda_ms(lambda: gas_optics_lw_lut(
+            kd["lw"], play, plev, tlay, tsfc, gases, tlev=tlev), **slow),
+        "lut_rte_lw_1angle": cuda_ms(lambda: rte_lw(props, True, src, emis, broadband=True), reps=9),
+        "lut_rte_lw_3angles": cuda_ms(lambda: rte_lw(props, True, src, emis, n_gauss_angles=N_ANGLES,
+                                                     broadband=True), reps=9),
+        "lut_optimal_angles": cuda_ms(lambda: compute_optimal_angles(kd["lw"], props.tau), reps=9),
+        "lut_gas_optics_sw": cuda_ms(lambda: gas_optics_sw_lut(kd["sw"], play, plev, tlay, gases),
+                                     **slow),
+        "lut_rte_sw": cuda_ms(lambda: rte_sw(sw_props, True, mu0_d, sw_src.toa_source, alb, alb,
+                                             broadband=True), **slow),
+    }
+    for k, ms in timed.items():
+        print(f"timing {k}: {ms:.4f} ms, {NCOL / ms * 1e3:.0f} columns/s at {NCOL}x{NLAY} | {card}")
+
+    # 64 columns: the card against float64 on the CPU; where the CPU's own
+    # float32 run is beyond the bound (the two-stream LW source is
+    # ill-conditioned in float32 for thin layers, ROADMAP Queue 3 F3), twice
+    # its distance from float64 is the yardstick (testing.FLOAT32_SPREAD)
+    small = testing.synthesize_rfmip(64, NLAY, SEED + 1)
+    ref = testing.lut_fluxes(kd64["lw"], kd64["sw"], small, cpu, f64)
+    own = testing.lut_fluxes(kd32["lw"], kd32["sw"], small, cpu, f32)
+    got = testing.lut_fluxes(kd["lw"], kd["sw"], small, dev, f32)
+    errs = {}
+    for name, v in got.items():
+        if name in ("sw_resonance", "hr_lw") or name.startswith("sw_"):
+            continue
+        e = maxabs(v.cpu(), ref[name])
+        e_own = maxabs(own[name], ref[name])
+        errs[name] = e
+        require(e <= max(LW_ATOL, testing.FLOAT32_SPREAD * e_own),
+                f"LUT path {name}: CUDA is {e:.3e} W/m2 from float64 (CPU float32: {e_own:.3e})")
+        if e > LW_ATOL:
+            print(f"LUT path {name}: CUDA {e:.3e} W/m2 from float64, beyond {LW_ATOL}; the CPU's "
+                  f"float32 run is {e_own:.3e} from it (F3: thin layers in the two-stream source)")
+    sw_got = type("SW", (), dict(flux_up=got["sw_up"], flux_dn=got["sw_dn"], flux_dn_dir=got["sw_dir"]))
+    sw_ref = type("SW", (), dict(flux_up=ref["sw_up"], flux_dn=ref["sw_dn"], flux_dn_dir=ref["sw_dir"]))
+    e_sw, over, rest = f1_law("LUT SW", sw_col_err(sw_got, sw_ref), ref["sw_resonance"].numpy(),
+                              testing.lut_inputs(small, cpu, f64)[5].numpy())
+    print(f"LUT path 64x{NLAY}: CUDA vs float64 on the CPU: LW "
+          + ", ".join(f"{k[:-3]} {max(errs[k[:-3] + '_up'], errs[k[:-3] + '_dn']):.3e}"
+                      for k in errs if k.endswith("_up"))
+          + f" (tol {LW_ATOL}); SW {e_sw:.3e} with {over} resonance columns beyond {SW_ATOL}, "
+          f"the others {rest:.3e} W/m2")
+    return timed
 
 
 def run() -> dict:
@@ -1204,15 +1543,30 @@ def run() -> dict:
     # ---- 13. timing of the new modes and the all-sky cores ---------------------
     # kernels and cores: the median of 25 samples; the plain twins, which
     # are launch-bound and slow, of 9
-    late = {k: cuda_ms(fn, reps=9 if k.endswith("_plain") else 25)
+    late = {k: cuda_ms(fn, reps=9 if k.endswith(("_plain", "_parallel")) else 25)
             for k, fn in {**mode_timers, **allsky_timers}.items()}
     for k, ms in late.items():
         print(f"timing {k}: {ms:.4f} ms, {NCOL / ms * 1e3:.0f} columns/s at {NCOL}x{NLAY} | {card}")
-    for route in ("fused", "staged"):
+    for route in ("fused", "staged", "parallel"):
         ms = late[f"allsky_lw_core_{route}"] + late[f"allsky_sw_core_{route}"]
         print(f"timing all-sky LW+SW cores, {route} route: {ms:.4f} ms, "
               f"{NCOL / ms * 1e3:.0f} columns/s | {card}")
     timed.update(late)
+
+    # ---- 14 / 15. K6 and the prep LW core --------------------------------------
+    results["k6"], launches["k6"], prep_timed = prep_phase(
+        dev, lw_model, table, lw_spec, lw_in, main, model64, a64[9], card)
+    timed.update(prep_timed)
+    print(f"timing LW cores: prep (K6 + PyTorch sweeps) {timed['lw_core_prep']:.4f} ms, fused (K1) "
+          f"{timed['lw_core_late']:.4f}, general ({N_ANGLES} angles, K3 + K7) "
+          f"{timed['lw_core_general']:.4f} | {card}")
+
+    # ---- 16. parallel scans through the RFMIP drivers ------------------------------
+    parallel_phase(dev, lw_model, sw_model, main)
+
+    # ---- 17. the lookup-table gas optics ---------------------------------------------
+    timed.update(lut_phase(dev, card))
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -1256,6 +1610,11 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"],
          "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations"},
+        {"name": "lw_prep", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
+         "counted_around": "drivers.rfmip._lw_core_prep, both orientations: a core, no driver "
+                           "routes to it"},
         {"name": "lw_noscat_broadband", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],

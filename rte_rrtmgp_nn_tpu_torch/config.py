@@ -123,14 +123,11 @@ def resolve_use_megakernel(lw: bool = False, models=None, device=None,
     The megakernel route needs ``config.use_megakernel`` (None = on when
     ``device`` is CUDA), float32, one Gauss angle, no numerics flag the
     kernels bake (``fast_exponential`` for both, ``use_pade_source`` for
-    LW), models they hard-code, one LW net or an SW pair. Everything else
-    is staged; on CUDA the staged path runs the MLP kernel, so it is
-    refused for models that kernel does not take, and for float64 (the
-    kernels are float32). Parallel scans are not ported on any device."""
+    LW), sequential scans, models they hard-code, one LW net or an SW pair.
+    Everything else is staged; on CUDA the staged path runs the MLP kernel,
+    so it is refused for models that kernel does not take, and for float64
+    (the kernels are float32)."""
     on_cuda = device is not None and torch.device(device).type == "cuda"
-    if scan_mode != "sequential":
-        return Route("refuse", "parallel-scan solves are still to be ported "
-                               "(ROADMAP Queue 1 item 6)")
     if models is not None and not lw and len(models) != 2:
         return Route("refuse", "SW needs an absorption and a Rayleigh model")
     refusal = cuda_dtype_refusal(device, dtype)
@@ -145,6 +142,8 @@ def resolve_use_megakernel(lw: bool = False, models=None, device=None,
         why = f"{dtype}: the fused kernels are float32"
     elif lw and n_gauss_angles != 1:
         why = "the fused LW kernel takes one angle"
+    elif scan_mode != "sequential":
+        why = "the fused kernels sweep sequentially; parallel scans take the general cores"
     elif config.fast_exponential or (lw and config.use_pade_source):
         why = "fast_exponential / use_pade_source are honored only by the staged path"
     elif models is not None and not megakernel_model_ok(models):

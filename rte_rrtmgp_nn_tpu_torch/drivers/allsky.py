@@ -19,15 +19,18 @@ The route is taken once per call by ``config.resolve_use_megakernel``:
     properties are computed here and go in as band lanes. On CUDA tensors
     that is one launch of K1 or K2 in a cloud mode; on CPU tensors their
     plain twins;
-  - "staged" LW: on CUDA, and for more than one angle anywhere,
-    ``_allsky_lw_core`` (NN gas optics through the MLP kernel, ``increment``
-    by band, then ``rte_lw``: the transport kernel once per angle); on the
+  - "staged" LW: on CUDA, and for more than one angle or a parallel-scan
+    request anywhere, ``_allsky_lw_core`` (NN gas optics through the MLP
+    kernel, ``increment`` by band, then ``rte_lw``: the transport kernel
+    once per angle, or spectral log-depth scans for ``scan_mode="parallel"``); on the
     CPU with one angle ``_allsky_lw_core_lay_major``, whose sweeps are
     PyTorch ops (the oracle of the fused core, not a CUDA route);
   - "staged" SW: ``_allsky_sw_core_lay_major`` (the MLP kernel, then the
-    two-stream coefficients and the adding sweeps in PyTorch);
-  - "refuse": NotImplementedError with the reason (parallel scans, float64
-    on CUDA, a net the MLP kernel does not take).
+    two-stream coefficients and the adding sweeps in PyTorch), or for
+    ``scan_mode="parallel"`` ``_allsky_sw_core`` (the general path with the
+    log-depth adding);
+  - "refuse": NotImplementedError with the reason (float64 on CUDA, a net
+    the MLP kernel does not take).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch
 
 from ..config import resolve_use_megakernel
 from ..extensions.cloud_optics import CloudOptics, cloud_optics, load_cloud_optics
-from ..fluxes import FluxesBroadband
+from ..fluxes import FluxesBroadband, reduce_broadband
 from ..gas_concs import GasConcs
 from ..gasoptics.nn_gas_optics import (
     compute_nn_inputs,
@@ -115,40 +118,52 @@ def cloud_fields_lay_major(play, tlay, co: CloudOptics, top_at_1: bool, device,
 def _allsky_lw_core(
     models, table, spectral, cloud_co,
     play, plev, tlay, tlev, tsfc, emis_band, lwp, iwp, rel, rei, concs,
-    top_at_1, n_gauss_angles,
+    top_at_1, n_gauss_angles, scan_mode="sequential",
 ):
     """General all-sky LW core, column-major: NN gas optics, cloud
     absorption added by band (``increment``), then rte_lw with
-    ``n_gauss_angles`` Gauss angles and broadband output."""
+    ``n_gauss_angles`` Gauss angles. Sequential requests solve broadband
+    (the transport kernel on CUDA); a parallel-scan request solves
+    spectrally with log-depth scans and reduces afterwards, as the JAX core
+    does (the broadband solve does not read ``scan_mode``)."""
     tau, sources = gas_optics_lw_nn(
         models, play, plev, tlay, tsfc, GasConcs(concs), spectral, table,
         tlev=tlev, top_at_1=top_at_1)
     clouds = cloud_optics(cloud_co, lwp, iwp, rel, rei, as_2str=False)
     atmos = increment(OpticalProps1scl(tau, spectral), clouds)
+    if scan_mode == "sequential":
+        sol = rte_lw(atmos, top_at_1, sources, emis_band, n_gauss_angles=n_gauss_angles,
+                     broadband=True)
+        return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
+                               flux_net=sol.flux_dn - sol.flux_up)
     sol = rte_lw(atmos, top_at_1, sources, emis_band, n_gauss_angles=n_gauss_angles,
-                 broadband=True)
-    return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
-                           flux_net=sol.flux_dn - sol.flux_up)
+                 scan_mode=scan_mode)
+    return reduce_broadband(sol.flux_up, sol.flux_dn)
 
 
 def _allsky_sw_core(
     models, spectral, solar, cloud_co,
     play, plev, tlay, mu0, sfc_alb_dir, sfc_alb_dif, lwp, iwp, rel, rei, concs,
-    top_at_1,
+    top_at_1, scan_mode="sequential",
 ):
     """General all-sky SW core, column-major: NN gas optics (g = 0), cloud
-    optics delta-scaled and incremented by band, then rte_sw with broadband
-    output. The JAX package takes it for parallel-scan SW, which the port
-    still refuses (ROADMAP Queue 1 item 6); until then no driver calls it."""
+    optics delta-scaled and incremented by band, then rte_sw. allsky_sw
+    takes it for parallel-scan requests, which solve spectrally with the
+    log-depth adding and reduce afterwards, as the JAX core does; a
+    sequential call solves broadband."""
     tau, ssa, toa_src = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs),
                                          spectral, solar)
     atmos = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral)
     clouds = delta_scale(cloud_optics(cloud_co, lwp, iwp, rel, rei, as_2str=True))
     atmos = increment(atmos, clouds)
-    sol = rte_sw(atmos, top_at_1, mu0, toa_src, spectral.expand(sfc_alb_dir),
-                 spectral.expand(sfc_alb_dif), broadband=True)
-    return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
-                           flux_net=sol.flux_dn - sol.flux_up, flux_dn_dir=sol.flux_dn_dir)
+    alb_dir, alb_dif = spectral.expand(sfc_alb_dir), spectral.expand(sfc_alb_dif)
+    if scan_mode == "sequential":
+        sol = rte_sw(atmos, top_at_1, mu0, toa_src, alb_dir, alb_dif, broadband=True)
+        return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
+                               flux_net=sol.flux_dn - sol.flux_up,
+                               flux_dn_dir=sol.flux_dn_dir)
+    sol = rte_sw(atmos, top_at_1, mu0, toa_src, alb_dir, alb_dif, scan_mode=scan_mode)
+    return reduce_broadband(sol.flux_up, sol.flux_dn, gpt_flux_dn_dir=sol.flux_dn_dir)
 
 
 def _flip_all(top_at_1, *arrs):
@@ -385,11 +400,12 @@ def allsky_lw(
         return _allsky_lw_core_mega(models, table, spectral, co, play_t, plev_t, tlay_t,
                                     tlev_t, tsfc, emis, *cld_t, concs_t, top_at_1=top_at_1)
     (play, plev, tlay, tlev, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
-    if n_gauss_angles == 1 and device.type == "cpu":
+    if n_gauss_angles == 1 and scan_mode == "sequential" and device.type == "cpu":
         return _allsky_lw_core_lay_major(models, table, spectral, co, play, plev, tlay, tlev,
                                          tsfc, emis, *cld, concs, top_at_1=top_at_1)
     return _allsky_lw_core(models, table, spectral, co, play, plev, tlay, tlev, tsfc, emis,
-                           *cld, concs, top_at_1=top_at_1, n_gauss_angles=n_gauss_angles)
+                           *cld, concs, top_at_1=top_at_1, n_gauss_angles=n_gauss_angles,
+                           scan_mode=scan_mode)
 
 
 def allsky_sw(
@@ -431,8 +447,11 @@ def allsky_sw(
         return _allsky_sw_core_mega(models, spectral, solar, co, play_t, plev_t, tlay_t, mu0,
                                     alb, alb, *cld_t, concs_t, top_at_1=top_at_1)
     (play, plev, tlay, _, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
-    return _allsky_sw_core_lay_major(models, spectral, solar, co, play, plev, tlay, mu0,
-                                     alb, alb, *cld, concs, top_at_1=top_at_1)
+    if scan_mode == "sequential":
+        return _allsky_sw_core_lay_major(models, spectral, solar, co, play, plev, tlay, mu0,
+                                         alb, alb, *cld, concs, top_at_1=top_at_1)
+    return _allsky_sw_core(models, spectral, solar, co, play, plev, tlay, mu0, alb, alb,
+                           *cld, concs, top_at_1=top_at_1, scan_mode=scan_mode)
 
 
 def load_cloud_optics_checked(path: str, *, device, dtype=torch.float32) -> CloudOptics:

@@ -14,12 +14,13 @@ The route is taken once per call by ``config.resolve_use_megakernel``:
   - "staged": NN gas optics, then the RTE solvers. LW, with any number of
     Gauss angles, takes the general RTE path (``_lw_core``:
     gas_optics_lw_nn -> rte_lw); SW takes the layer-major core
-    (``_sw_core_lay_major``). On CUDA their NN step is the MLP kernel (K3,
+    (``_sw_core_lay_major``), or for ``scan_mode="parallel"`` the general
+    one (``_sw_core``: gas_optics_sw_nn -> rte_sw). On CUDA their NN step is the MLP kernel (K3,
     K4 for two-model LW, K5 for SW) and each angle of the LW solve is the
     transport kernel (K7); the solver code around them runs as PyTorch ops
     on the card, never a kernel's plain twin;
-  - "refuse": NotImplementedError with the reason (parallel scans,
-    float64 on CUDA, a net the MLP kernel does not take).
+  - "refuse": NotImplementedError with the reason (float64 on CUDA, a
+    net the MLP kernel does not take).
 """
 from __future__ import annotations
 
@@ -49,7 +50,9 @@ from ..gasoptics.planck import (
 )
 from ..models.network import NNModel
 from ..ops.cuda.lw_megakernel import lw_clearsky_mega4, lw_clearsky_mega5
+from ..ops.cuda.lw_prep import lw_prep
 from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
+from ..ops.lw_solver import lw_broadband_sweeps
 from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str
 from ..rte import rte_lw, rte_sw
@@ -70,15 +73,35 @@ def default_solar_source(spectral: SpectralMapping, tsi: float = 1360.85) -> np.
     return out
 
 
-def resolve_solar_source(spectral: SpectralMapping, kdist=None,
-                         tsi: Optional[float] = None) -> np.ndarray:
-    """Per-g-point TOA solar flux. Only the tier without a k-distribution
-    is ported (``default_solar_source``)."""
-    if kdist is not None:
-        raise NotImplementedError(
-            "solar source from a k-distribution: needs the LUT gas optics "
-            "(ROADMAP Queue 1 item 8)")
-    return default_solar_source(spectral, tsi=tsi or 1360.85)
+def resolve_solar_source(spectral: SpectralMapping, kdist=None, tsi: Optional[float] = None,
+                         mg_index: Optional[float] = None,
+                         sb_index: Optional[float] = None) -> np.ndarray:
+    """Per-g-point TOA solar flux, from the k-distribution's NRLSSI2 terms
+    whenever a ``kdist`` that carries them is given (reference
+    mo_gas_optics_rrtmgp.F90:594-599; variability :1058-1095). Three tiers:
+      1. the kdist's g-points match ``spectral``: ``kdist.solar_source()``;
+      2. its bands match but the g-point counts differ (the unreduced g-224
+         file with the g-112 NN models): the per-band totals are kept and
+         spread within each band by the mapping's quadrature weights
+         (gasoptics.planck.gpt_weights_for);
+      3. no kdist: brightness-temperature band fractions
+         (``default_solar_source``)."""
+    if kdist is None or getattr(kdist, "solar_quiet", None) is None:
+        return default_solar_source(spectral, tsi=tsi or 1360.85)
+    src = kdist.solar_source(mg_index, sb_index, tsi=tsi).detach().cpu().numpy()
+    if kdist.ngpt == spectral.ngpt:
+        return src
+    kb, sb = kdist.spectral.band_lims_wvn_array, spectral.band_lims_wvn_array
+    if kdist.nband != spectral.nband or not np.allclose(kb, sb, rtol=5e-2):
+        raise ValueError(
+            "kdist solar source cannot be remapped: band structure differs from the "
+            f"requested spectral mapping ({kdist.nband} vs {spectral.nband} bands)")
+    w = gpt_weights_for(spectral)
+    out = np.zeros(spectral.ngpt)
+    for ib, (s, e) in enumerate(spectral.band_lims_gpt):
+        ks, ke = kdist.spectral.band_lims_gpt[ib]
+        out[s:e] = float(np.sum(src[ks:ke])) * w[s:e] / np.sum(w[s:e])
+    return out
 
 
 def canonicalize_rfmip_inputs(data: RFMIPData, dtype=np.float32):
@@ -225,15 +248,48 @@ def _lw_core(
     play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
     top_at_1: bool,
     n_gauss_angles: int,
+    scan_mode: str = "sequential",
 ):
     """General LW core: column-major NN gas optics, then rte_lw with
-    ``n_gauss_angles`` Gauss angles and broadband output."""
+    ``n_gauss_angles`` Gauss angles and broadband output. As in the JAX
+    package the broadband solve reduces inside its layer sweeps and does
+    not read ``scan_mode``."""
     tau, sources = gas_optics_lw_nn(models, play, plev, tlay, tsfc, GasConcs(concs_dict),
                                     spectral, planck_table, tlev=tlev, top_at_1=top_at_1)
     sol = rte_lw(OpticalProps1scl(tau, spectral), top_at_1, sources, sfc_emis_band,
-                 n_gauss_angles=n_gauss_angles, broadband=True)
+                 n_gauss_angles=n_gauss_angles, scan_mode=scan_mode, broadband=True)
     return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
                            flux_net=sol.flux_dn - sol.flux_up)
+
+
+def _lw_core_prep(
+    models: Sequence[NNModel],
+    planck_table: PlanckTable,
+    spectral: SpectralMapping,
+    play, plev, tlay, tlev, tsfc, sfc_emis_band, concs_dict,
+    top_at_1: bool,
+):
+    """Prep LW core: the front-end kernel (ops/cuda/lw_prep.lw_prep, K6)
+    makes exactly the three layer-major fields the broadband sweeps read
+    and the surface source, from band Planck values interpolated here; the
+    sweeps stay tensor ops (lw_broadband_sweeps). Column-major inputs in
+    the caller's orientation. No driver routes to it, in the JAX package
+    neither: tests and benchmarks call it."""
+    ncol, nlay = play.shape
+    canon = lambda a: (a if top_at_1 else a.flip(1)).T.contiguous()
+    play_t, plev_t, tlay_t, tlev_t = canon(play), canon(plev), canon(tlay), canon(tlev)
+    gd_t = _to_lay_major(GasConcs(concs_dict), ncol, nlay, top_at_1)
+    col_dry = get_col_dry_lay_major(gd_t.get_raw("h2o"), plev_t).contiguous()
+    x = compute_nn_inputs(play_t, tlay_t, gd_t, models[0]).contiguous()  # (nlay, ncol, nf)
+    trans, src_dn, src_up, sfc_src = lw_prep(
+        models[0], x, col_dry,
+        planck_table.interpolate(tlay_t), planck_table.interpolate(tlev_t),
+        planck_table.interpolate(tsfc), spectral.gpt2band_tensor(play.device))
+    sol = lw_broadband_sweeps(trans, src_dn, src_up, spectral.expand(sfc_emis_band), sfc_src)
+    up, dn = sol.flux_up, sol.flux_dn
+    if not top_at_1:
+        up, dn = up.flip(1), dn.flip(1)
+    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
 def _sw_masked(up, dn, dn_dir, usecol, top_at_1):
@@ -318,16 +374,18 @@ def _sw_core(
     solar_source,
     play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs_dict,
     top_at_1: bool,
+    scan_mode: str = "sequential",
 ):
     """General SW core: column-major NN gas optics, then rte_sw with
-    two-stream optical properties (g = 0) and broadband output. The JAX
-    package takes it for parallel-scan SW, which the port still refuses
-    (ROADMAP Queue 1 item 6); until then no driver calls it."""
+    two-stream optical properties (g = 0) and broadband output.
+    rfmip_clear_sky_sw takes it for parallel-scan requests, as the JAX one
+    does; the broadband two-stream solve sweeps sequentially in either
+    mode."""
     tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs_dict),
                                    spectral, solar_source)
     toa_src, alb_gpt, mu0_safe = _sw_boundary(solar_source, tsi, sfc_alb, mu0, usecol)
     sol = rte_sw(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral), top_at_1,
-                 mu0_safe, toa_src, alb_gpt, alb_gpt, broadband=True)
+                 mu0_safe, toa_src, alb_gpt, alb_gpt, scan_mode=scan_mode, broadband=True)
     # rte_sw returns the caller's orientation: nothing to flip
     return _sw_masked(sol.flux_up, sol.flux_dn, sol.flux_dn_dir, usecol, top_at_1=True)
 
@@ -430,7 +488,8 @@ def rfmip_clear_sky_lw(
             *lw_canonical_inputs(data, spectral, device, dtype), top_at_1=data.top_at_1)
     return _lw_core(models, planck_table, spectral,
                     *lw_staged_inputs(data, spectral, device, dtype),
-                    top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles)
+                    top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
+                    scan_mode=scan_mode)
 
 
 def rfmip_clear_sky_sw(
@@ -460,5 +519,8 @@ def rfmip_clear_sky_sw(
         _check_sw_scaling(models)
         return _sw_core_mega_canon(models, solar, *sw_canonical_inputs(data, device, dtype),
                                    top_at_1=data.top_at_1)
-    return _sw_core_lay_major(models, solar, *sw_staged_inputs(data, device, dtype),
-                              top_at_1=data.top_at_1)
+    if scan_mode == "sequential":
+        return _sw_core_lay_major(models, solar, *sw_staged_inputs(data, device, dtype),
+                                  top_at_1=data.top_at_1)
+    return _sw_core(models, spectral, solar, *sw_staged_inputs(data, device, dtype),
+                    top_at_1=data.top_at_1, scan_mode=scan_mode)

@@ -131,6 +131,11 @@ class LwArgs(ctypes.Structure):  # csrc/lw_megakernel.cu
                 + _fields(P, "lwp iwp rel rei cld_band scale"))
 
 
+class LwPrepArgs(ctypes.Structure):  # csrc/lw_prep.cu
+    _fields_ = (_fields(P, "x col_dry b_lay b_lev b_sfc gpt2band trans src_dn src_up sfc_src")
+                + _fields(I, "ncol nlay nf ngpt nband") + _fields(F, "d_secant tau_thresh"))
+
+
 class SwArgs(ctypes.Structure):  # csrc/sw_megakernel.cu
     _fields_ = (_fields(P, "x cf col_dry mu0 inc_dir inc_dif alb_dir alb_dif up dn dir")
                 + _fields(I, "ncol nlay n2d nc ngpt") + _fields(F, "k_min eps cld_eps")
@@ -167,6 +172,9 @@ def _declare(lib) -> None:
     lib.sw_clearsky_megakernel_launch.restype = I
     lib.sw_clearsky_megakernel_smem_bytes.argtypes = [I] * 7
     lib.sw_clearsky_megakernel_smem_bytes.restype = ctypes.c_size_t
+    # (args, net, device, stream)
+    lib.lw_prep_launch.argtypes = [P, P, I, P]
+    lib.lw_prep_launch.restype = I
     lib.mlp_predict_launch.argtypes = [I, P, P] + [P, P, P, I] * 2 + [P, P, I, I, P]
     lib.mlp_predict_launch.restype = I
     lib.lw_noscat_broadband_launch.argtypes = [P] * 9 + [I] * 3 + [F] * 2 + [I, P]

@@ -1,25 +1,29 @@
-"""Longwave no-scattering solvers.
+"""Longwave solvers.
 
 Port of rte_rrtmgp_nn_tpu/ops/lw_solver.py: the column-major general
 solver ``lw_solver_noscat`` (1-4 Gauss angles or per-g-point secants,
-incident flux, surface-temperature Jacobian, both orientations, spectral
-or broadband output), which every staged LW driver call takes, and the
-layer-major single-angle broadband solver (``lw_solver_noscat_lay_major``,
-the "presrc" variant), which no driver of the port calls: in the JAX
-package it serves the all-sky LW core, still to be ported (ROADMAP Queue
-1). Reference parity: rte/kernels/mo_rte_solver_kernels.F90
-``lw_solver_noscat`` (:119-330), ``lw_solver_noscat_GaussQuad``
-(:332-415) and ``lw_source_noscat`` (:742-776; Clough 1992 Eq 13 with the
+incident flux, surface-temperature Jacobian, Tang-2018 rescaling for
+scattering optical properties, both orientations, spectral or broadband
+output), which every staged LW driver call takes; the layer-major
+single-angle broadband solver (``lw_solver_noscat_lay_major``, the
+"presrc" variant) of the CPU all-sky core; the two-stream solver with
+scattering (``lw_solver_2stream``); and the broadband solve straight from
+the Planck fraction (``lw_noscat_broadband_from_pfrac``). Reference parity:
+rte/kernels/mo_rte_solver_kernels.F90 ``lw_solver_noscat`` (:119-330),
+``lw_solver_noscat_GaussQuad`` (:332-415), ``lw_solver_2stream``
+(:426-486), ``lw_source_noscat`` (:742-776; Clough 1992 Eq 13 with the
 series expansion below tau_thresh, or the Pade form under
-use_Pade_source); the Gauss quadrature of rte/mo_rte_lw.F90:113-125.
+use_Pade_source), ``lw_two_stream`` (:1018-1069), ``lw_source_2str``
+(:1112-1162), the rescaled transport ``lw_transport_1rescl`` (:1729-1795
+with Cn = 0.4*wb/scaleTau, :211-233); the Gauss quadrature of
+rte/mo_rte_lw.F90:113-125.
 
 Orientation is canonicalized to top-at-0 by flipping. The layer
 recurrences are Python loops over layers; on CUDA the broadband transport
 of each angle is one kernel (ops/cuda/lw_solver.py, K7), except under
 ``fast_exponential``, the Pade source or the Jacobian, which the kernel
-does not take (the JAX package's conditions).
-Tang-2018 rescaling (2str optical properties) is still to be ported
-(ROADMAP Queue 1 item 6).
+does not take (the JAX package's conditions), and the rescaled solve,
+which is spectral.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import config, tau_thresh_for
+from .adding import adding
 from .expfast import exp_fast, exp_maybe_fast
 from .scan import affine_scan, affine_scan_reverse
 
@@ -88,6 +93,20 @@ def noscat_sources(tl, trans, lay, lev_t, lev_b, tau_thresh, pade: Optional[bool
     two_fact = 2.0 * source_fact(tl, trans, tau_thresh)
     return (one_m_t * lev_b + two_fact * (lay - lev_b),
             one_m_t * lev_t + two_fact * (lay - lev_t))
+
+
+def pfrac_sources(tl, trans, pfrac, planck_lay_band, planck_lev_band, gpt_band,
+                  pade: Optional[bool] = None):
+    """noscat_sources straight from the Planck fraction, layer-major and
+    canonical top-at-0: pfrac (nlay, ncol, ngpt), band Planck values (nlay,
+    ncol, nband) and (nlay+1, ncol, nband), ``gpt_band`` (ngpt,) the band
+    index of each g-point. The source at a layer's lower level takes the
+    fraction of the layer below; the bottom layer takes its own."""
+    b_lev = planck_lev_band[..., gpt_band]
+    return noscat_sources(
+        tl, trans, pfrac * planck_lay_band[..., gpt_band], pfrac * b_lev[:-1],
+        torch.cat([pfrac[1:], pfrac[-1:]], dim=0) * b_lev[1:], tau_thresh_for(tl.dtype),
+        pade=pade)
 
 
 def lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source,
@@ -180,13 +199,16 @@ def _lw_noscat_broadband_fused(tau, lay_source, lev_source, sfc_emis, sfc_source
 
 
 def _lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, inc_flux,
-                             D, weight, sfc_source_jac=None, scan_mode="sequential",
+                             D, weight, sfc_source_jac=None, ssa=None, g=None,
+                             do_rescaling=False, scan_mode="sequential",
                              broadband=False) -> LWSolution:
     """Single-angle no-scattering solve, canonical top-at-0: tau (ncol,
     nlay, ngpt), D (ncol, ngpt) secants, weight a scalar. Spectral fluxes,
-    or broadband with ``broadband=True``."""
+    or broadband with ``broadband=True`` (not with rescaling). With
+    ``do_rescaling`` the optical path is scaled by the scattering (ssa, g)
+    and the up and down radiances adjust each other (Tang et al. 2018)."""
     two_pi_w = 2.0 * np.pi * weight
-    if broadband and not config.use_pade_source:
+    if broadband and not do_rescaling and not config.use_pade_source:
         # the transport kernel's conditions, as in the JAX package: exact
         # exponential, no Jacobian. Its wrapper launches it for CUDA
         # tensors (float32, or it raises) and runs its twin for CPU ones.
@@ -201,24 +223,41 @@ def _lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, 
         return _lw_noscat_broadband_fused(tau, lay_source, lev_source, sfc_emis, sfc_source,
                                           inc_flux, D, weight, sfc_source_jac)
 
-    tau_loc = tau * D[:, None, :]
-    trans = exp_maybe_fast(-tau_loc)
+    if do_rescaling:
+        # reference mo_rte_solver_kernels.F90:211-233
+        wb = ssa * (1.0 - g) * 0.5
+        scale_tau = 1.0 - ssa + wb
+        cn = 0.4 * wb / scale_tau
+        tau_loc = tau * D[:, None, :] * scale_tau
+        trans = torch.exp(-tau_loc)
+        an = 1.0 - trans * trans
+    else:
+        tau_loc = tau * D[:, None, :]
+        trans = exp_maybe_fast(-tau_loc)
     source_dn, source_up = lw_source_noscat(tau_loc, trans, lay_source, lev_source)
     rad_top = inc_flux / two_pi_w
-    if broadband:
+    if broadband and not do_rescaling:
         return lw_broadband_sweeps(trans.transpose(0, 1), source_dn.transpose(0, 1),
                                    source_up.transpose(0, 1), sfc_emis, sfc_source, weight,
                                    rad_top, sfc_source_jac)
 
     rad_dn = affine_scan(trans, source_dn, rad_top, axis=1, mode=scan_mode)
     rad_sfc = rad_dn[:, -1] * (1.0 - sfc_emis) + sfc_emis * sfc_source  # reference :269
-    rad_up = affine_scan_reverse(trans, source_up, rad_sfc, axis=1, mode=scan_mode)
+    if do_rescaling:
+        # up with the adjustment from the down radiances, then a second
+        # down pass adjusted from the up radiances (lw_transport_1rescl)
+        adj_up = cn * (an * rad_dn[:, :-1] - trans * source_dn - source_up)
+        rad_up = affine_scan_reverse(trans, source_up + adj_up, rad_sfc, axis=1, mode=scan_mode)
+        adj_dn = cn * (an * rad_up[:, :-1] - trans * source_up - source_dn)
+        rad_dn = affine_scan(trans, source_dn + adj_dn, rad_top, axis=1, mode=scan_mode)
+    else:
+        rad_up = affine_scan_reverse(trans, source_up, rad_sfc, axis=1, mode=scan_mode)
     flux_up_jac = None
     if sfc_source_jac is not None:
         # the Jacobian propagates with transmission only: the product of
         # trans from the surface upward
         jac_sfc = sfc_emis * sfc_source_jac
-        if config.fast_exponential:
+        if config.fast_exponential and not do_rescaling:
             # exp_fast(a)*exp_fast(b) != exp_fast(a+b): ride the same
             # per-layer Pade transmittances as the fluxes
             prod_up = trans.flip(1).cumprod(1).flip(1)
@@ -239,6 +278,9 @@ def lw_solver_noscat(
     n_gauss_angles=1,
     lw_ds=None,
     sfc_source_jac=None,
+    ssa=None,
+    g=None,
+    do_rescaling=False,
     scan_mode="sequential",
     broadband=False,
 ) -> LWSolution:
@@ -248,13 +290,18 @@ def lw_solver_noscat(
     (ncol, nlay+1, ngpt), surface arrays (ncol, ngpt). ``lw_ds`` (ncol,
     ngpt) gives per-g-point secants for a single angle (the optimal-angle
     path, mo_rte_lw.F90:329-341). The fluxes of several angles are the sum
-    of the per-angle fluxes, each weighted by its Gauss weight."""
+    of the per-angle fluxes, each weighted by its Gauss weight. With
+    ``do_rescaling`` (ssa, g given) each angle is the Tang-rescaled solve,
+    which is spectral: ``broadband`` is then not honored."""
     ncol, _, ngpt = tau.shape
     dtype, dev = tau.dtype, tau.device
+    broadband = broadband and not do_rescaling
     if inc_flux is None:
         inc_flux = torch.zeros((ncol, ngpt), dtype=dtype, device=dev)
     if not top_at_1:
         tau, lay_source, lev_source = tau.flip(1), lay_source.flip(1), lev_source.flip(1)
+        if ssa is not None:
+            ssa, g = ssa.flip(1), g.flip(1)
 
     if lw_ds is not None:
         angles = [(lw_ds.to(dtype), LW_WEIGHT)]
@@ -265,7 +312,8 @@ def lw_solver_noscat(
         angles = [(torch.full((ncol, ngpt), float(GAUSS_DS[n - 1, i]), dtype=dtype, device=dev),
                    float(GAUSS_WTS[n - 1, i])) for i in range(n)]
     sols = [_lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source,
-                                     inc_flux, D, w, sfc_source_jac, scan_mode, broadband)
+                                     inc_flux, D, w, sfc_source_jac, ssa, g, do_rescaling,
+                                     scan_mode, broadband)
             for D, w in angles]
     flux_up = sum(s.flux_up for s in sols)
     flux_dn = sum(s.flux_dn for s in sols)
@@ -274,3 +322,90 @@ def lw_solver_noscat(
         flux_up, flux_dn = flux_up.flip(1), flux_dn.flip(1)
         jac = None if jac is None else jac.flip(1)
     return LWSolution(flux_up, flux_dn, jac)
+
+
+def lw_noscat_broadband_from_pfrac(tau, pfrac, planck_lay, planck_lev, planck_sfc,
+                                   planck_sfc_jac, gpt2band, sfc_emis, inc_flux=None, D=None,
+                                   weight=LW_WEIGHT, top_at_1=True,
+                                   compute_jac=False) -> LWSolution:
+    """Broadband no-scattering solve straight from the Planck fraction:
+    tau, pfrac (ncol, nlay, ngpt); band Planck values planck_lay (ncol,
+    nlay, nband), planck_lev (ncol, nlay+1, nband), planck_sfc[_jac] (ncol,
+    nband); ``gpt2band`` (ngpt,) the band of each g-point (the JAX
+    function's one-hot product is an index here); sfc_emis (ncol, ngpt).
+    Level l takes the fraction of layer min(l, nlay-1) in the canonical
+    orientation; the g-point sources are formed layer-major and go straight
+    into the sweeps (compute_Planck_source_nn + lw_solver_noscat of the
+    reference in one function)."""
+    if not top_at_1:
+        tau, pfrac = tau.flip(1), pfrac.flip(1)
+        planck_lay, planck_lev = planck_lay.flip(1), planck_lev.flip(1)
+    idx = gpt2band.long()
+    lay_major = lambda a: a.transpose(0, 1)
+    if D is None:
+        D = torch.full_like(tau[:, 0], LW_DIFFUSIVITY)
+    tl = lay_major(tau * D[:, None, :])
+    trans = exp_maybe_fast(-tl)
+    src_dn, src_up = pfrac_sources(tl, trans, lay_major(pfrac), lay_major(planck_lay),
+                                   lay_major(planck_lev), idx)
+    pf_sfc = pfrac[:, -1]
+    sfc_source = pf_sfc * planck_sfc[..., idx]
+    jac = pf_sfc * (planck_sfc_jac - planck_sfc)[..., idx] if compute_jac else None
+    inc_rad = None if inc_flux is None else inc_flux / (2.0 * np.pi * weight)
+    out = lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source, weight, inc_rad, jac)
+    if not top_at_1:
+        out = LWSolution(out.flux_up.flip(1), out.flux_dn.flip(1),
+                         None if out.flux_up_jac is None else out.flux_up_jac.flip(1))
+    return out
+
+
+def lw_two_stream(tau, ssa, g):
+    """Meador-Weaver diffuse reflectance and transmittance with the LW
+    diffusivity secant 1.66 (reference lw_two_stream, :1018-1069). Returns
+    (gamma1, gamma2, rdif, tdif)."""
+    gamma1 = LW_DIFFUSIVITY * (1.0 - 0.5 * ssa * (1.0 + g))  # Fu et al. Eq 2.9
+    gamma2 = LW_DIFFUSIVITY * 0.5 * ssa * (1.0 - g)  # Fu et al. Eq 2.10
+    k = torch.sqrt(torch.clamp_min((gamma1 - gamma2) * (gamma1 + gamma2), config.k_min))
+    e1 = exp_maybe_fast(-tau * k)
+    e2 = e1 * e1
+    rt_term = 1.0 / (k * (1.0 + e2) + gamma1 * (1.0 - e2))
+    rdif = rt_term * gamma2 * (1.0 - e2)  # MW Eq 25
+    tdif = rt_term * 2.0 * k * e1  # MW Eq 26
+    return gamma1, gamma2, rdif, tdif
+
+
+def lw_source_2str(sfc_emis, sfc_source, lay_source, lev_source, gamma1, gamma2, rdif, tdif,
+                   tau):
+    """Toon et al. 1989 two-stream sources (canonical top-at-0; reference
+    lw_source_2str, :1112-1162). The factor pi converts radiance to flux.
+    ``lay_source`` is not read, as in the reference. Returns (source_dn,
+    source_up, source_sfc)."""
+    lev_top, lev_bot = lev_source[:, :-1], lev_source[:, 1:]
+    big = tau > 1.0e-8
+    z = torch.where(big, (lev_bot - lev_top) / torch.where(big, tau * (gamma1 + gamma2), 1.0),
+                    0.0)
+    zup_top, zup_bot = z + lev_top, z + lev_bot
+    zdn_top, zdn_bot = -z + lev_top, -z + lev_bot
+    source_up = torch.where(big, np.pi * (zup_top - rdif * zdn_top - tdif * zup_bot), 0.0)
+    source_dn = torch.where(big, np.pi * (zdn_bot - rdif * zup_bot - tdif * zdn_top), 0.0)
+    return source_dn, source_up, np.pi * sfc_emis * sfc_source
+
+
+def lw_solver_2stream(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_source,
+                      inc_flux=None, top_at_1=True, scan_mode="sequential") -> LWSolution:
+    """Two-stream LW with scattering (reference lw_solver_2stream,
+    :426-486): column-major (ncol, nlay, ngpt) optical properties, spectral
+    fluxes."""
+    if inc_flux is None:
+        inc_flux = torch.zeros_like(tau[:, 0])
+    if not top_at_1:
+        tau, ssa, g = tau.flip(1), ssa.flip(1), g.flip(1)
+        lay_source, lev_source = lay_source.flip(1), lev_source.flip(1)
+    gamma1, gamma2, rdif, tdif = lw_two_stream(tau, ssa, g)
+    source_dn, source_up, source_sfc = lw_source_2str(
+        sfc_emis, sfc_source, lay_source, lev_source, gamma1, gamma2, rdif, tdif, tau)
+    flux_up, flux_dn = adding(1.0 - sfc_emis, rdif, tdif, source_dn, source_up, source_sfc,
+                              inc_flux, mode=scan_mode)
+    if not top_at_1:
+        flux_up, flux_dn = flux_up.flip(1), flux_dn.flip(1)
+    return LWSolution(flux_up, flux_dn)

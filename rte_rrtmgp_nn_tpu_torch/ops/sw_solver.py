@@ -22,7 +22,6 @@ import torch
 from ..config import config
 from .adding import adding
 from .expfast import exp_fast
-from .scan import _check_mode
 
 
 class SWSolution(NamedTuple):
@@ -196,7 +195,8 @@ def sw_solver_2stream(tau, ssa, g, mu0, inc_flux, sfc_alb_dir, sfc_alb_dif,
     direct flux before the mu0 weighting, per-g-point surface albedos
     (ncol, ngpt). Spectral (ncol, nlay+1, ngpt) fluxes, or broadband
     (ncol, nlay+1) with ``broadband=True``."""
-    _check_mode(scan_mode)
+    if scan_mode not in ("sequential", "parallel"):
+        raise ValueError(f"unknown scan mode {scan_mode!r}")
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros_like(inc_flux)
     if not top_at_1:

@@ -5,9 +5,7 @@ consistency and value checks, band-emissivity expansion, dispatch by
 optical-properties type; rte/mo_rte_sw.F90: 1scl -> direct beam only,
 2str -> two-stream + adding, with per-g-point albedos from the caller).
 Arrays are (ncol, nlay, ngpt). On CUDA both take float32 only, like the
-drivers (the kernels are float32). In rte_lw, two-stream optical properties
-(Tang rescaling or ``use_2stream``) and n-stream ones are still to be
-ported (ROADMAP Queue 1 item 6).
+drivers (the kernels are float32).
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ from typing import Optional
 import torch
 
 from .config import config, cuda_dtype_refusal
-from .ops.lw_solver import LWSolution, lw_solver_noscat
+from .ops.lw_solver import LWSolution, lw_solver_2stream, lw_solver_noscat
 from .ops.sw_solver import SWSolution, sw_solver_2stream, sw_solver_noscat
 from .optical_props import OpticalProps1scl, OpticalProps2str, OpticalPropsNstr, validate
 from .sources import SourceFuncLW
@@ -119,26 +117,38 @@ def rte_lw(
     if config.check_values:
         _check_values_lw(optical_props, sfc_emis, inc_flux, lw_ds, n_gauss_angles)
 
+    sfc_emis_gpt = spectral.expand(sfc_emis)
+    jac = sources.sfc_source_jac if want_jac else None
+
+    def with_dn_jac(sol: LWSolution) -> LWSolution:
+        # the reference accepts flux_dn_Jac but never computes it
+        # (mo_rte_lw.F90:85); in the no-scattering solver it is exactly 0
+        if jac is None or sol.flux_up_jac is None:
+            return sol
+        return sol._replace(flux_dn_jac=torch.zeros_like(sol.flux_dn))
+
     if isinstance(optical_props, OpticalProps1scl):
-        jac = sources.sfc_source_jac if want_jac else None
-        sol = lw_solver_noscat(
+        return with_dn_jac(lw_solver_noscat(
             optical_props.tau, sources.lay_source, sources.lev_source,
-            spectral.expand(sfc_emis), sources.sfc_source, inc_flux=inc_flux,
+            sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
             top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, lw_ds=lw_ds,
-            sfc_source_jac=jac, scan_mode=scan_mode, broadband=broadband)
-        if jac is not None:
-            # the reference accepts flux_dn_Jac but never computes it
-            # (mo_rte_lw.F90:85); in the no-scattering solver it is exactly 0
-            sol = sol._replace(flux_dn_jac=torch.zeros_like(sol.flux_dn))
-        return sol
+            sfc_source_jac=jac, scan_mode=scan_mode, broadband=broadband))
     if isinstance(optical_props, OpticalProps2str):
-        raise NotImplementedError(
-            "rte_lw with two-stream optical properties (lw_solver_2stream, Tang "
-            "rescaling) is still to be ported (ROADMAP Queue 1 item 6)")
+        if use_2stream:
+            return lw_solver_2stream(
+                optical_props.tau, optical_props.ssa, optical_props.g, sources.lay_source,
+                sources.lev_source, sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
+                top_at_1=top_at_1, scan_mode=scan_mode)
+        # Tang-2018 rescaled no-scattering solution (reference :357-389)
+        return with_dn_jac(lw_solver_noscat(
+            optical_props.tau, sources.lay_source, sources.lev_source,
+            sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
+            top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, sfc_source_jac=jac,
+            ssa=optical_props.ssa, g=optical_props.g, do_rescaling=True,
+            scan_mode=scan_mode))
     if isinstance(optical_props, OpticalPropsNstr):
-        raise NotImplementedError(
-            "rte_lw with n-stream optical properties is still to be ported "
-            "(ROADMAP Queue 1 item 6)")
+        # parity: the reference raises the same (mo_rte_lw.F90:391-395)
+        raise NotImplementedError("rte_lw(...nstr...) not yet implemented")
     raise TypeError(f"rte_lw: unknown optical props {type(optical_props)}")
 
 

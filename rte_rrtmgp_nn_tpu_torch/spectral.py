@@ -46,6 +46,14 @@ class SpectralMapping:
         )
 
     @staticmethod
+    def from_fortran_limits(band_lims_gpt_1based, band_lims_wvn) -> "SpectralMapping":
+        """From a k-distribution file's 1-based inclusive [start, end] pairs
+        (reference ``bnd_limits_gpt``)."""
+        blg = np.asarray(band_lims_gpt_1based, dtype=np.int64).copy()
+        blg[:, 0] -= 1  # the inclusive 1-based end is the exclusive 0-based one
+        return SpectralMapping.create(blg, band_lims_wvn)
+
+    @staticmethod
     def bands_only(band_lims_wvn) -> "SpectralMapping":
         """One g-point per band (band-resolved cloud optics; reference
         mo_optical_props.F90 init without band_lims_gpt)."""
@@ -67,8 +75,19 @@ class SpectralMapping:
         return _gpt2band(self.band_lims_gpt, self.ngpt)
 
     @property
+    def band_lims_gpt_array(self) -> np.ndarray:
+        return np.asarray(self.band_lims_gpt, dtype=np.int64)
+
+    @property
     def band_lims_wvn_array(self) -> np.ndarray:
         return np.asarray(self.band_lims_wvn, dtype=np.float64)
+
+    def gpts_are_equal(self, other: "SpectralMapping") -> bool:
+        return self.band_lims_gpt == other.band_lims_gpt
+
+    def bands_are_equal(self, other: "SpectralMapping") -> bool:
+        return self.nband == other.nband and np.allclose(
+            self.band_lims_wvn_array, other.band_lims_wvn_array)
 
     def gpt2band_tensor(self, device) -> torch.Tensor:
         """``gpt2band`` as an int32 tensor on ``device`` (the fused kernels'
@@ -80,3 +99,9 @@ class SpectralMapping:
         last axis with ``gpt2band``."""
         idx = torch.tensor(self.gpt2band, device=band_values.device)
         return band_values[..., idx]
+
+    def reduce_sum(self, gpt_values: torch.Tensor) -> torch.Tensor:
+        """Per-g-point (..., ngpt) -> per-band sums (..., nband) (the
+        by-band flux reduction, mo_fluxes_byband_kernels.F90:31-66): each
+        band's g-points are contiguous."""
+        return torch.stack([gpt_values[..., s:e].sum(-1) for s, e in self.band_lims_gpt], dim=-1)

@@ -311,3 +311,104 @@ def hold_kernel(kernel, twin, twin64, rtol: float, atol: float) -> dict:
     else:
         e["ok"] = True
     return e
+
+
+LUT_GASES = ("h2o", "co2", "o3", "n2o", "ch4")  # the synthetic k-distributions' gases
+LUT_CLOUD_LAYERS = (0.55, 0.7)  # a cloud between these fractions of the layer axis, top-at-0
+
+
+def write_lut_files(directory: str, gpts_per_band: int, seed: int = 0) -> dict:
+    """Write a synthetic LW (16 bands) and SW (14 bands) k-distribution
+    file into ``directory``; returns their paths by "lw" and "sw"."""
+    import os
+
+    from .gasoptics.synthetic import generate_kdist_nc
+
+    paths = {}
+    for kind in ("lw", "sw"):
+        paths[kind] = os.path.join(directory, f"kdist-synthetic-{kind}-g{gpts_per_band}.nc")
+        generate_kdist_nc(paths[kind], kind=kind, gases=LUT_GASES, gpts_per_band=gpts_per_band,
+                          seed=seed)
+    return paths
+
+
+def lut_inputs(data: dict, device, dtype):
+    """The tensors the lookup-table path takes, from a synthesize_rfmip
+    dict: (play, plev, tlay, tlev, tsfc, mu0, GasConcs of LUT_GASES). mu0 is
+    the cosine of sza held to [0.2, 1] (every column lit)."""
+    import torch
+
+    from .gas_concs import GasConcs
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    mu0 = np.clip(np.cos(np.deg2rad(data["sza"].astype(np.float64))), 0.2, 1.0)
+    gases = GasConcs({g: t(data["gases"][g]) for g in LUT_GASES})
+    return (*(t(data[k]) for k in ("play", "plev", "tlay", "tlev", "tsfc")), t(mu0), gases)
+
+
+def lut_fluxes(kd_lw, kd_sw, data: dict, device, dtype) -> dict:
+    """The lookup-table gas optics with every LW solver and the SW solver
+    behind it, on a synthesize_rfmip dict: broadband fluxes by name --
+    ``lw1_*`` one angle, ``lw3_*`` three Gauss angles, ``lwopt_*`` the
+    optimal-angle secants, ``lw2s_*`` the two-stream solver and ``lwtang_*``
+    the rescaled solve on the gas optics incremented by a scattering cloud
+    (LUT_CLOUD_LAYERS), ``sw_*`` two-stream SW, ``hr_lw`` the one-angle
+    heating rate [K/day] -- and ``sw_resonance``, per column the smallest
+    |k*mu0 - 1| over layers and g-points (k the SW two-stream eigenvalue),
+    which bounds what float32 two-stream coefficients can deliver."""
+    import torch
+
+    from .config import config
+    from .extensions.heating_rates import compute_heating_rate_kday
+    from .gasoptics.lut_gas_optics import (
+        compute_optimal_angles, gas_optics_lw_lut, gas_optics_sw_lut)
+    from .optical_props import OpticalProps2str, increment
+    from .rte import rte_lw, rte_sw
+    from .spectral import SpectralMapping
+
+    top_at_1 = data["top_at_1"]
+    play, plev, tlay, tlev, tsfc, mu0, gases = lut_inputs(data, device, dtype)
+    ncol, nlay = play.shape
+    props, src = gas_optics_lw_lut(kd_lw, play, plev, tlay, tsfc, gases, tlev=tlev,
+                                   top_at_1=top_at_1)
+    emis = torch.full((ncol, kd_lw.nband), 0.97, dtype=dtype, device=device)
+    out = {}
+    for tag, kw in (("lw1", {}), ("lw3", dict(n_gauss_angles=3)),
+                    ("lwopt", dict(lw_ds=compute_optimal_angles(kd_lw, props.tau)))):
+        sol = rte_lw(props, top_at_1, src, emis, broadband=True, **kw)
+        out[f"{tag}_up"], out[f"{tag}_dn"] = sol.flux_up, sol.flux_dn
+    out["hr_lw"] = compute_heating_rate_kday(out["lw1_up"], out["lw1_dn"], plev)
+    # a scattering cloud on the band grid, in the same layers either way up
+    lo, hi = (int(f * nlay) for f in LUT_CLOUD_LAYERS)
+    rows = slice(lo, hi) if top_at_1 else slice(nlay - hi, nlay - lo)
+    tau_c = torch.zeros((ncol, nlay, kd_lw.nband), dtype=dtype, device=device)
+    tau_c[:, rows] = 3.0
+    bands = SpectralMapping.bands_only(kd_lw.spectral.band_lims_wvn_array)
+    cloudy = increment(
+        OpticalProps2str(props.tau, torch.zeros_like(props.tau), torch.zeros_like(props.tau),
+                         kd_lw.spectral),
+        OpticalProps2str(tau_c, torch.full_like(tau_c, 0.6), torch.full_like(tau_c, 0.8), bands))
+    for tag, kw in (("lw2s", dict(use_2stream=True)), ("lwtang", {})):
+        sol = rte_lw(cloudy, top_at_1, src, emis, **kw)
+        out[f"{tag}_up"], out[f"{tag}_dn"] = sol.flux_up.sum(-1), sol.flux_dn.sum(-1)
+
+    sw_props, sw_src = gas_optics_sw_lut(kd_sw, play, plev, tlay, gases)
+    alb = torch.full((ncol, kd_sw.ngpt), 0.1, dtype=dtype, device=device)
+    sol = rte_sw(sw_props, top_at_1, mu0, sw_src.toa_source, alb, alb, broadband=True)
+    out.update(sw_up=sol.flux_up, sw_dn=sol.flux_dn, sw_dir=sol.flux_dn_dir)
+    g1, g2 = (8.0 - 5.0 * sw_props.ssa) * 0.25, 0.75 * sw_props.ssa  # PIFM gammas, g = 0
+    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    out["sw_resonance"] = (k * mu0[:, None, None] - 1.0).abs().amin((1, 2))
+    return out
+
+
+def lut_reference_fluxes(directory: str, ncol: int, nlay: int, seed: int, top_at_1: bool,
+                         device, dtype, gpts_per_band: int = 4) -> dict:
+    """lut_fluxes on k-distribution files written into ``directory`` and a
+    synthesize_rfmip atmosphere, all from ``seed``, on ``device``."""
+    from .gasoptics.kdist import load_kdist
+
+    paths = write_lut_files(directory, gpts_per_band, seed)
+    kd = {k: load_kdist(p, LUT_GASES, dtype=dtype, device=device) for k, p in paths.items()}
+    data = synthesize_rfmip(ncol, nlay, seed, top_at_1=top_at_1)
+    return lut_fluxes(kd["lw"], kd["sw"], data, device, dtype)

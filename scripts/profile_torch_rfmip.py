@@ -12,9 +12,12 @@ power limit:
     (K1, K2), one over the general cores (LW with N_ANGLES Gauss angles:
     K3 + K7 per angle; staged SW: K5 + the PyTorch sweeps), one over the
     fused all-sky cores (K1 and K2 in their lookup-table cloud mode, on
-    chip_smoke.py's synthetic Garand and coefficient files) and one over
-    the staged all-sky cores (K3 + K7; K5 + the PyTorch sweeps), on
-    device-resident inputs: the window per call (CUDA events), the device
+    chip_smoke.py's synthetic Garand and coefficient files), one over
+    the staged all-sky cores (K3 + K7; K5 + the PyTorch sweeps), one over
+    the prep LW core (K6 + the sweeps as PyTorch ops) and one each over the
+    lookup-table LW path (gas_optics_lw_lut -> rte_lw, one angle: K7) and SW
+    path (gas_optics_sw_lut -> rte_sw) on chip_smoke.py's synthetic
+    k-distributions, on device-resident inputs: the window per call (CUDA events), the device
     time per call summed over kernels, the device's idle share (1 - busy /
     window, unclamped: a negative share means the busy total is wrong), the
     kernel launches per call, and the kernels that take the most device
@@ -28,8 +31,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
-    LW_MODEL, N_ANGLES, NCOL, NLAY, SEED, SW_MODEL, allsky_core_closures, gpu_line,
-    write_allsky_files)
+    LUT_GPTS_PER_BAND, LW_MODEL, N_ANGLES, NCOL, NLAY, SEED, SW_MODEL, allsky_core_closures,
+    gpu_line, write_allsky_files)
 
 ITERS = 20
 
@@ -101,6 +104,34 @@ def main() -> int:
 
     window("fused all-sky LW+SW cores (lookup-table clouds)", both("fused"), tag)
     window("staged all-sky LW+SW cores (LW 1 angle)", both("staged"), tag)
+
+    window("prep LW core (K6 + PyTorch sweeps)", lambda: rfmip._lw_core_prep(
+        [lw_model], table, lw_spec, *lw_gen_in, top_at_1=True), tag)
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import (
+        gas_optics_lw_lut, gas_optics_sw_lut)
+    from rte_rrtmgp_nn_tpu_torch.rte import rte_lw, rte_sw
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kd = {k: load_kdist(p, testing.LUT_GASES, device=dev)
+              for k, p in testing.write_lut_files(tmp, LUT_GPTS_PER_BAND, SEED).items()}
+    play, plev, tlay, tlev, tsfc, mu0, gases = testing.lut_inputs(
+        synthesize_rfmip(NCOL, NLAY, SEED), dev, torch.float32)
+    emis = torch.full((NCOL, kd["lw"].nband), 0.97, device=dev)
+    alb = torch.full((NCOL, kd["sw"].ngpt), 0.1, device=dev)
+
+    def lut_lw():
+        props, src = gas_optics_lw_lut(kd["lw"], play, plev, tlay, tsfc, gases, tlev=tlev)
+        rte_lw(props, True, src, emis, broadband=True)
+
+    def lut_sw():
+        props, src = gas_optics_sw_lut(kd["sw"], play, plev, tlay, gases)
+        rte_sw(props, True, mu0, src.toa_source, alb, alb, broadband=True)
+
+    window(f"LUT LW path ({kd['lw'].ngpt} g-points, 1 angle)", lut_lw, tag)
+    window(f"LUT SW path ({kd['sw'].ngpt} g-points)", lut_sw, tag)
     return 0
 
 

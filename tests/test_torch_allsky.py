@@ -182,18 +182,17 @@ def test_allsky_sw_entry_point_matches_jax(tmp_path, models, route, flavour, top
     garand = _garand(tmp_path, top_at_1)
     coeffs = write_cloud_file(tmp_path / "sw.nc", "sw", 74, flavour)
     jm, pm = models["sw"]
+    kw = dict(ncol=NCOL)
     if route == "parallel_scan":
-        # not ported yet: refused with the roadmap item, on every device
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            pallsky.allsky_sw(garand, coeffs, pm, ncol=NCOL, scan_mode="parallel", device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            pallsky.allsky_lw(garand, coeffs, models["lw"][1], ncol=NCOL, scan_mode="parallel",
-                              device="cpu")
-        return
+        # the general cores with log-depth scans, LW as well (spectral there)
+        kw["scan_mode"] = "parallel"
+        lw_coeffs = write_cloud_file(tmp_path / "lw.nc", "lw", 73, flavour)
+        _check(pallsky.allsky_lw(garand, lw_coeffs, models["lw"][1], device="cpu", **kw),
+               jallsky.allsky_lw(garand, lw_coeffs, models["lw"][0], **kw), LW_NAMES, LW_ATOL)
     mega = route == "mega"
     with jco(use_megakernel=mega), pco(use_megakernel=mega):
-        ref = jallsky.allsky_sw(garand, coeffs, jm, ncol=NCOL)
-        got = pallsky.allsky_sw(garand, coeffs, pm, ncol=NCOL, device="cpu")
+        ref = jallsky.allsky_sw(garand, coeffs, jm, **kw)
+        got = pallsky.allsky_sw(garand, coeffs, pm, device="cpu", **kw)
     _check(got, ref, SW_NAMES, SW_ATOL)
     toa = 0 if top_at_1 else NLAY
     solar = prfmip.default_solar_source(pplanck.sw_spectral_g112())
@@ -226,22 +225,18 @@ def test_allsky_float64_on_the_cpu(tmp_path, models):
 
 @pytest.fixture(scope="module")
 def kdists(tmp_path_factory):
-    from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist
+    """(JAX KDist, port KDist) of one synthetic LW and one SW file."""
+    from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist as jload
     from rte_rrtmgp_nn_tpu.gasoptics.synthetic import generate_kdist_nc
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist as pload
     from test_lut_gas_optics import GASES
 
     out = {}
     for kind, nband in (("lw", 16), ("sw", 14)):
         p = str(tmp_path_factory.mktemp("kd") / f"{kind}.nc")
         generate_kdist_nc(p, kind=kind, gpts_per_band=4, nband=nband)
-        out[kind] = load_kdist(p, GASES)
+        out[kind] = (jload(p, GASES, dtype=jnp.float32), pload(p, GASES, device=CPU))
     return out
-
-
-def _port_spectral(jspec):
-    from rte_rrtmgp_nn_tpu_torch.spectral import SpectralMapping
-
-    return SpectralMapping.create(np.asarray(jspec.band_lims_gpt), jspec.band_lims_wvn_array)
 
 
 def _cloud_props(jspec, pspec, ncol, nlay, two_stream):
@@ -262,86 +257,83 @@ def _cloud_props(jspec, pspec, ncol, nlay, two_stream):
             pop.OpticalProps2str(t(tau), t(ssa), t(g), pb))
 
 
-@pytest.mark.parametrize("two_stream", [True, False], ids=["2str_clouds", "1scl_clouds"])
-def test_rte_lw_allsky_matches_jax(kdists, two_stream):
-    """rte_lw_allsky of both packages on the gas optics of a synthetic
-    k-distribution (computed once by the JAX package and handed to the
-    port's gas-optics argument), with band-grid clouds and aerosols, two
-    Gauss angles, and the clear-sky fluxes."""
-    from rte_rrtmgp_nn_tpu.extensions.clr_all_sky import rte_lw_allsky as jfn
-    from rte_rrtmgp_nn_tpu.gasoptics.lut_gas_optics import gas_optics_lw_lut
-    from rte_rrtmgp_nn_tpu_torch.extensions.clr_all_sky import rte_lw_allsky as pfn
-    from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalProps1scl
-    from rte_rrtmgp_nn_tpu_torch.sources import SourceFuncLW
+def _atmosphere(ncol, nlay):
+    """make_atmosphere of the JAX LUT tests in float32, for both packages:
+    (JAX arrays + GasConcs, port tensors + GasConcs)."""
+    from rte_rrtmgp_nn_tpu.gas_concs import GasConcs as JGC
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs as PGC
     from test_lut_gas_optics import make_atmosphere
 
-    kd = kdists["lw"]
-    play, plev, tlay, tlev_np, tsfc, gc = make_atmosphere(ncol=3, nlay=12)
-    ncol, nlay = play.shape
-    pspec = _port_spectral(kd.spectral)
-    jcld, pcld = _cloud_props(kd.spectral, pspec, ncol, nlay, two_stream)
-    jaer, paer = _cloud_props(kd.spectral, pspec, ncol, nlay, False)
-    emis = np.full((ncol, kd.nband), 0.98, np.float32)
+    *arrs, gc = make_atmosphere(ncol=ncol, nlay=nlay, dtype=jnp.float32)
+    vmrs = {k: np.asarray(v, np.float32) for k, v in gc.concs.items()}
     t = lambda a: torch.from_numpy(np.array(a, np.float32))
-    calls = []
+    return ((*arrs, JGC.create({k: jnp.asarray(v) for k, v in vmrs.items()})),
+            (*map(t, arrs), PGC.create({k: t(v) for k, v in vmrs.items()})))
 
-    def gas_optics(play_, plev_, tlay_, tsfc_, gas_desc, tlev=None, col_dry=None, top_at_1=True):
-        calls.append((tlev is not None, col_dry, top_at_1))
-        props, src = gas_optics_lw_lut(kd, play, plev, tlay, tsfc, gc, tlev=tlev_np)
-        return (OpticalProps1scl(t(props.tau), pspec),
-                SourceFuncLW(lay_source=t(src.lay_source), lev_source=t(src.lev_source),
-                             sfc_source=t(src.sfc_source), sfc_source_jac=t(src.sfc_source_jac),
-                             spectral=pspec))
 
+@pytest.mark.parametrize("two_stream", [True, False], ids=["2str_clouds", "1scl_clouds"])
+def test_rte_lw_allsky_matches_jax(kdists, two_stream):
+    """rte_lw_allsky of both packages on a synthetic k-distribution (the
+    lookup-table gas optics of each package), with band-grid clouds and
+    aerosols, two Gauss angles, and the clear-sky fluxes. Two-stream clouds
+    on the absorption-only gas optics add (1 - ssa) * tau, as in the JAX
+    package."""
+    from rte_rrtmgp_nn_tpu.extensions.clr_all_sky import rte_lw_allsky as jfn
+    from rte_rrtmgp_nn_tpu_torch.extensions.clr_all_sky import rte_lw_allsky as pfn
+
+    jkd, pkd = kdists["lw"]
+    (jplay, jplev, jtlay, jtlev, jtsfc, jgc), (play, plev, tlay, tlev, tsfc, gc) = _atmosphere(3, 12)
+    ncol, nlay = play.shape
+    jcld, pcld = _cloud_props(jkd.spectral, pkd.spectral, ncol, nlay, two_stream)
+    jaer, paer = _cloud_props(jkd.spectral, pkd.spectral, ncol, nlay, False)
+    emis = np.full((ncol, jkd.nband), 0.98, np.float32)
     kw = dict(n_gauss_angles=2, compute_clear=True)
-    ref_all, ref_clr = jfn(kd, play, plev, tlay, tsfc, gc, jnp.asarray(emis), clouds=jcld,
-                           aerosols=jaer, tlev=tlev_np, **kw)
-    got_all, got_clr = pfn(gas_optics, t(play), t(plev), t(tlay), t(tsfc), None, t(emis),
-                           clouds=pcld, aerosols=paer, tlev=t(tlev_np), **kw)
-    assert calls == [(True, None, True)]
+    ref_all, ref_clr = jfn(jkd, jplay, jplev, jtlay, jtsfc, jgc, jnp.asarray(emis), clouds=jcld,
+                           aerosols=jaer, tlev=jtlev, **kw)
+    got_all, got_clr = pfn(pkd, play, plev, tlay, tsfc, gc, torch.from_numpy(emis), clouds=pcld,
+                           aerosols=paer, tlev=tlev, **kw)
     for got, ref in ((got_all, ref_all), (got_clr, ref_clr)):
         for n in LW_NAMES:
             np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(ref, n)),
                                        atol=LW_ATOL, err_msg=n)
     assert float((got_all.flux_dn - got_clr.flux_dn).abs().max()) > 1.0
-    only = pfn(gas_optics, t(play), t(plev), t(tlay), t(tsfc), None, t(emis), tlev=t(tlev_np))
-    np.testing.assert_allclose(only.flux_up.numpy(), np.asarray(jfn(
-        kd, play, plev, tlay, tsfc, gc, jnp.asarray(emis), tlev=tlev_np).flux_up), atol=LW_ATOL)
+    # without increments, the level temperatures interpolated, bottom-first input
+    flip = lambda a: a.flip(1)
+    only = pfn(pkd, flip(play), flip(plev), flip(tlay), tsfc, type(gc)(
+        {k: (flip(v) if v.ndim == 2 else v) for k, v in gc.concs.items()}),
+        torch.from_numpy(emis), top_at_1=False)
+    ref_only = jfn(jkd, jplay, jplev, jtlay, jtsfc, jgc, jnp.asarray(emis))
+    np.testing.assert_allclose(only.flux_up.flip(1).numpy(), np.asarray(ref_only.flux_up),
+                               atol=LW_ATOL)
+    np.testing.assert_allclose(only.flux_dn.flip(1).numpy(), np.asarray(ref_only.flux_dn),
+                               atol=LW_ATOL)
 
 
 @pytest.mark.parametrize("two_stream", [True, False], ids=["2str_clouds", "1scl_clouds"])
 def test_rte_sw_allsky_matches_jax(kdists, two_stream):
     """rte_sw_allsky of both packages: two-stream clouds are delta-scaled
-    before the increment, absorbing ones are not."""
+    before the increment, absorbing ones are not; ``tsi`` rescales the
+    k-distribution's solar source."""
     from rte_rrtmgp_nn_tpu.extensions.clr_all_sky import rte_sw_allsky as jfn
-    from rte_rrtmgp_nn_tpu.gasoptics.lut_gas_optics import gas_optics_sw_lut
     from rte_rrtmgp_nn_tpu_torch.extensions.clr_all_sky import rte_sw_allsky as pfn
-    from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalProps2str
-    from test_lut_gas_optics import make_atmosphere
 
-    kd = kdists["sw"]
-    play, plev, tlay, tlev, tsfc, gc = make_atmosphere(ncol=2, nlay=12)
+    jkd, pkd = kdists["sw"]
+    (jplay, jplev, jtlay, _, _, jgc), (play, plev, tlay, _, _, gc) = _atmosphere(2, 12)
     ncol, nlay = play.shape
-    pspec = _port_spectral(kd.spectral)
-    jcld, pcld = _cloud_props(kd.spectral, pspec, ncol, nlay, two_stream)
+    jcld, pcld = _cloud_props(jkd.spectral, pkd.spectral, ncol, nlay, two_stream)
     mu0 = np.full((ncol,), 0.75, np.float32)
-    alb = np.full((ncol, kd.nband), 0.1, np.float32)
-    t = lambda a: torch.from_numpy(np.array(a, np.float32))
-
-    def gas_optics(play_, plev_, tlay_, gas_desc, col_dry=None):
-        props, src = gas_optics_sw_lut(kd, play, plev, tlay, gc)
-        return (OpticalProps2str(t(props.tau), t(props.ssa), t(props.g), pspec),
-                t(src.toa_source))
-
-    ref_all, ref_clr = jfn(kd, play, plev, tlay, gc, jnp.asarray(mu0), jnp.asarray(alb),
-                           jnp.asarray(alb), clouds=jcld, compute_clear=True)
-    got_all, got_clr = pfn(gas_optics, t(play), t(plev), t(tlay), None, t(mu0), t(alb), t(alb),
-                           clouds=pcld, compute_clear=True)
+    alb = np.full((ncol, jkd.nband), 0.1, np.float32)
+    t = torch.from_numpy
+    ref_all, ref_clr = jfn(jkd, jplay, jplev, jtlay, jgc, jnp.asarray(mu0), jnp.asarray(alb),
+                           jnp.asarray(alb), clouds=jcld, tsi=1361.0, compute_clear=True)
+    got_all, got_clr = pfn(pkd, play, plev, tlay, gc, t(mu0), t(alb), t(alb), clouds=pcld,
+                           tsi=1361.0, compute_clear=True)
     for got, ref in ((got_all, ref_all), (got_clr, ref_clr)):
         for n in SW_NAMES:
             np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(ref, n)),
                                        atol=SW_ATOL, err_msg=n)
     assert float((got_all.flux_dn_dir - got_clr.flux_dn_dir).abs().max()) > 1.0
+    np.testing.assert_allclose(got_clr.flux_dn[:, 0].numpy(), 0.75 * 1361.0, rtol=1e-5)
 
 
 # -- dispatch off the CPU -----------------------------------------------------------------

@@ -158,7 +158,7 @@ def test_config_values_and_megakernel_rules():
     for kw, why in ((dict(lw=True, models=[relu]), "3-layer softsign"),
                     (dict(lw=True, models=[lw, lw]), "two-model"),
                     (dict(dtype=torch.float64), "float32"),
-                    (dict(scan_mode="parallel"), "Queue 1 item 6")):
+                    (dict(scan_mode="parallel"), "parallel scans take the general cores")):
         route = resolve_use_megakernel(device="cuda", **kw)
         assert route.kind != "megakernel" and why in route.reason
 

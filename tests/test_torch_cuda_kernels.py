@@ -4,9 +4,12 @@ to LW atol 2e-3 and SW atol 2e-2 W/m2, clear-sky, in both cloud modes
 (lookup tables in the kernel; band lanes) and in their lane input modes
 (K8 lw_clearsky_mega5 on raw lanes; K9 input_mode="lanes"); the MLP
 kernel's three epilogues K3/K4/K5 (fused_predict_lw_both, _tau, _sw) to
-the JAX package's rtol 2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2. And
+the JAX package's rtol 2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2; K6
+(lw_prep) elementwise by the MLP kernel's rule and through the sweeps. And
 the CUDA drivers, RFMIP and all-sky, fused and general (multi-angle LW,
-staged SW), against the same paths in float64 on the CPU.
+staged SW, parallel scans), the prep LW core and the lookup-table gas
+optics with the solvers behind it, against the same paths in float64 on
+the CPU.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; elsewhere they
 skip. The file imports neither JAX nor the JAX package, so on a GPU host
@@ -399,3 +402,152 @@ def test_allsky_drivers_on_cuda_match_float64_cpu(dev, tmp_path, top_at_1, flavo
     for got in (got_sw, got_sw_staged):
         for n in ("flux_up", "flux_dn", "flux_dn_dir"):
             assert _maxabs(getattr(got, n), getattr(ref_sw, n)) <= SW_ATOL, n
+
+
+# -- K6, the parallel-scan routes, the lookup-table gas optics -------------------------
+
+def _prep_args(dev, ncol, nlay, seed):
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+
+    spec = planck.lw_spectral_g128()
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed))
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    model = load_model_netcdf(LW_MODEL, device=dev)
+    play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t = rfmip.lw_canonical_inputs(data, spec, dev)
+    gases = GasConcs(concs_t)
+    col_dry = go.get_col_dry_lay_major(gases.get_vmr("h2o", nlay, ncol), plev_t).contiguous()
+    x = go.compute_nn_inputs(play_t, tlay_t, gases, model).contiguous()
+    return (model, x, col_dry, table.interpolate(tlay_t), table.interpolate(tlev_t),
+            table.interpolate(tsfc), spec.gpt2band_tensor(dev)), spec.expand(emis)
+
+
+# nlay 13 is not a multiple of the rows the kernel's MLP takes per pass
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60)])
+def test_lw_prep_kernel_matches_twin(dev, ncol, nlay):
+    """K6 against its twin: the transmittance to rtol 2e-5 (+1e-7 for opaque
+    cells), the sources to 2e-5 of the largest g-point Planck source, beyond
+    either float64 decides; the sweeps on its fields to 2e-3 W/m2."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import lw_broadband_sweeps
+    from rte_rrtmgp_nn_tpu_torch.testing import float64_copy, hold_kernel
+
+    args, emis = _prep_args(dev, ncol, nlay, seed=61)
+    n = k6.LAUNCHES
+    got = k6.lw_prep(*args)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == n + 1
+    ref = k6.lw_prep_plain(*args)
+    a64 = [float64_copy(args[0])] + [a.double() for a in args[1:6]] + [args[6]]
+    ref64 = k6.lw_prep_plain(*a64)
+    src_atol = 2e-5 * max(float(r.abs().max()) for r in ref[1:])
+    for name, g, r, r64, rtol, atol in zip(("trans", "src_dn", "src_up", "sfc_src"), got, ref,
+                                           ref64, (2e-5, 0, 0, 0), (1e-7,) + (src_atol,) * 3):
+        assert g.is_cuda and g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        assert hold_kernel(g, r, r64, rtol, atol)["ok"], name
+    fk, fp = lw_broadband_sweeps(*got[:3], emis, got[3]), lw_broadband_sweeps(*ref[:3], emis, ref[3])
+    assert _maxabs(fk.flux_up, fp.flux_up) <= LW_ATOL and _maxabs(fk.flux_dn, fp.flux_dn) <= LW_ATOL
+
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_prep_core_on_cuda_matches_float64_cpu(dev, top_at_1):
+    """_lw_core_prep on CUDA launches K6 once and no other kernel, and
+    agrees with itself in float64 on the CPU and with the fused driver."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+
+    data = rfmip_data_from_arrays(synthesize_rfmip(29, 11, seed=62, top_at_1=top_at_1))
+    spec = planck.lw_spectral_g128()
+    cpu, f64 = torch.device("cpu"), torch.float64
+    lw64, lw = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64), load_model_netcdf(LW_MODEL, device=dev)
+    t64 = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=cpu, dtype=f64)
+    ref = rfmip._lw_core_prep([lw64], t64, spec, *rfmip.lw_staged_inputs(data, spec, cpu, f64),
+                              top_at_1=top_at_1)
+    before = (k6.LAUNCHES, k1.LAUNCHES, k7.LAUNCHES, sum(mlp.LAUNCHES.values()))
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    got = rfmip._lw_core_prep([lw], table, spec, *rfmip.lw_staged_inputs(data, spec, dev),
+                              top_at_1=top_at_1)
+    torch.cuda.synchronize()
+    after = (k6.LAUNCHES, k1.LAUNCHES, k7.LAUNCHES, sum(mlp.LAUNCHES.values()))
+    assert after == (before[0] + 1,) + before[1:]
+    fused = rfmip.rfmip_clear_sky_lw(data, [lw], device=dev)
+    for n in ("flux_up", "flux_dn", "flux_net"):
+        assert getattr(got, n).is_cuda
+        assert _maxabs(getattr(got, n), getattr(ref, n)) <= LW_ATOL, n
+        assert _maxabs(getattr(got, n), getattr(fused, n)) <= LW_ATOL, n
+
+
+@pytest.mark.parametrize("band", ["lw", "sw", "allsky_lw", "allsky_sw"])
+def test_parallel_scan_requests_on_cuda(dev, tmp_path, band):
+    """scan_mode="parallel" on CUDA: the RFMIP and all-sky drivers take the
+    general cores (K3 / K5 for the NN step; K7 only where the solve is
+    broadband) and agree with the sequential request."""
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky import allsky_lw, allsky_sw
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+
+    lw, sw = load_model_netcdf(LW_MODEL, device=dev), load_model_netcdf(SW_MODEL, device=dev)
+    data = rfmip_data_from_arrays(synthesize_rfmip(29, 11, seed=63))
+    if band.startswith("allsky"):
+        paths = _write_allsky_files(tmp_path, 12, "lut", True)
+    calls = {
+        "lw": lambda **kw: rfmip.rfmip_clear_sky_lw(data, [lw], device=dev, **kw),
+        "sw": lambda **kw: rfmip.rfmip_clear_sky_sw(data, [sw, sw], device=dev, **kw),
+        "allsky_lw": lambda **kw: allsky_lw(paths["garand"], paths["lw"], [lw], ncol=9, device=dev, **kw),
+        "allsky_sw": lambda **kw: allsky_sw(paths["garand"], paths["sw"], [sw, sw], ncol=9, device=dev, **kw),
+    }
+    seq = calls[band]()
+    before = (k1.LAUNCHES, k2.LAUNCHES, mlp.LAUNCHES["fused_predict_lw_both"],
+              mlp.LAUNCHES["fused_predict_sw"], k7.LAUNCHES)
+    par = calls[band](scan_mode="parallel")
+    torch.cuda.synchronize()
+    after = (k1.LAUNCHES, k2.LAUNCHES, mlp.LAUNCHES["fused_predict_lw_both"],
+             mlp.LAUNCHES["fused_predict_sw"], k7.LAUNCHES)
+    added = tuple(a - b for a, b in zip(after, before))
+    assert added == {"lw": (0, 0, 1, 0, 1), "sw": (0, 0, 0, 1, 0), "allsky_lw": (0, 0, 1, 0, 0),
+                     "allsky_sw": (0, 0, 0, 1, 0)}[band]
+    atol = LW_ATOL if band.endswith("lw") else SW_ATOL
+    for n in ("flux_up", "flux_dn"):
+        assert _maxabs(getattr(par, n), getattr(seq, n)) <= atol, n
+
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_lut_gas_optics_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
+    """The lookup-table gas optics on CUDA with rte_lw (K7 per angle,
+    optimal angles, the two-stream solver after a cloud increment) and
+    rte_sw behind it, against the same calls in float64 on the CPU, at 60
+    layers: on coarser grids the float32 no-scattering solve itself (the
+    source factor (1 - T)/tau - T near its series threshold) is about as
+    far from float64 as the 2e-3 W/m2 bound, on the CPU too."""
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    cpu = torch.device("cpu")
+    ref = testing.lut_reference_fluxes(str(tmp_path), 9, 60, seed=64, top_at_1=top_at_1,
+                                       device=cpu, dtype=torch.float64)
+    cpu32 = testing.lut_reference_fluxes(str(tmp_path), 9, 60, seed=64, top_at_1=top_at_1,
+                                         device=cpu, dtype=torch.float32)
+    n7 = k7.LAUNCHES
+    got = testing.lut_reference_fluxes(str(tmp_path), 9, 60, seed=64, top_at_1=top_at_1,
+                                       device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == n7 + 5  # 1 + 3 angles + the optimal-angle solve
+    assert set(got) == set(ref)
+    # float32 two-stream coefficients lose accuracy as 1/|k*mu0 - 1| near the
+    # SW resonance: a column is held within max(2e-2, 4e-3 / its distance)
+    sw_atol = torch.clamp_min(4e-3 / ref["sw_resonance"], SW_ATOL)[:, None]
+    for name, g in got.items():
+        assert g.is_cuda and bool(torch.isfinite(g).all()), name
+        err = (g.double().cpu() - ref[name]).abs()
+        if name == "hr_lw":  # K/day: 2e-3 W/m2 across the thinnest layer is ~1 K/day
+            assert float(err.max()) <= 1.0, name
+        elif name.startswith("sw_"):
+            assert name == "sw_resonance" or bool((err <= sw_atol).all()), name
+        else:
+            # the two-stream LW source divides by tau and is ill-conditioned in
+            # float32 for thin layers, on any device: where the CPU's float32
+            # run is itself beyond the bound, twice its distance from float64
+            # is the yardstick (testing.FLOAT32_SPREAD)
+            own = float((cpu32[name].double() - ref[name]).abs().max())
+            assert float(err.max()) <= max(LW_ATOL, testing.FLOAT32_SPREAD * own), name

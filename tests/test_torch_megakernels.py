@@ -194,6 +194,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
             sigs[name] = (ret.strip(), types_)
     assert set(sigs) == {"lw_clearsky_mega4_launch", "lw_clearsky_mega4_smem_bytes",
                          "sw_clearsky_megakernel_launch", "sw_clearsky_megakernel_smem_bytes",
+                         "lw_prep_launch",
                          "mlp_predict_launch", "lw_noscat_broadband_launch",
                          "rte_cuda_error_string"}
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
@@ -230,7 +231,8 @@ def _c_struct_fields(name):
     return fields
 
 
-@pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs"])
+@pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs",
+                                  "LwPrepArgs"])
 def test_ctypes_structs_mirror_the_c_structs(name):
     """The fused kernels' launch entries read their arguments from structs;
     build.py's ctypes mirror of each has the C declaration's fields, in its

@@ -111,8 +111,9 @@ def test_solar_source():
     np.testing.assert_allclose(src, jrfmip.default_solar_source(jplanck.sw_spectral_g112()))
     assert src.sum() == pytest.approx(1360.85)
     np.testing.assert_array_equal(prfmip.resolve_solar_source(spec), src)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        prfmip.resolve_solar_source(spec, kdist=object())
+    # an object without solar terms (a LW k-distribution) is no solar source
+    np.testing.assert_array_equal(prfmip.resolve_solar_source(spec, kdist=object()), src)
+    np.testing.assert_allclose(prfmip.resolve_solar_source(spec, tsi=1000.0).sum(), 1000.0)
 
 
 def test_read_rfmip_classic_netcdf(tmp_path):
@@ -224,6 +225,33 @@ def test_staged_paths_without_megakernel(models, jtable, core):
     assert (got.flux_dn.numpy()[~usecol] == 0.0).all()
 
 
+@pytest.mark.parametrize("top_at_1", [True, False])
+@pytest.mark.parametrize("band", ["lw", "lw_3_angles", "sw"])
+def test_parallel_scan_drivers_match_jax(models, jtable, band, top_at_1):
+    """scan_mode="parallel" through the drivers takes the general cores, as
+    in the JAX package, and agrees with it and with the sequential
+    request."""
+    d = synthesize_rfmip(NCOL, NLAY, seed=29, top_at_1=top_at_1)
+    jd, pd = rfmip_pair(d)
+    if band == "sw":
+        jm, pm = models["sw"]
+        ref = jrfmip.rfmip_clear_sky_sw(jd, jm, scan_mode="parallel")
+        got = prfmip.rfmip_clear_sky_sw(pd, pm, scan_mode="parallel", device="cpu")
+        seq = prfmip.rfmip_clear_sky_sw(pd, pm, device="cpu")
+        names, atol = ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"), SW_ATOL
+        assert (got.flux_dn.numpy()[d["sza"] >= 90.0] == 0.0).all()
+    else:
+        kw = dict(n_gauss_angles=3) if band == "lw_3_angles" else {}
+        jm, pm = models["lw"]
+        ref = jrfmip.rfmip_clear_sky_lw(jd, jm, planck_table=jtable, scan_mode="parallel", **kw)
+        got = prfmip.rfmip_clear_sky_lw(pd, pm, scan_mode="parallel", device="cpu", **kw)
+        seq = prfmip.rfmip_clear_sky_lw(pd, pm, device="cpu", **kw)
+        names, atol = ("flux_up", "flux_dn", "flux_net"), LW_ATOL
+    _check(got, ref, names, atol)
+    for n in names:
+        np.testing.assert_allclose(getattr(got, n).numpy(), getattr(seq, n).numpy(), atol=atol)
+
+
 # request -> route on CUDA, decided before any tensor reaches the card
 _ROUTES = {
     "lw_default": (dict(lw=True), "megakernel"),
@@ -238,8 +266,11 @@ _ROUTES = {
     "sw_megakernel_off": (dict(cfg=dict(use_megakernel=False)), "staged"),
     "lw_two_models": (dict(lw=True, models="lw_pair"), "staged"),
     "lw_gauss_angles": (dict(lw=True, n_gauss_angles=3), "staged"),
-    "lw_parallel_scan": (dict(lw=True, scan_mode="parallel"), "refuse"),
-    "sw_parallel_scan": (dict(scan_mode="parallel"), "refuse"),
+    "lw_parallel_scan": (dict(lw=True, scan_mode="parallel"), "staged"),
+    "sw_parallel_scan": (dict(scan_mode="parallel"), "staged"),
+    "sw_parallel_relu": (dict(scan_mode="parallel", models="relu_sw"), "staged"),
+    "lw_parallel_float64": (dict(lw=True, scan_mode="parallel", dtype=torch.float64), "refuse"),
+    "sw_parallel_too_deep": (dict(scan_mode="parallel", models="deep_sw"), "refuse"),
     "lw_float64": (dict(lw=True, dtype=torch.float64), "refuse"),
     "sw_float64": (dict(dtype=torch.float64), "refuse"),
     "lw_too_wide": (dict(lw=True, models="wide_lw"), "refuse"),
@@ -251,10 +282,10 @@ _ROUTES = {
 def test_cuda_requests_raise_instead_of_plain_fallback(models, request_name):
     """On CUDA the drivers run kernels or raise; the route is taken by the
     dispatch before any tensor reaches the card, so it is checked here
-    without one. What raised before this slice now takes the staged path
-    with the MLP and transport kernels; parallel scans, float64, and nets
-    the MLP kernel does not take still raise, and the drivers raise with
-    the dispatch's reason."""
+    without one. Everything the fused kernels do not take (parallel scans
+    included) goes the staged path with the MLP and transport kernels; only
+    float64 and nets the MLP kernel does not take raise, and the drivers
+    raise with the dispatch's reason."""
     net = lambda dims, acts: nn_model_from_arrays(*random_arrays(dims, acts, 0), device=CPU)
     nets = {
         "relu_lw": [net((18, 8, 8, 256), ("relu", "relu", "linear"))],
@@ -298,6 +329,12 @@ _OFF_CPU = {
                 {"fused_predict_lw_both": 1}, 0),
     "sw_megakernel_off": (dict(), dict(use_megakernel=False), {"fused_predict_sw": 1}, 0),
     "sw_fast_exp": (dict(models="relu_sw"), dict(fast_exponential=True), {"fused_predict_sw": 1}, 0),
+    # a parallel-scan LW request solves broadband, which does not read the
+    # scan mode: the transport kernel still runs, once per angle
+    "lw_parallel": (dict(lw=True, scan_mode="parallel"), {}, {"fused_predict_lw_both": 1, "k7": 1}, 0),
+    "lw_parallel_2_angles": (dict(lw=True, scan_mode="parallel", n_gauss_angles=2), {},
+                             {"fused_predict_lw_both": 1, "k7": 2}, 0),
+    "sw_parallel": (dict(scan_mode="parallel"), {}, {"fused_predict_sw": 1}, 0),
 }
 
 
@@ -360,14 +397,38 @@ def test_staged_drivers_off_the_cpu_launch_kernels_never_twins(models, monkeypat
 
 
 def test_requests_still_to_be_ported_raise():
-    """Two-stream rte_lw and the solar source from a k-distribution raise
-    on any device, naming the ROADMAP item that ports them."""
+    """Nothing the JAX package serves is refused any more: n-stream rte_lw
+    raises as the JAX one (and the reference) does, in its words; two-stream
+    rte_lw solves; no module of the port names open porting work in an
+    error."""
+    from rte_rrtmgp_nn_tpu import optical_props as jop
+    from rte_rrtmgp_nn_tpu import rte as jrte
+    from rte_rrtmgp_nn_tpu.spectral import SpectralMapping as JSM
+    from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalPropsNstr
+    from rte_rrtmgp_nn_tpu_torch.sources import SourceFuncLW
+
     spec = sw_spectral_g112()
     z = torch.zeros((2, 3, spec.ngpt))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        rte_lw(OpticalProps2str(z, z, z, spec), True, None, torch.zeros((2, spec.nband)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        prfmip.resolve_solar_source(spec, kdist=object())
+    words = r"rte_lw\(\.\.\.nstr\.\.\.\) not yet implemented"
+    with pytest.raises(NotImplementedError, match=words):
+        rte_lw(OpticalPropsNstr(z, z, z[None], spec), True, None, torch.zeros((2, spec.nband)))
+    import jax.numpy as jnp
+
+    jz = jnp.zeros((2, 3, spec.ngpt))
+    jspec = JSM.create(np.asarray(spec.band_lims_gpt), spec.band_lims_wvn_array)
+    with pytest.raises(NotImplementedError, match=words):
+        jrte.rte_lw(jop.OpticalPropsNstr(jz, jz, jz[None], jspec), True, None,
+                    jnp.zeros((2, spec.nband)))
+    src = SourceFuncLW(z, torch.zeros((2, 4, spec.ngpt)), z[:, 0], z[:, 0], spec)
+    sol = rte_lw(OpticalProps2str(z + 0.1, z, z, spec), True, src, torch.ones((2, spec.nband)))
+    assert tuple(sol.flux_up.shape) == (2, 4, spec.ngpt) and not sol.flux_up.any()
+    pkg = os.path.join(REPO, "rte_rrtmgp_nn_tpu_torch")
+    for root, _, names in os.walk(pkg):
+        for name in names:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                assert "still to be ported" not in text and "ROADMAP Queue 1" not in text, name
 
 
 def test_staged_path_honors_numerics_flags(models, jtable):
