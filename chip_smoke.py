@@ -81,14 +81,25 @@ non-zero and prints no result line):
      two-stream and the rescaled solve after a cloud increment) and
      gas_optics_sw_lut -> rte_sw at 1800 x 60, each stage timed; SW TOA down
      = sum(solar) * mu0; the LW heating rate; then 64 columns on the card
-     against the same calls in float64 on the CPU.
+     against the same calls in float64 on the CPU;
+ 18. the fused kernels' geometry: K1 and K2 in all four modes at two ragged
+     sizes (37 columns x 13 and x 61 layers: no layer group and no MLP pass
+     of the kernels is full) against their twins; each mode's launch plan
+     (threads, shared memory), what ptxas reported for it (registers, spill)
+     and the blocks per SM the CUDA runtime's occupancy call gives for the
+     loaded function; K2's time at a quarter, half and all of the layers
+     (7200 columns, so that the card and not the host is read), for the
+     share of its time that grows with the layers (the coefficients, the
+     sweeps and the level sums: the nets run one pass at all three).
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
 path, or for K8 and K9 a core or the wrapper, since no driver reaches
 them), its error against the twin, its time, the twin's, and the
 least time the card could take (``bound_ms``: bytes moved once over 3.35
-TB/s, or operations over 67 TFLOP/s float32, whichever is larger).
+TB/s, or operations over 67 TFLOP/s float32, whichever is larger); the fused
+kernels' entries also have ``threads``, ``smem_bytes``, ``blocks_per_sm``,
+``registers`` and ``spill_bytes``.
 
 The models are the repository's in-repo stand-ins (artifacts/): the g-128
 LW demo net; the g-112 SW absorption demo net, used as both the absorption
@@ -1028,6 +1039,118 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
     return launches, timers
 
 
+def mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec, sw_spec, solar) -> dict:
+    """{name: (wrapper, plain twin, args, keywords, tolerance in W/m2)} of K1
+    and K2 in their four modes (K8 and K9 are the lane modes) on one
+    atmosphere synthesized from SEED, with the all-sky driver's clouds."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
+
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, SEED, top_at_1=True))
+    lw_in = rfmip.lw_canonical_inputs(data, lw_spec, dev)
+    sw_in = rfmip.sw_canonical_inputs(data, dev)
+    play_t, plev_t, tlay_t, _, _, _, _, concs_t = sw_in
+    mu0 = torch.full((ncol,), ALLSKY_MU0, device=dev)
+    alb = torch.full((ncol, sw_spec.nband), 0.06, device=dev)
+    lw, lwp = k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain
+    sw, swp = k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain
+    sargs = rfmip.sw_mega_args([sw_model, sw_model], solar, *sw_in)
+    lanes = [l.contiguous() for l in sargs[2].unbind(-1)]
+    cases = {
+        "k1": (lw, lwp, rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in), {}, LW_ATOL),
+        "k2": (sw, swp, sargs, {}, SW_ATOL),
+        "k8": (k1.lw_clearsky_mega5, k1.lw_clearsky_mega5_plain,
+               rfmip.lw_mega5_args([lw_model], table, lw_spec, *lw_in), {}, LW_ATOL),
+        "k9": (sw, swp, sargs[:2] + (lanes,) + sargs[3:], dict(input_mode="lanes"), SW_ATOL),
+    }
+    for flavour, mode in (("lut", "cld_lut"), ("pade", "cld_bands")):
+        lw_co = synthetic_cloud_optics(lw_spec, flavour, dev)
+        sw_co = synthetic_cloud_optics(sw_spec, flavour, dev)
+        cld = allsky.cloud_fields_lay_major(data.play, data.tlay, lw_co, True, dev)
+        cases[f"k1_{mode}"] = (lw, lwp, *allsky.allsky_lw_mega_args(
+            [lw_model], table, lw_spec, lw_co, *lw_in[:6], *cld, lw_in[6]), LW_ATOL)
+        cases[f"k2_{mode}"] = (sw, swp, *allsky.allsky_sw_mega_args(
+            [sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
+            *cld, concs_t), SW_ATOL)
+    return cases
+
+
+MODE_OF = {"k1": "clear", "k2": "clear", "k8": "lanes", "k9": "lanes", "k1_cld_lut": "cld_lut",
+           "k2_cld_lut": "cld_lut", "k1_cld_bands": "cld_bands", "k2_cld_bands": "cld_bands"}
+
+
+def geometry_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar, lw_args,
+                   sw_args) -> dict:
+    """Phase 18: K1 and K2, every mode, at ragged sizes against their twins;
+    each mode's launch plan, ptxas counts and resident blocks per SM at the
+    full size; K2's time against the number of layers. Returns the geometry
+    entry per kernel."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    cases = lambda ncol, nlay: mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec,
+                                          sw_spec, solar)
+    for nlay in (13, 61):
+        worst = {}
+        for name, (fn, twin, args, kw, tol) in cases(37, nlay).items():
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ref = twin(*args, **kw)
+            require(all(bool(torch.isfinite(o).all()) and tuple(o.shape) == (37, nlay + 1)
+                        for o in got), f"{name} at 37x{nlay}: output not finite or misshapen")
+            worst[name] = max(maxabs(a, b) for a, b in zip(got, ref))
+            require(worst[name] <= tol, f"{name} at 37x{nlay} differs from its twin by "
+                                        f"{worst[name]:.3e} W/m2 (tol {tol})")
+        print(f"ragged 37x{nlay}, max|kernel-twin| W/m2 (tol LW {LW_ATOL}, SW {SW_ATOL}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    lw_net, sw_net = lw_model.dims, sw_model.dims
+    plans = {"k1": k1.launch_plan(NLAY, lw_args[1].shape[-1], lw_net[1], lw_net[2], lw_spec.ngpt),
+             "k2": k2.launch_plan(NLAY, sw_args[2].shape[-1], sw_net[1], sw_net[2], sw_spec.ngpt)}
+    geometry = {}
+    for name, mode in MODE_OF.items():
+        lw_kernel = name.startswith(("k1", "k8"))
+        plan = plans["k1" if lw_kernel else "k2"]
+        res = build.kernel_resources("lw_mega_kernel" if lw_kernel else "sw_mega_kernel",
+                                     k1.MODE_CODES[mode])
+        require(bool(res), f"{name}: the build's ptxas output has no entry for this kernel mode")
+        blocks = build.blocks_per_sm("lw_clearsky_mega4" if lw_kernel else "sw_clearsky_megakernel",
+                                     plan, k1.MODE_CODES[mode], dev.index)
+        require(blocks >= 1, f"{name}: the runtime keeps no block of this plan on an SM")
+        geometry[name] = {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                          "blocks_per_sm": blocks, **res}
+        print(f"geometry {name}: {plan.threads} threads in {plan.groups} layer groups of "
+              f"{plan.layers_per_group} layers, {plan.smem_bytes} B of shared memory (weight slabs "
+              f"2 x {4 * plan.slab_floats} B), {res['registers']} registers, {res['spill_bytes']} B "
+              f"spill, {blocks} block(s) per SM by the runtime's occupancy call")
+    # K2 against the number of layers. Up to 64 layers every layer group runs
+    # its nets as one pass of kMegaRows rows, so what grows with nlay is the
+    # coefficients (nlay / 4 per thread), the sweeps (nlay per thread) and
+    # the level sums; twice the layers do not fit the shared memory. At four
+    # times the columns, so that the card takes longer over a quarter of the
+    # layers than the host takes to queue the call.
+    ms, ncol = {}, 4 * NCOL
+    for nlay in (NLAY // 4, NLAY // 2, NLAY):
+        fn, _, args, kw, _ = cases(ncol, nlay)["k2"]
+        ms[nlay] = cuda_ms(lambda: fn(*args, **kw))
+    lo, mid = NLAY // 4, NLAY // 2
+    per_layer = (ms[NLAY] - ms[lo]) / (NLAY - lo)
+    off_line = ms[mid] - (ms[lo] + per_layer * (mid - lo))
+    print("layers k2: " + ", ".join(f"{v:.4f} ms at {ncol}x{k}" for k, v in ms.items())
+          + f"; {per_layer * 1e3:.3f} us per layer ({off_line:+.4f} ms off the line at {mid}), "
+          f"so {per_layer * NLAY / ms[NLAY]:.4f} of the time at {NLAY} layers grows with the "
+          f"layers (coefficients, sweeps, level sums: the sweeps' share is below it) | {card}")
+    require(ms[lo] < ms[mid] < ms[NLAY], "K2 is not slower with more layers")
+    return geometry
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
@@ -1566,6 +1689,11 @@ def run() -> dict:
 
     # ---- 17. the lookup-table gas optics ---------------------------------------------
     timed.update(lut_phase(dev, card))
+
+    # ---- 18. the fused kernels' geometry ------------------------------------------------
+    for k, g in geometry_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar,
+                               lw_args, sw_args).items():
+        results[k].update(g)
 
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])

@@ -1,13 +1,21 @@
-// Device helpers shared by the fused clear-sky kernels (lw_megakernel.cu,
-// sw_megakernel.cu): the 3-layer softsign MLP evaluated for a few layers of
-// one column at a time, the totplnk interpolation, and the per-level
-// spectral sums.
+// Device helpers shared by the fused kernels (lw_megakernel.cu,
+// sw_megakernel.cu, lw_prep.cu): the 3-layer softsign MLP evaluated for a few
+// layers of one column at a time, the totplnk interpolation, and the
+// per-level spectral sums.
 //
 // Layout rules: one thread block per column, one thread per g-point
 // (kThreads >= ngpt; threads at g >= ngpt only help with the MLP hidden
 // layers and the reductions). Weights are (n_in, n_out) row-major in device
 // memory and are read through the cache: neighbouring threads read
 // neighbouring output columns, so every weight load is coalesced.
+//
+// Two MLP evaluations live here. mlp_hidden / mlp_out (lw_prep.cu) keep
+// kRows rows row-major in shared memory: one weight load and kRows scalar
+// shared-memory loads per kRows multiply-adds. The tiled one (lw_megakernel.cu,
+// sw_megakernel.cu; "the tiled MLP" below) keeps kMegaRows rows k-major, so
+// that a thread reads its rows of one k as float4s that the whole warp
+// shares, and gives each thread a register tile of rows x output columns:
+// 16 to 32 multiply-adds for 3 load instructions.
 //
 // Arithmetic is IEEE float32, compiled without --use_fast_math (expf, '/'
 // and sqrtf correctly rounded), with one exception: the SW kernel's
@@ -110,6 +118,14 @@ __device__ inline void mlp_out(const Mlp3& m, const float* s_h2, int o, float y[
   for (int r = 0; r < kRows; ++r) y[r] = acc[r] + b;
 }
 
+// a / b for finite b > 0, the IEEE quotient. The divide's straight-line code
+// is for operands in the normal range; a zero numerator sends the whole warp
+// through its slow path, and in cloud-free cells the numerators of the SW
+// cloud combine are zero (measured: 8% of that mode's time).
+__device__ __forceinline__ float div_or_zero(float a, float b) {
+  return a != 0.0f ? (a != 0.0f ? a : 1.0f) / b : a;
+}
+
 // (ystd*y + ymean)**8: the optical-depth postprocessing before col_dry.
 __device__ __forceinline__ float tau_post(float y, float ystd, float ymean) {
   const float yt = ystd * y + ymean;
@@ -149,28 +165,6 @@ struct LaneList {
 // A kernel instance takes the lane list and the cloud tables among its
 // arguments only in the mode that reads them; the others take this instead.
 struct Unused {};
-
-// load_rows for one array per feature. With ``scale`` (2, n_in) =
-// [min; 1/(max - min)] the lanes are raw: transform by code, then
-// (x - min) * inv. Without it they are already scaled. No barrier.
-__device__ inline void load_rows_lanes(const LaneList& lanes, const float* scale, int l0, int nlay,
-                                       int ncol, int col, int n_in, float* s_x) {
-  for (int i = threadIdx.x; i < kRows * n_in; i += blockDim.x) {
-    const int r = i / n_in, k = i - r * n_in;
-    const int l = l0 + r;
-    float v = 0.0f;
-    if (l < nlay) {
-      v = lanes.p[k][(size_t)l * ncol + col];
-      if (scale != nullptr) {
-        const int code = lanes.code[k];
-        if (code == 1) v = logf(v);
-        else if (code == 2) v = sqrtf(sqrtf(v));
-        v = (v - __ldg(scale + k)) * __ldg(scale + n_in + k);
-      }
-    }
-    s_x[i] = v;
-  }
-}
 
 // Cloud-optics lookup tables, one per phase: (nsize, 3 * nband) rows of
 // [extinction | single-scattering albedo | asymmetry] on an even grid of
@@ -230,17 +224,409 @@ __device__ __forceinline__ float planck_interp(const PlanckTab& p, float t, int 
 }
 
 // out[r] = scale * sum_g s_f[r, g] (+ add[r]) for r < nrow: one warp per
-// row, fixed summation order. The caller places a barrier before (s_f
-// complete) and after (if out is shared memory read by others).
+// row, kSumRows rows of a warp at a time so that their loads and shuffle
+// chains overlap; each row's sum has the same fixed order whatever the block
+// size. The caller places a barrier before (s_f complete) and after (if out
+// is shared memory read by others).
+constexpr int kSumRows = 4;
 __device__ inline void level_sums(const float* s_f, int nrow, int ngpt, float scale,
                                   const float* add, float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
-  for (int r = warp; r < nrow; r += nwarp) {
-    float acc = 0.0f;
-    for (int g = lane; g < ngpt; g += 32) acc += s_f[r * ngpt + g];
+  for (int r0 = warp; r0 < nrow; r0 += kSumRows * nwarp) {
+    // rows past nrow repeat the last row and store nothing
+    const float* row[kSumRows];
+    float acc[kSumRows];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[r] = acc * scale + (add ? add[r] : 0.0f);
+    for (int u = 0; u < kSumRows; ++u) {
+      row[u] = s_f + min(r0 + u * nwarp, nrow - 1) * ngpt;
+      acc[u] = 0.0f;
+    }
+    for (int g = lane; g < ngpt; g += 32) {
+#pragma unroll
+      for (int u = 0; u < kSumRows; ++u) acc[u] += row[u][g];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kSumRows; ++u) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kSumRows; ++u) {
+        const int r = r0 + u * nwarp;
+        if (r < nrow) out[r] = acc[u] * scale + (add ? add[r] : 0.0f);
+      }
+    }
+  }
+}
+
+// ---- the tiled MLP ---------------------------------------------------------
+//
+// A block of the fused kernels is a few layer groups of kGroup threads; each
+// group takes a contiguous share of the column's layers through the MLP,
+// kMegaRows layers per pass, with scratch of its own. Activations are
+// k-major in shared memory, s[k * kRowStride + row]: the kRowPad floats
+// between two k keep the float4 stores of neighbouring output columns on
+// different banks, and the loads are broadcasts (every thread of a warp reads
+// the same rows). A thread holds a register tile of rows x neighbouring
+// output columns: kTileR x kTileC in the hidden layers (one float2 weight
+// load and two float4 activation loads for 16 multiply-adds), kOutR x kOutC
+// in the last layer (one float4 weight load, 32 multiply-adds), sized so that
+// all 128 threads of a group hold a tile. The path from shared memory or L1
+// to the registers delivers 32 words a clock to an SM, broadcast or not, so
+// a tile of R x C costs R + C words per k for R * C multiply-adds: larger
+// tiles load less, but they leave warps without work, and on an H100 the
+// warps in flight count for more (scripts/tune_megakernel_tiles.py, PERF.md).
+// Every output's sum runs over k in ascending order in one accumulator with
+// fmaf, as mlp_hidden / mlp_out do and as cuBLAS rounds.
+constexpr int kGroup = 128;    // threads of one layer group: one per g-point
+constexpr int kMaxGroups = 4;  // layer groups of a block: at most 512 threads
+constexpr int kMegaRows = 16;  // layers per MLP pass of a group
+constexpr int kRowPad = 4;
+constexpr int kRowStride = kMegaRows + kRowPad;  // floats from one k to the next
+constexpr int kTileR = 8;   // hidden layers: rows of a thread's register tile
+constexpr int kTileC = 2;   //                output columns of it
+constexpr int kOutR = 8;    // last layer: rows of a thread's register tile
+constexpr int kOutC = 4;    //             output columns of it (one float4 weight load)
+
+// Threads per block, layer groups, layers per group, layers per MLP pass and
+// dynamic shared memory of a fused kernel's launch, decided by launch_plan in
+// ops/cuda/lw_megakernel.py / sw_megakernel.py (ops/cuda/build.py mirrors the
+// struct) and checked again by the launch entries.
+struct MegaPlan {
+  int threads, groups, layers_per_group, rows_per_pass, smem_bytes;
+  int slab_floats;  // of one of the two weight buffers (0: weights read through the cache)
+};
+
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// What every launch entry holds a plan to, whatever the kernel: returns
+// false if the plan's geometry is not one the kernels are compiled for.
+inline bool plan_geometry_ok(const MegaPlan& p, int nlay, int ngpt, size_t smem) {
+  return p.groups >= 1 && p.groups <= kMaxGroups && p.threads == p.groups * kGroup &&
+         p.rows_per_pass == kMegaRows && p.layers_per_group >= 1 &&
+         (long long)p.layers_per_group * p.groups >= nlay && ngpt >= 1 && ngpt <= kGroup &&
+         smem == (size_t)p.smem_bytes && smem <= (size_t)kMaxSmem;
+}
+
+// Barrier of one layer group (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(kGroup) : "memory");
+}
+
+// Rows [l0, l0 + kMegaRows) of x (nlay, ncol, n_in) for column col into
+// s_x[k][row]; rows at or past lend repeat row lend - 1, so that every row of
+// the pass computes on real values and only the stores are guarded. No
+// barrier.
+__device__ inline void load_rows_kmajor(const float* x, int l0, int lend, int ncol, int col,
+                                        int n_in, float* s_x, int gtid) {
+  for (int i = gtid; i < kMegaRows * n_in; i += kGroup) {
+    const int r = i / n_in, k = i - r * n_in;
+    const int l = min(l0 + r, lend - 1);
+    s_x[k * kRowStride + r] = x[((size_t)l * ncol + col) * n_in + k];
+  }
+}
+
+// load_rows_kmajor for one array per feature. With ``scale`` (2, n_in) =
+// [min; 1/(max - min)] the lanes are raw: transform by code, then
+// (x - min) * inv. Without it they are already scaled.
+__device__ inline void load_rows_lanes_kmajor(const LaneList& lanes, const float* scale, int l0,
+                                              int lend, int ncol, int col, int n_in, float* s_x,
+                                              int gtid) {
+  for (int i = gtid; i < kMegaRows * n_in; i += kGroup) {
+    const int k = i / kMegaRows, r = i - k * kMegaRows;
+    const int l = min(l0 + r, lend - 1);
+    float v = lanes.p[k][(size_t)l * ncol + col];
+    if (scale != nullptr) {
+      const int code = lanes.code[k];
+      if (code == 1) v = logf(v);
+      else if (code == 2) v = sqrtf(sqrtf(v));
+      v = (v - __ldg(scale + k)) * __ldg(scale + n_in + k);
+    }
+    s_x[k * kRowStride + r] = v;
+  }
+}
+
+// C neighbouring weights of row k: one vector load where the row length and
+// the base address allow it (kVec), else scalar loads with columns at or
+// past n_out read as 0. kLdg: the row is in device memory and is read
+// through the read-only cache; else it is in a shared-memory slab.
+template <int C, bool kVec, bool kLdg>
+__device__ __forceinline__ void load_weights(const float* __restrict__ wk, int c0, int n_out,
+                                             float (&w)[C]) {
+  if constexpr (kVec && C == 2) {
+    const float2* q = reinterpret_cast<const float2*>(wk + c0);
+    const float2 v = kLdg ? __ldg(q) : *q;
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (kVec && C == 4) {
+    const float4* q = reinterpret_cast<const float4*>(wk + c0);
+    const float4 v = kLdg ? __ldg(q) : *q;
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      w[c] = c0 + c < n_out ? (kLdg ? __ldg(wk + c0 + c) : wk[c0 + c]) : 0.0f;
+  }
+}
+
+// R rows of one k as float4s (s points at the tile's first row of k = 0).
+template <int R>
+__device__ __forceinline__ void load_rows_of_k(const float* s, int k, float (&x)[R]) {
+  const float4* p = reinterpret_cast<const float4*>(s + k * kRowStride);
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const float4 v = p[q];
+    x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z; x[4 * q + 3] = v.w;
+  }
+}
+
+// acc[c][r] += sum over k in [k0, k0 + kc) of s_in[k][r] * w[k - k0, c0 + c],
+// in ascending k: w points at row k0 of the weights (device memory if kLdg,
+// else a shared-memory slab that starts at row k0).
+template <int R, int C, bool kVec, bool kRank1, bool kLdg>
+__device__ __forceinline__ void tile_k_loop(const float* __restrict__ w, int k0, int kc, int n_out,
+                                            int c0, const float* s_in, float (&acc)[C][R]) {
+#pragma unroll 4
+  for (int k = 0; k < kc; ++k) {
+    float x[R], wv[C];
+    load_rows_of_k<R>(s_in, k0 + k, x);
+    load_weights<C, kVec, kLdg>(w + (size_t)k * n_out, c0, n_out, wv);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[c][r] = kRank1 ? __fadd_rn(acc[c][r], __fmul_rn(x[r], wv[c]))
+                           : fmaf(x[r], wv[c], acc[c][r]);
+  }
+}
+
+// A tile's accumulators before the k loop, and its rows' activations after.
+template <int R, int C, bool kRank1>
+__device__ __forceinline__ void tile_begin(const float* __restrict__ bias, const float* s_hc,
+                                           int n_out, int c0, float (&acc)[C][R], float (&hc)[C],
+                                           float (&b)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = min(c0 + c, n_out - 1);
+    hc[c] = s_hc != nullptr ? s_hc[j] : 0.0f;
+    b[c] = __ldg(bias + j);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[c][r] = kRank1 ? hc[c] + b[c] : 0.0f;
+  }
+}
+
+template <int R, int C, bool kRank1>
+__device__ __forceinline__ void tile_end(const float (&acc)[C][R], const float (&hc)[C],
+                                         const float (&b)[C], bool has_hc, int n_out, int c0,
+                                         float* s_tile) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c0 + c >= n_out) break;
+    float4* out = reinterpret_cast<float4*>(s_tile + c * kRowStride);
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = acc[c][4 * q + i];
+        v[i] = softsign(kRank1 ? a : has_hc ? (a + hc[c]) + b[c] : a + b[c]);
+      }
+      out[q] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// One hidden layer for the kMegaRows rows of a pass: s_in[k][row] (n_in) ->
+// s_out[j][row] = softsign(sum_k s_in[k][row] * w[k, j] (+ s_hc[j]) + bias[j])
+// for j < n_out, by ``nthr`` threads of which this is number ``tid``: each
+// takes tiles of R rows x C neighbouring output columns. s_hc is the
+// per-column constant features' share of the first layer (mlp_const_part),
+// null for the second layer. kRank1 as in mlp_hidden. The caller places a
+// barrier before (s_in complete) and after (s_out read by others).
+template <int R, int C, bool kRank1>
+__device__ inline void mlp_layer_tiled(const float* __restrict__ w, const float* __restrict__ bias,
+                                       const float* s_hc, int n_in, int n_out, const float* s_in,
+                                       float* s_out, int tid, int nthr) {
+  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kMegaRows / R;
+  const int nct = (n_out + C - 1) / C;
+  const bool vec = n_out % C == 0 && (reinterpret_cast<size_t>(w) & (sizeof(float) * C - 1)) == 0;
+  for (int t = tid; t < nct * kRowTiles; t += nthr) {
+    const int rt = t / nct, c0 = (t - rt * nct) * C;
+    float acc[C][R], hc[C], b[C];
+    tile_begin<R, C, kRank1>(bias, s_hc, n_out, c0, acc, hc, b);
+    const float* s_rows = s_in + rt * R;
+    if (vec) tile_k_loop<R, C, true, kRank1, true>(w, 0, n_in, n_out, c0, s_rows, acc);
+    else tile_k_loop<R, C, false, kRank1, true>(w, 0, n_in, n_out, c0, s_rows, acc);
+    tile_end<R, C, kRank1>(acc, hc, b, s_hc != nullptr, n_out, c0,
+                           s_out + c0 * kRowStride + rt * R);
+  }
+}
+
+// The last layer (no activation) for the kMegaRows rows of a pass, by ``nthr``
+// threads of which this is number ``tid``: tiles of R rows x C neighbouring
+// output columns as in mlp_layer_tiled; ``end(row0, col, sums)`` takes the R
+// finished sums (before the bias) of output column ``col`` for the rows
+// row0.. of the pass. The caller places a barrier before (s_in complete).
+template <int R, int C, class End>
+__device__ __forceinline__ void mlp_last_tiled(const float* __restrict__ w, int n_in, int n_out,
+                                               const float* s_in, int tid, int nthr, End end) {
+  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kMegaRows / R;
+  const int nct = (n_out + C - 1) / C;
+  const bool vec = n_out % C == 0 && (reinterpret_cast<size_t>(w) & (sizeof(float) * C - 1)) == 0;
+  for (int t = tid; t < nct * kRowTiles; t += nthr) {
+    const int rt = t / nct, c0 = (t - rt * nct) * C;
+    float acc[C][R];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = 0.0f;
+    const float* s_rows = s_in + rt * R;
+    if (vec) tile_k_loop<R, C, true, false, true>(w, 0, n_in, n_out, c0, s_rows, acc);
+    else tile_k_loop<R, C, false, false, true>(w, 0, n_in, n_out, c0, s_rows, acc);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c0 + c < n_out) end(rt * R, c0 + c, acc[c]);
+  }
+}
+
+// ---- weights through shared memory -------------------------------------------
+//
+// The LW net's weights (206 KB) do not fit what a block's fields leave of
+// the SM's L1, so read through the cache every layer group streams them from
+// L2 again, and the k loops wait on those loads. Instead the whole block
+// copies each weight matrix once per pass, slab by slab (consecutive rows k,
+// contiguous in device memory), with cp.async into one of two shared-memory
+// buffers while every group computes on the other: one block barrier per
+// slab, and the k loops read weights at shared-memory latency.
+struct WeightStream {
+  float* buf;       // 2 x slab_floats, 16-byte aligned
+  int slab_floats;  // a multiple of 4
+  int cur;          // the buffer that holds (or is receiving) the slab consumed next
+};
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool bytes16) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes16) asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+  else asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+// Every thread of the block: start the copy of n floats at src into buffer
+// ``into``. 16-byte pieces where the address and the count allow.
+__device__ inline void stream_issue(const WeightStream& ws, int into, const float* src, int n) {
+  float* dst = ws.buf + into * ws.slab_floats;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0 && (n & 3) == 0) {
+    for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) cp_async(dst + i, src + i, true);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async(dst + i, src + i, false);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Rows of (n_in, n_out) weights that one slab holds, and the floats of the
+// first slab.
+__device__ __forceinline__ int slab_rows(const WeightStream& ws, int n_out) {
+  return ws.slab_floats / n_out;
+}
+__device__ __forceinline__ int first_slab_floats(const WeightStream& ws, int n_in, int n_out) {
+  return min(slab_rows(ws, n_out), n_in) * n_out;
+}
+
+// Walk the slabs of the weights w (n_in, n_out); every thread of the block
+// calls this, in the same order. On entry the first slab is on its way into
+// buffer ws.cur. Per slab: wait for it, block barrier (which also orders the
+// previous layer's activations before this layer's reads), start the copy of
+// the next slab into the other buffer (after the last slab: the first slab of
+// ``next``, the matrix the caller walks next, or nothing if null), then
+// body(slab, k0, kc) for the rows [k0, k0 + kc) it holds.
+template <class Body>
+__device__ __forceinline__ void stream_slabs(WeightStream& ws, const float* w, int n_in, int n_out,
+                                             const float* next, int next_n_in, int next_n_out,
+                                             Body body) {
+  const int ks = slab_rows(ws, n_out);
+  for (int k0 = 0; k0 < n_in; k0 += ks) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (k0 + ks < n_in)
+      stream_issue(ws, ws.cur ^ 1, w + (size_t)(k0 + ks) * n_out, min(ks, n_in - k0 - ks) * n_out);
+    else if (next != nullptr)
+      stream_issue(ws, ws.cur ^ 1, next, first_slab_floats(ws, next_n_in, next_n_out));
+    body(ws.buf + ws.cur * ws.slab_floats, k0, min(ks, n_in - k0));
+    ws.cur ^= 1;
+  }
+}
+
+// mlp_layer_tiled with the weights streamed through shared memory: called by
+// every thread of the block (tid, nthr: this thread's number among the
+// threads that share s_in / s_out, its layer group). Ends without a barrier:
+// the next stream_slabs places one.
+template <int R, int C, bool kRank1>
+__device__ inline void mlp_layer_staged(WeightStream& ws, const float* __restrict__ w,
+                                        const float* __restrict__ bias, const float* s_hc, int n_in,
+                                        int n_out, const float* s_in, float* s_out, int tid,
+                                        int nthr, const float* next, int next_n_in,
+                                        int next_n_out) {
+  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kMegaRows / R;
+  const int nct = (n_out + C - 1) / C, ntiles = nct * kRowTiles;
+  const bool vec = n_out % C == 0;
+  // a thread keeps one tile's sums across the slabs; more tiles than threads
+  // stream the weights again
+  for (int t0 = 0; t0 < ntiles; t0 += nthr) {
+    const int t = t0 + tid;
+    const bool has = t < ntiles;
+    const int rt = has ? t / nct : 0, c0 = has ? (t - rt * nct) * C : 0;
+    const bool last = t0 + nthr >= ntiles;
+    float acc[C][R], hc[C], b[C];
+    tile_begin<R, C, kRank1>(bias, s_hc, n_out, c0, acc, hc, b);
+    const float* s_rows = s_in + rt * R;
+    stream_slabs(ws, w, n_in, n_out, last ? next : w, last ? next_n_in : n_in,
+                 last ? next_n_out : n_out, [&](const float* slab, int k0, int kc) {
+                   if (!has) return;
+                   if (vec) tile_k_loop<R, C, true, kRank1, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                   else tile_k_loop<R, C, false, kRank1, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                 });
+    if (has)
+      tile_end<R, C, kRank1>(acc, hc, b, s_hc != nullptr, n_out, c0,
+                             s_out + c0 * kRowStride + rt * R);
+  }
+}
+
+// mlp_last_tiled with the weights streamed through shared memory: called by
+// every thread of the block, with its number among its layer group's
+// threads.
+template <int R, int C, class End>
+__device__ __forceinline__ void mlp_last_staged(WeightStream& ws, const float* __restrict__ w,
+                                                int n_in, int n_out, const float* s_in, int tid,
+                                                int nthr, const float* next, int next_n_in,
+                                                int next_n_out, End end) {
+  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kMegaRows / R;
+  const int nct = (n_out + C - 1) / C, ntiles = nct * kRowTiles;
+  const bool vec = n_out % C == 0;
+  for (int t0 = 0; t0 < ntiles; t0 += nthr) {
+    const int t = t0 + tid;
+    const bool has = t < ntiles;
+    const int rt = has ? t / nct : 0, c0 = has ? (t - rt * nct) * C : 0;
+    const bool last = t0 + nthr >= ntiles;
+    float acc[C][R];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = 0.0f;
+    const float* s_rows = s_in + rt * R;
+    stream_slabs(ws, w, n_in, n_out, last ? next : w, last ? next_n_in : n_in,
+                 last ? next_n_out : n_out, [&](const float* slab, int k0, int kc) {
+                   if (!has) return;
+                   if (vec) tile_k_loop<R, C, true, false, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                   else tile_k_loop<R, C, false, false, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                 });
+    if (has) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c0 + c < n_out) end(rt * R, c0 + c, acc[c]);
+    }
   }
 }
 

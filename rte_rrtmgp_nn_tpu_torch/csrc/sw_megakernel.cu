@@ -23,19 +23,55 @@
 // g-point and knows its band, so the band -> g-point expansion is an index.
 // With clouds the coefficients take the general-g gammas, still in float64.
 //
-// What bounds it on an H100: the two MLPs (7->48->48->112 each, ~16k FMAs
-// per (layer, column), 1.7 GFMA at 1800 x 60) share the weight-reuse design
-// of the LW kernel (kRows layers per weight load, weights from L1/L2), and
-// the six per-layer fields (rdif, tdif, the two direct-beam sources, the
-// cumulative albedo and the adding denominator: 6 x nlay x ngpt floats,
-// 161 KB at 60 x 112) live in shared memory, which allows one block per SM.
-// Nothing per g-point reaches device memory. The direct beam is
-// exp(-cumulative tau/mu0), one exp per level, not a running product of
-// per-layer exps (which would compound the exp's rounding over the column).
-// Night columns arrive with mu0 = 1; the driver zeroes their fluxes.
+// What bounds it on an H100, and what the design does about it. The work per
+// column is small next to the card's rates (two 7->48->48->112 nets, ~16k
+// FMAs per (layer, column); ~400 double-precision instructions per (layer,
+// g-point) for the coefficients), and the per-layer fields must stay in
+// shared memory (five fields of nlay x ngpt floats: rdif, tdif, the two
+// direct-beam sources and the cumulative albedo, 134 KB at 60 x 112), so one
+// column is resident per SM and the kernel is bound by latency: a warp
+// issues an instruction every four to five clocks whatever the code offers,
+// so the time is instructions per warp over warps in flight. Hence a block
+// is up to four layer groups of 128 threads (16 warps for the one column
+// where the first version had 4): each group takes a contiguous quarter of
+// the layers through phase A with its own MLP scratch and its own named
+// barrier, and never waits for another group. Within a group warps 0-1 take
+// the absorption net and warps 2-3 the Rayleigh net on the same rows (the
+// tiled MLP of common.cuh: rows k-major in shared memory, register tiles of 8
+// rows x 2 columns in the hidden layers and 8 x 4 in the last, weights
+// through L1: the two nets are 64 KB), and leave (ystd*y + ymean)**8 of both
+// in shared memory. The coefficients are a second loop over the group's
+// real layers, one thread per g-point, two layers per trip, so that two
+// double-precision chains interleave and no padded row is computed; the
+// column's col_dry and cloud fields wait in shared memory, read once. The
+// adding denominator 1 / (1 - rdif * albedo below) is not stored: the flux
+// sweep recomputes it (one divide per cell off the sweep's dependency chain),
+// which frees 27 KB at 60 x 112, and that is what lets four groups' MLP
+// scratch (64 KB) fit beside the fields. The double-precision loop runs at
+// the rate of the card's float64 units, so nothing in it may leave the
+// divide's straight-line code: a zero numerator (tau = 0, ssa = 0, a
+// cloud-free cell's cloud terms) sends the whole warp through the divide's
+// slow-path subroutine, which cost the warps that held such cells half again
+// the loop's time and every group the wait for them; the loop multiplies by
+// 1 / mu0, lets ssa multiply a quotient, and guards the float32 divides of
+// zero (rte::div_or_zero). The direct beam is exp(-cumulative tau/mu0), one
+// exp per level, not a running product of per-layer exps (which would
+// compound the exp's rounding over the column): the running sum of the path
+// is one thread per g-point, the exponentials and the sources that hang on
+// them are taken by every group for its own layers. The albedo sweep and the
+// flux sweep stay one thread per g-point (4 warps of the 16), four layers at a
+// time in straight-line code; with the direct beam and its level sums they
+// are a quarter of the kernel's time, the two recurrences 18% together: the
+// next thing to redesign. The level sums use every warp, four levels of a warp at a
+// time. Nothing per g-point reaches device memory. Night columns arrive with
+// mu0 = 1; the caller zeroes their fluxes. Times, registers, the phases'
+// shares (scripts/tune_megakernel_tiles.py times copies of the kernel that stop
+// after a phase) and the alternatives measured on an H100: PERF.md.
 #include "common.cuh"
 
-using rte::kRows;
+using rte::kGroup;
+using rte::kMegaRows;
+using rte::kRowStride;
 using rte::Mlp3;
 
 // The launch entry's first argument; ops/cuda/build.py mirrors it field by
@@ -70,65 +106,145 @@ struct SwArgs {
 
 namespace {
 
+// Floats of one layer group's MLP scratch: the feature rows and both nets'
+// two hidden layers, k-major.
+__host__ __device__ inline int group_floats(int n2d, int h1a, int h2a, int h1r, int h2r) {
+  return kRowStride * (n2d + h1a + h1r + h2a + h2r);
+}
+
+// Floats of the column's per-layer scalars kept in shared memory: col_dry
+// and room for the four cloud fields.
+__host__ __device__ inline int column_floats(int nlay) { return 5 * nlay; }
+
+// Dynamic shared memory of one block; ops/cuda/sw_megakernel.py launch_plan
+// computes the same number.
+size_t smem_bytes(int groups, int nlay, int n2d, int h1a, int h2a, int h1r, int h2r, int ngpt) {
+  return sizeof(float) * ((size_t)groups * group_floats(n2d, h1a, h2a, h1r, h2r) +
+                          rte::align4(h1a) + rte::align4(h1r) + column_floats(nlay) +
+                          (size_t)5 * nlay * ngpt + 3 * (size_t)ngpt + nlay + 1);
+}
+
 template <int kMode>
-__global__ void __launch_bounds__(rte::kThreads)
-sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
+__global__ void __launch_bounds__(rte::kMaxGroups * kGroup, 1)
+sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr, const int layers_per_group,
                const rte::CloudLutOf<kMode> c, const rte::LaneListOf<kMode> lanes) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int col = blockIdx.x;
-  const int g = threadIdx.x;
+  const int group = threadIdx.x / kGroup, gtid = threadIdx.x - group * kGroup;
+  const int ngroups = blockDim.x / kGroup;
+  const int g = gtid;
   const int nlay = a.nlay, ncol = a.ncol, ngpt = a.ngpt;
   const int nf = nlay * ngpt;
-  const int h1 = max(ma.h1, mr.h1), h2 = max(ma.h2, mr.h2);
-  float* s_rdif = smem;           // (nlay, ngpt)
+  const int gfl = group_floats(a.n2d, ma.h1, ma.h2, mr.h1, mr.h2);
+  float* s_x = smem + group * gfl;              // (n2d, kRowStride), this group's
+  float* s_h1a = s_x + kRowStride * a.n2d;      // (ma.h1, kRowStride)
+  float* s_h1r = s_h1a + kRowStride * ma.h1;    // (mr.h1, kRowStride)
+  float* s_h2a = s_h1r + kRowStride * mr.h1;    // (ma.h2, kRowStride)
+  float* s_h2r = s_h2a + kRowStride * ma.h2;    // (mr.h2, kRowStride)
+  float* s_hca = smem + ngroups * gfl;          // (ma.h1)
+  float* s_hcr = s_hca + rte::align4(ma.h1);    // (mr.h1)
+  float* s_cd = s_hcr + rte::align4(mr.h1);     // (nlay) col_dry of this column
+  float* s_cld = s_cd + nlay;                   // (4, nlay): lwp, iwp, rel, rei (kCldLut)
+  float* s_rdif = s_cd + column_floats(nlay);   // (nlay, ngpt)
   float* s_tdif = s_rdif + nf;    // (nlay, ngpt)
-  float* s_a = s_tdif + nf;       // rdir -> direct-beam src_up -> src below the layer
-  float* s_b = s_a + nf;          // tdir -> direct-beam src_dn -> diffuse dn at level l+1
-  float* s_d = s_b + nf;          // 1 / (1 - rdif * alb_below)
-  float* s_c = s_d + nf;          // (nlay+1, ngpt): tau/mu0 -> direct flux -> alb below -> up at level l+1
+  float* s_a = s_tdif + nf;       // abs net's y**8 -> rdir -> direct-beam src_up -> src below the layer
+  float* s_b = s_a + nf;          // Rayleigh net's y**8 -> tdir -> direct-beam src_dn -> diffuse dn at level l+1
+  float* s_c = s_b + nf;          // (nlay+1, ngpt): tau/mu0 -> direct flux -> alb below -> up at level l+1
   float* s_top = s_c + nf + ngpt; // (2, ngpt): level-0 diffuse dn and up
   float* s_dir = s_top + 2 * ngpt;  // (nlay+1) broadband direct flux
-  float* s_x = s_dir + nlay + 1;  // (kRows, n2d)
-  float* s_hca = s_x + kRows * a.n2d;  // (ma.h1)
-  float* s_hcr = s_hca + ma.h1;   // (mr.h1)
-  float* s_h1 = s_hcr + mr.h1;    // (kRows, h1)
-  float* s_h2 = s_h1 + kRows * h1;  // (kRows, h2)
 
   const float* cf = a.cf + (size_t)col * a.nc;
   rte::mlp_const_part(ma, cf, a.nc, s_hca);
   rte::mlp_const_part(mr, cf, a.nc, s_hcr);
+  // this column's per-layer scalars: read once here, coalesced over layers,
+  // so that the per-layer loop below does not wait on device memory
+  for (int l = threadIdx.x; l < nlay; l += blockDim.x) {
+    const size_t lc = (size_t)l * ncol + col;
+    s_cd[l] = a.col_dry[lc];
+    if constexpr (kMode == rte::kCldLut) {
+      s_cld[l] = a.lwp[lc];
+      s_cld[nlay + l] = a.iwp[lc];
+      s_cld[2 * nlay + l] = a.rel[lc];
+      s_cld[3 * nlay + l] = a.rei[lc];
+    }
+  }
+  __syncthreads();
 
   const bool active = g < ngpt;
   const float mu0 = a.mu0[col];
   const float mu0_inv = 1.0f / mu0;
   constexpr bool kCloudy = kMode == rte::kCldLut || kMode == rte::kCldBands;
   const int band = (kCloudy && active) ? a.gpt2band[g] : 0;
+  const int lbeg = min(group * layers_per_group, nlay);
+  const int lend = min(lbeg + layers_per_group, nlay);
 
-  // ---- phase A: both nets -> tau, ssa -> PIFM coefficients -------------
-  for (int l0 = 0; l0 < nlay; l0 += kRows) {
+  // ---- phase A, first loop: both nets -> (ystd*y + ymean)**8 of each -------
+  // warps 0-1 of the group: the absorption net's hidden layers; warps 2-3:
+  // the Rayleigh net's
+  const int half = gtid / (kGroup / 2), htid = gtid - half * (kGroup / 2);
+  const float* w1 = half ? mr.w1a : ma.w1a;
+  const float* b1 = half ? mr.b1 : ma.b1;
+  const float* w2 = half ? mr.w2 : ma.w2;
+  const float* b2 = half ? mr.b2 : ma.b2;
+  const int h1 = half ? mr.h1 : ma.h1, h2 = half ? mr.h2 : ma.h2;
+  const float* s_hc = half ? s_hcr : s_hca;
+  float* s_h1 = half ? s_h1r : s_h1a;
+  float* s_h2 = half ? s_h2r : s_h2a;
+  for (int l0 = lbeg; l0 < lend; l0 += kMegaRows) {
     if constexpr (kMode == rte::kLanes)
-      rte::load_rows_lanes(lanes, nullptr, l0, nlay, ncol, col, a.n2d, s_x);
+      rte::load_rows_lanes_kmajor(lanes, nullptr, l0, lend, ncol, col, a.n2d, s_x, gtid);
     else
-      rte::load_rows(a.x, l0, nlay, ncol, col, a.n2d, s_x);
-    __syncthreads();
-    float ya[kRows], yr[kRows];
-    rte::mlp_hidden(ma, s_x, a.n2d, s_hca, s_h1, s_h2);
-    if (active) rte::mlp_out(ma, s_h2, g, ya);
-    rte::mlp_hidden(mr, s_x, a.n2d, s_hcr, s_h1, s_h2);
-    if (!active) continue;
-    rte::mlp_out(mr, s_h2, g, yr);
-    const float std_a = __ldg(ma.ostd + g), mean_a = __ldg(ma.omean + g);
-    const float std_r = __ldg(mr.ostd + g), mean_r = __ldg(mr.omean + g);
+      rte::load_rows_kmajor(a.x, l0, lend, ncol, col, a.n2d, s_x, gtid);
+    rte::group_sync(group);
+    rte::mlp_layer_tiled<rte::kTileR, rte::kTileC, false>(w1, b1, s_hc, a.n2d, h1, s_x, s_h1,
+                                                          htid, kGroup / 2);
+    rte::group_sync(group);
+    rte::mlp_layer_tiled<rte::kTileR, rte::kTileC, false>(w2, b2, nullptr, h1, h2, s_h1, s_h2,
+                                                          htid, kGroup / 2);
+    rte::group_sync(group);
+    // a net's last layer leaves (ystd*y + ymean)**8 in a field: the same
+    // halves of the group take a net each
+    {
+      const float* w3 = half ? mr.w3 : ma.w3;
+      const float* b3 = half ? mr.b3 : ma.b3;
+      const float* ostds = half ? mr.ostd : ma.ostd;
+      const float* omeans = half ? mr.omean : ma.omean;
+      float* s_field = half ? s_b : s_a;
+      rte::mlp_last_tiled<rte::kOutR, rte::kOutC>(
+          w3, h2, ngpt, s_h2, htid, kGroup / 2,
+          [&](int row0, int c, const float (&sum)[rte::kOutR]) {
+            const float b = __ldg(b3 + c), ostd = __ldg(ostds + c), omean = __ldg(omeans + c);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int l = l0 + r;
-      if (l >= nlay) break;
-      const size_t lc = (size_t)l * ncol + col;
-      const float cd = a.col_dry[lc];
-      const float tau_abs = rte::tau_post(ya[r], std_a, mean_a) * cd;
-      const float tau_ray = rte::tau_post(yr[r], std_r, mean_r) * cd;
+            for (int r = 0; r < rte::kOutR; ++r)
+              if (l0 + row0 + r < lend)
+                s_field[(l0 + row0 + r) * ngpt + c] = rte::tau_post(sum[r] + b, ostd, omean);
+          });
+    }
+  }
+  rte::group_sync(group);  // the group's cells are complete for its g-point threads
+
+  // ---- phase A, second loop: tau, ssa (+ clouds) -> PIFM coefficients ------
+  // over this group's layers, one thread per g-point
+  if (active) {
+    // The double-precision divide leaves its straight-line code for a
+    // subroutine when its numerator is zero or tiny, and takes the whole warp
+    // along: a cell with tau = 0 or ssa = 0 (the demo nets give both) cost its
+    // warp half again the loop's time. So no numerator here can be zero: the
+    // path is tau times 1 / mu0, and ssa multiplies a quotient.
+    const double mu0_inv_d = 1.0 / (double)mu0;
+#pragma unroll 2
+    for (int l = lbeg; l < lend; ++l) {
+      const int i = l * ngpt + g;
+      const float cd = s_cd[l];
+      const float tau_abs = s_a[i] * cd;
+      const float tau_ray = s_b[i] * cd;
       const float tau_gas = tau_abs + tau_ray;
-      const float ssa_gas = tau_gas > 0.0f ? tau_ray / tau_gas : 0.0f;
+      // (a cell without optical depth divides 1 by 1 and drops the quotient:
+      // 0 / 0 would send its whole warp through the divide's slow path)
+      const bool has_tau = tau_gas > 0.0f;
+      const float ssa_gas = has_tau ? (has_tau ? tau_ray : 1.0f) / (has_tau ? tau_gas : 1.0f)
+                                    : 0.0f;
       float tau = tau_gas, ssa = ssa_gas, asy = 0.0f;
       if constexpr (kCloudy) {
         // band values of the delta-scaled cloud tau, tau*ssa, tau*ssa*g
@@ -136,34 +252,38 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
         if constexpr (kMode == rte::kCldLut) {
           float lt, lts, ltsg, it, its, itsg;
           rte::cloud_lut_phase(c.liq, c.n_liq, c.nband, band, c.liq_off, c.liq_step,
-                               a.lwp[lc], a.rel[lc], lt, lts, ltsg);
+                               s_cld[l], s_cld[2 * nlay + l], lt, lts, ltsg);
           rte::cloud_lut_phase(c.ice, c.n_ice, c.nband, band, c.ice_off, c.ice_step,
-                               a.iwp[lc], a.rei[lc], it, its, itsg);
+                               s_cld[nlay + l], s_cld[3 * nlay + l], it, its, itsg);
           // phase sum, then delta scaling with f = g^2 in subtraction form:
           // with u = (tau*ssa*g)^2 / (tau*ssa) all three products lose u
           const float tau_b = lt + it, taussa = lts + its, tsg = ltsg + itsg;
-          const float u = tsg * (tsg / fmaxf(a.cld_eps, taussa));
+          const float u = tsg * rte::div_or_zero(tsg, fmaxf(a.cld_eps, taussa));
           tc = tau_b - u;
           tsc = taussa - u;
           tgc = tsg - u;
         } else {
-          const size_t i = lc * a.nband + band;
-          tc = a.cld_tau[i];
-          tsc = a.cld_ts[i];
-          tgc = a.cld_tsg[i];
+          const size_t ib = ((size_t)l * ncol + col) * a.nband + band;
+          tc = a.cld_tau[ib];
+          tsc = a.cld_ts[ib];
+          tgc = a.cld_tsg[ib];
         }
         // increment the gas properties (asymmetry 0) by the cloud's
         tau = tau_gas + tc;
         const float tauscat = tau_gas * ssa_gas + tsc;
-        asy = tgc / fmaxf(a.cld_eps, tauscat);
-        ssa = tauscat / fmaxf(a.cld_eps, tau);
+        asy = rte::div_or_zero(tgc, fmaxf(a.cld_eps, tauscat));
+        ssa = rte::div_or_zero(tauscat, fmaxf(a.cld_eps, tau));
       }
       // Zdunkowski PIFM (without clouds g = 0: gamma3 = gamma4 = 1/2),
       // evaluated in double: rdir and tdir are 0/0 forms at the resonance
       // k*mu0 = 1, and in float32 a column whose mu0 sits within ~1e-4 of
       // 1/k in every layer (ssa constant down the column) is off by up to
       // ~10 W/m2. This departs from the Pallas kernel, which is float32
-      // throughout; its cost on an H100 is in PERF.md.
+      // throughout. A form that keeps double only where |1 - (k*mu0)^2| < t
+      // was measured (scripts/probe_sw_float64_guard.py): up to t = 0.1 it
+      // is beyond the SW bound from float64 (2.8e-2 W/m2 at 0.1); t = 0.3 is
+      // within it at 1.2e-2, about thirty times this form's distance, with
+      // 16% of the cells, so a lane of nearly every warp, still in double.
       const double ssa_d = ssa, mu0_d = mu0, tau_d = tau;
       double gamma1, gamma2, gamma3, gamma4;
       if constexpr (kCloudy) {
@@ -181,7 +301,7 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
       const double alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
       const double alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
       const double k = sqrt(fmax((gamma1 - gamma2) * (gamma1 + gamma2), (double)a.k_min));
-      const double tnoscat = exp(-tau_d / mu0_d);
+      const double tnoscat = exp(-tau_d * mu0_inv_d);
       const double e1 = exp(-tau_d * k);
       const double e2 = e1 * e1;
       const double k2e = 2.0 * k * e1;
@@ -193,7 +313,7 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
       const double k_g3 = k * gamma3, k_g4 = k * gamma4;
       const double one_m = 1.0 - k_mu2;
       const double denom = fabs(one_m) >= (double)a.eps ? one_m : (double)a.eps;
-      const double rt2 = ssa_d * rt_term / denom;
+      const double rt2 = ssa_d * (rt_term / denom);
       double rdir = rt2 * ((1.0 - k_mu) * (alpha2 + k_g3)
                            - (1.0 + k_mu) * (alpha2 - k_g3) * e2
                            - k2e * (gamma3 - alpha2 * mu0_d) * tnoscat);
@@ -202,7 +322,6 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
                                         - (1.0 - k_mu) * (alpha1 - k_g4) * e2));
       rdir = fmin(fmax(rdir, 0.0), 1.0 - tnoscat);
       tdir = fmin(fmax(tdir, 0.0), 1.0 - tnoscat - rdir);
-      const int i = l * ngpt + g;
       s_rdif[i] = rdif;
       s_tdif[i] = tdif;
       s_a[i] = (float)rdir;
@@ -210,55 +329,125 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
       s_c[i] = tau * mu0_inv;
     }
   }
+  __syncthreads();
+
+  // The sweeps are recurrences down the column, one thread per g-point (four
+  // warps). Each walks the column kChunk layers at a time in straight-line
+  // code: all of a chunk's operands are loaded first, then its steps run in
+  // registers and store, so that loads, address arithmetic, the exponentials
+  // and the stores of neighbouring steps can overlap; the layers left over
+  // take single steps.
+  constexpr int kChunk = 4;
+  const int sg = threadIdx.x;  // this thread's g-point in the sweeps
+  const bool sweeper = sg < ngpt;
 
   // ---- phase B: direct beam, exp(-cumulative optical path) ---------------
-  float dsfc = 0.0f;
+  // The path down to each level is a running sum, one thread per g-point;
+  // the exponentials and the sources that hang on it are not a recurrence:
+  // every group takes them for its own layers.
+  if (sweeper) {
+    float path = 0.0f;
+    float* pc = s_c + sg;
+    int l = 0;
+#pragma unroll 1
+    for (; l + kChunk <= nlay; l += kChunk, pc += kChunk * ngpt) {
+      float t[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) t[j] = pc[j * ngpt];
+      float q[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        q[j] = path;
+        path += t[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) pc[j * ngpt] = q[j];
+    }
+    for (; l < nlay; ++l, pc += ngpt) {
+      const float t = pc[0];
+      pc[0] = path;
+      path += t;
+    }
+    pc[0] = path;  // row nlay: the path to the surface
+  }
+  __syncthreads();
   if (active) {
     const float inc = a.inc_dir[(size_t)col * ngpt + g];
-    float path = 0.0f;
-    for (int l = 0; l < nlay; ++l) {
+#pragma unroll 4
+    for (int l = lbeg; l < lend; ++l) {
       const int i = l * ngpt + g;
-      const float dinc = inc * expf(-path);
-      const float step = s_c[i];
+      const float dinc = inc * expf(-s_c[i]);
       s_c[i] = dinc;
-      s_a[i] *= dinc;  // src_up
-      s_b[i] *= dinc;  // src_dn
-      path += step;
+      s_a[i] *= dinc;  // rdir -> src_up
+      s_b[i] *= dinc;  // tdir -> src_dn
     }
-    dsfc = inc * expf(-path);
-    s_c[nf + g] = dsfc;
+    if (group == ngroups - 1) s_c[nf + g] = inc * expf(-s_c[nf + g]);  // the flux at the surface
   }
   __syncthreads();
   rte::level_sums(s_c, nlay + 1, ngpt, 1.0f, nullptr, s_dir);
   __syncthreads();
 
-  if (active) {
+  if (sweeper) {
     // ---- phase C: surface-to-top cumulative albedo and source ------------
-    const size_t cg = (size_t)col * ngpt + g;
+    const size_t cg = (size_t)col * ngpt + sg;
     float alb = a.alb_dif[cg];
-    float src = dsfc * a.alb_dir[cg];
-    for (int l = nlay - 1; l >= 0; --l) {
-      const int i = l * ngpt + g;
-      const float rd = s_rdif[i], td = s_tdif[i];
-      const float d = 1.0f / (1.0f - rd * alb);
-      const float src_new = s_a[i] + td * d * (src + alb * s_b[i]);
-      const float alb_new = rd + td * td * alb * d;
-      s_c[i] = alb;
-      s_a[i] = src;
-      s_d[i] = d;
-      alb = alb_new;
-      src = src_new;
+    float src = s_c[nf + sg] * a.alb_dir[cg];
+    const float fdn_top = a.inc_dif[cg];
+    {
+      const int top = (nlay - 1) * ngpt + sg;
+      float *prd = s_rdif + top, *ptd = s_tdif + top, *pa = s_a + top, *pb = s_b + top,
+            *pc = s_c + top;
+      auto step = [&](float rd, float td, float su, float sd, int o) {
+        const float d = 1.0f / fmaf(-rd, alb, 1.0f);
+        const float src_new = su + td * d * (src + alb * sd);
+        const float alb_new = rd + td * td * alb * d;
+        pc[o] = alb;
+        pa[o] = src;
+        alb = alb_new;
+        src = src_new;
+      };
+      int l = nlay;
+#pragma unroll 1
+      for (; l >= kChunk; l -= kChunk, prd -= kChunk * ngpt, ptd -= kChunk * ngpt,
+                          pa -= kChunk * ngpt, pb -= kChunk * ngpt, pc -= kChunk * ngpt) {
+        float rd[kChunk], td[kChunk], su[kChunk], sd[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          rd[j] = prd[-j * ngpt]; td[j] = ptd[-j * ngpt]; su[j] = pa[-j * ngpt]; sd[j] = pb[-j * ngpt];
+        }
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) step(rd[j], td[j], su[j], sd[j], -j * ngpt);
+      }
+      for (; l > 0; --l, prd -= ngpt, ptd -= ngpt, pa -= ngpt, pb -= ngpt, pc -= ngpt)
+        step(prd[0], ptd[0], pa[0], pb[0], 0);
     }
     // ---- phase D: top-down diffuse flux sweep ------------------------------
-    float fdn = a.inc_dif[cg];
-    s_top[g] = fdn;
-    s_top[ngpt + g] = fdn * alb + src;
-    for (int l = 0; l < nlay; ++l) {
-      const int i = l * ngpt + g;
-      fdn = (s_tdif[i] * fdn + s_rdif[i] * s_a[i] + s_b[i]) * s_d[i];
-      s_b[i] = fdn;
-      s_c[i] = fdn * s_c[i] + s_a[i];
+    // the adding denominator again, from the operands phase C had
+    float fdn = fdn_top;
+    s_top[sg] = fdn;
+    s_top[ngpt + sg] = fdn * alb + src;
+    float *prd = s_rdif + sg, *ptd = s_tdif + sg, *pa = s_a + sg, *pb = s_b + sg, *pc = s_c + sg;
+    auto step = [&](float rd, float td, float below, float sb, float sd, int o) {
+      const float d = 1.0f / fmaf(-rd, below, 1.0f);
+      fdn = (td * fdn + rd * sb + sd) * d;
+      pb[o] = fdn;
+      pc[o] = fdn * below + sb;
+    };
+    int l = 0;
+#pragma unroll 1
+    for (; l + kChunk <= nlay; l += kChunk, prd += kChunk * ngpt, ptd += kChunk * ngpt,
+                               pa += kChunk * ngpt, pb += kChunk * ngpt, pc += kChunk * ngpt) {
+      float rd[kChunk], td[kChunk], below[kChunk], sb[kChunk], sd[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        rd[j] = prd[j * ngpt]; td[j] = ptd[j * ngpt]; below[j] = pc[j * ngpt];
+        sb[j] = pa[j * ngpt]; sd[j] = pb[j * ngpt];
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) step(rd[j], td[j], below[j], sb[j], sd[j], j * ngpt);
     }
+    for (; l < nlay; ++l, prd += ngpt, ptd += ngpt, pa += ngpt, pb += ngpt, pc += ngpt)
+      step(prd[0], ptd[0], pc[0], pa[0], pb[0], 0);
   }
   __syncthreads();
 
@@ -273,55 +462,80 @@ sw_mega_kernel(const SwArgs a, const Mlp3 ma, const Mlp3 mr,
 
 }  // namespace
 
-// Dynamic shared memory of one block (the wrapper checks it against the card).
-extern "C" size_t sw_clearsky_megakernel_smem_bytes(int nlay, int n2d, int h1a, int h2a,
-                                                    int h1r, int h2r, int ngpt) {
-  const int h1 = h1a > h1r ? h1a : h1r, h2 = h2a > h2r ? h2a : h2r;
-  return sizeof(float) * ((size_t)6 * nlay * ngpt + 3 * (size_t)ngpt + nlay + 1 +
-                          rte::kRows * (n2d + h1 + h2) + h1a + h1r);
-}
-
 template <int kMode>
-static int launch_mode(const SwArgs& a, const Mlp3& ma, const Mlp3& mr,
+static int launch_mode(const SwArgs& a, const Mlp3& ma, const Mlp3& mr, const rte::MegaPlan& plan,
                        const rte::CloudLutOf<kMode>& c, const rte::LaneListOf<kMode>& lanes,
-                       size_t smem, cudaStream_t stream) {
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(sw_mega_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         plan.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  sw_mega_kernel<kMode><<<a.ncol, rte::kThreads, smem, stream>>>(a, ma, mr, c, lanes);
+  sw_mega_kernel<kMode><<<a.ncol, plan.threads, plan.smem_bytes, stream>>>(
+      a, ma, mr, plan.layers_per_group, c, lanes);
   return (int)cudaGetLastError();
 }
 
 // mode: rte::MegaMode. The cloud modes read gpt2band and nband; kCldLut reads
 // lwp/iwp/rel/rei and ``cloud``; kCldBands reads cld_tau/cld_ts/cld_tsg;
 // kLanes reads ``lanes`` (the n2d scaled features, one array each) and
-// ignores x. The structs are read on the host; pointers the mode does not
-// read may be null.
+// ignores x. ``plan`` is launch_plan's geometry (ops/cuda/sw_megakernel.py),
+// refused unless it is one this file is compiled for and its shared memory
+// is what the kernel lays out. The structs are read on the host; pointers
+// the mode does not read may be null.
 extern "C" int sw_clearsky_megakernel_launch(
     const SwArgs* args, const rte::Mlp3* abs_net, const rte::Mlp3* ray_net,
-    const rte::CloudLut* cloud, const rte::LaneList* lanes,
+    const rte::MegaPlan* plan, const rte::CloudLut* cloud, const rte::LaneList* lanes,
     int mode, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const SwArgs& a = *args;
   const Mlp3& ma = *abs_net;
   const Mlp3& mr = *ray_net;
-  if (a.ngpt > rte::kThreads || a.ncol <= 0 || a.nlay <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sw_clearsky_megakernel_smem_bytes(a.nlay, a.n2d, ma.h1, ma.h2, mr.h1, mr.h2, a.ngpt);
-  if (smem > (size_t)rte::kMaxSmem) return (int)cudaErrorInvalidValue;
+  const rte::MegaPlan& pl = *plan;
+  if (a.ncol <= 0 || a.nlay <= 0 || ma.nout != a.ngpt || mr.nout != a.ngpt)
+    return (int)cudaErrorInvalidValue;
+  if (pl.groups < 1 || pl.groups > rte::kMaxGroups) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(pl.groups, a.nlay, a.n2d, ma.h1, ma.h2, mr.h1, mr.h2, a.ngpt);
+  if (pl.slab_floats != 0 || !rte::plan_geometry_ok(pl, a.nlay, a.ngpt, smem))
+    return (int)cudaErrorInvalidValue;
   const rte::Unused none{};
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
-    case rte::kClear: return launch_mode<rte::kClear>(a, ma, mr, none, none, smem, st);
+    case rte::kClear: return launch_mode<rte::kClear>(a, ma, mr, pl, none, none, st);
     case rte::kCldLut:
       if (cloud == nullptr || cloud->n_liq < 2 || cloud->n_ice < 2)
         return (int)cudaErrorInvalidValue;
-      return launch_mode<rte::kCldLut>(a, ma, mr, *cloud, none, smem, st);
-    case rte::kCldBands: return launch_mode<rte::kCldBands>(a, ma, mr, none, none, smem, st);
+      return launch_mode<rte::kCldLut>(a, ma, mr, pl, *cloud, none, st);
+    case rte::kCldBands: return launch_mode<rte::kCldBands>(a, ma, mr, pl, none, none, st);
     case rte::kLanes:
       if (lanes == nullptr || a.n2d > rte::kMaxLanes) return (int)cudaErrorInvalidValue;
-      return launch_mode<rte::kLanes>(a, ma, mr, none, *lanes, smem, st);
+      return launch_mode<rte::kLanes>(a, ma, mr, pl, none, *lanes, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kMode>
+static int resident_blocks(const rte::MegaPlan& plan, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(sw_mega_kernel<kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         plan.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, sw_mega_kernel<kMode>, plan.threads, plan.smem_bytes);
+}
+
+// *blocks: how many blocks of the kernel in ``mode`` the device keeps resident
+// on one SM at the plan's threads and shared memory, as the runtime reckons it
+// from the compiled function's registers.
+extern "C" int sw_clearsky_megakernel_blocks_per_sm(const rte::MegaPlan* plan, int mode, int device,
+                                                    int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (mode) {
+    case rte::kClear: return resident_blocks<rte::kClear>(*plan, blocks);
+    case rte::kCldLut: return resident_blocks<rte::kCldLut>(*plan, blocks);
+    case rte::kCldBands: return resident_blocks<rte::kCldBands>(*plan, blocks);
+    case rte::kLanes: return resident_blocks<rte::kLanes>(*plan, blocks);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -184,15 +184,23 @@ def compute_nn_inputs_split(
 
 def split_first_layer(model: NNModel, perm: Sequence[int], n2d: int):
     """First-layer weight rows for the lanes (w1a) and for the const block
-    (w1c, one zero row when there is no const feature)."""
-    w1 = model.weights[0]
-    idx = torch.as_tensor(list(perm), device=w1.device)
-    w1a = w1[idx[:n2d]]
-    if len(perm) > n2d:
-        w1c = w1[idx[n2d:]]
-    else:
-        w1c = torch.zeros((1, w1.shape[1]), dtype=w1.dtype, device=w1.device)
-    return w1a.contiguous(), w1c.contiguous()
+    (w1c, one zero row when there is no const feature), made at the first
+    call for a (perm, n2d) and kept with the model (NNModel drops them when
+    its tensors move): a fused-kernel call then copies no index from the
+    host, which would make it wait for the card to drain, and gathers
+    nothing."""
+    key = (tuple(perm), n2d)
+    split = model.first_layer_splits.get(key)
+    if split is None:
+        w1 = model.weights[0]
+        idx = torch.as_tensor(key[0], dtype=torch.long, device=w1.device)
+        w1a = w1[idx[:n2d]]
+        if len(perm) > n2d:
+            w1c = w1[idx[n2d:]]
+        else:
+            w1c = torch.zeros((1, w1.shape[1]), dtype=w1.dtype, device=w1.device)
+        split = model.first_layer_splits[key] = (w1a.contiguous(), w1c.contiguous())
+    return split
 
 
 def predict_tau(model: NNModel, nn_inputs: torch.Tensor, col_dry: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,14 @@ class NNModel(nn.Module):
         self.register_buffer("input_max", input_max)
         self.register_buffer("output_mean", output_mean)
         self.register_buffer("output_std", output_std)
+        # {(perm, n2d): (w1a, w1c)}: the first layer's rows as the fused
+        # kernels take them (gasoptics.nn_gas_optics.split_first_layer)
+        self.first_layer_splits: dict = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        # to(), float(), double(), cuda(): the kept splits are of the old tensors
+        self.first_layer_splits.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def n_inputs(self) -> int:

@@ -6,7 +6,9 @@ shared library with a plain C interface, loaded with ctypes; the fused
 kernels' entries take their arguments as structs, mirrored here. The build runs
 at the first CUDA use in a process, into ``build/kernels/`` beside the
 package, under a name that hashes the sources, so an edited source is
-rebuilt and an unchanged one is loaded as built. No ``--use_fast_math``:
+rebuilt and an unchanged one is loaded as built; the compiler's output
+(``-Xptxas -v``: registers and spill of every kernel) is kept beside the
+library and read by ``kernel_resources``. No ``--use_fast_math``:
 exp, divide and sqrt stay IEEE (float32, except the SW kernel's two-stream
 coefficients, which are float64).
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -63,6 +66,9 @@ def build() -> Path:
     if out.exists():
         BUILD_INFO.setdefault("cached", True)
         BUILD_INFO.setdefault("path", str(out))
+        log = out.with_suffix(".log")
+        if log.exists():
+            BUILD_INFO.setdefault("log", log.read_text())
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
@@ -89,11 +95,31 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
                            f"{proc.stdout}{proc.stderr}")
+    log = "".join(logs) + proc.stdout + proc.stderr
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, path=str(out),
                       command="\n".join(" ".join(c) for c, _, _ in jobs) + "\n" + " ".join(link),
-                      log="".join(logs) + proc.stdout + proc.stderr)
+                      log=log)
     return out
+
+
+def kernel_resources(kernel: str, mode: int | None = None) -> dict:
+    """{"registers", "spill_bytes"} of a ``__global__`` function as ptxas
+    reported them in the build that made the loaded library: ``kernel`` is
+    the function's name in the source, ``mode`` the value of its integer
+    template parameter, if it has one. Empty if the build's output is not
+    at hand."""
+    want = f"{len(kernel)}{kernel}" + (f"ILi{mode}E" if mode is not None else "")
+    blocks = re.split(r"Compiling entry function '", BUILD_INFO.get("log", ""))[1:]
+    for block in blocks:
+        name, _, rest = block.partition("'")
+        regs = re.search(r"Used (\d+) registers", rest)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", rest)
+        if want in name and regs and spill:
+            return {"registers": int(regs.group(1)),
+                    "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
+    return {}
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -122,6 +148,10 @@ class CloudLut(ctypes.Structure):  # csrc/common.cuh
 
 class LaneList(ctypes.Structure):  # csrc/common.cuh
     _fields_ = [("p", P * MAX_LANES), ("code", I * MAX_LANES)]
+
+
+class MegaPlan(ctypes.Structure):  # csrc/common.cuh
+    _fields_ = _fields(I, "threads groups layers_per_group rows_per_pass smem_bytes slab_floats")
 
 
 class LwArgs(ctypes.Structure):  # csrc/lw_megakernel.cu
@@ -162,16 +192,16 @@ def lane_list(lanes, codes=None) -> LaneList:
 
 
 def _declare(lib) -> None:
-    # (args, net, planck, cloud, lanes, mode, device, stream)
-    lib.lw_clearsky_mega4_launch.argtypes = [P] * 5 + [I, I, P]
+    # (args, net, planck, plan, cloud, lanes, mode, device, stream)
+    lib.lw_clearsky_mega4_launch.argtypes = [P] * 6 + [I, I, P]
     lib.lw_clearsky_mega4_launch.restype = I
-    lib.lw_clearsky_mega4_smem_bytes.argtypes = [I] * 5
-    lib.lw_clearsky_mega4_smem_bytes.restype = ctypes.c_size_t
-    # (args, abs_net, ray_net, cloud, lanes, mode, device, stream)
-    lib.sw_clearsky_megakernel_launch.argtypes = [P] * 5 + [I, I, P]
+    # (args, abs_net, ray_net, plan, cloud, lanes, mode, device, stream)
+    lib.sw_clearsky_megakernel_launch.argtypes = [P] * 6 + [I, I, P]
     lib.sw_clearsky_megakernel_launch.restype = I
-    lib.sw_clearsky_megakernel_smem_bytes.argtypes = [I] * 7
-    lib.sw_clearsky_megakernel_smem_bytes.restype = ctypes.c_size_t
+    # (plan, mode, device, blocks)
+    for fn in (lib.lw_clearsky_mega4_blocks_per_sm, lib.sw_clearsky_megakernel_blocks_per_sm):
+        fn.argtypes = [P, I, I, P]
+        fn.restype = I
     # (args, net, device, stream)
     lib.lw_prep_launch.argtypes = [P, P, I, P]
     lib.lw_prep_launch.restype = I
@@ -191,6 +221,18 @@ def library():
         _declare(lib)
         _lib = lib
     return _lib
+
+
+def blocks_per_sm(entry: str, plan, mode: int, device: int) -> int:
+    """Blocks of a fused kernel (``entry``: "lw_clearsky_mega4" or
+    "sw_clearsky_megakernel") in ``mode`` that ``device`` keeps resident on
+    one SM at ``plan``'s threads and shared memory: the CUDA runtime's
+    occupancy reckoning for the loaded function."""
+    blocks = I(0)
+    err = getattr(library(), f"{entry}_blocks_per_sm")(
+        ctypes.byref(MegaPlan(*plan)), mode, device, ctypes.byref(blocks))
+    check(err, f"{entry} occupancy")
+    return blocks.value
 
 
 def check(err: int, what: str) -> None:

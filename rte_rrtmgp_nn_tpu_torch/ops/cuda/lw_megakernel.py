@@ -7,9 +7,12 @@ Replaces rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py::lw_clearsky_mega4
 ::lw_clearsky_mega5 (``_mega5_kernel``: the same pipeline on raw input
 lanes; its ``mxu_first`` variant is the same arithmetic, so one raw-lane
 mode covers both). What bounds the kernel on an H100 and how its design
-answers it is written at the top of the CUDA source: the MLP's weight reads
-bound it, each weight load serves several layers, and the per-layer fields
-stay in shared memory, one block per column, one thread per g-point.
+answers it is written at the top of the CUDA source: the MLP's load
+instructions bound it, so a thread keeps a register tile of rows x output
+columns; the per-layer fields stay in shared memory, one block per column,
+up to four layer groups of one thread per g-point each. ``launch_plan``
+decides that geometry (threads, groups, shared memory) from the shapes; the
+launch entry checks it again.
 
 The kernel has four modes: clear-sky; clouds from (lwp, iwp, rel, rei)
 through the lookup tables inside the kernel (``cld_fields`` + ``cld_lut``);
@@ -23,6 +26,7 @@ mode.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +42,85 @@ LAUNCHES = 0  # kernel launches by the wrappers here (not plain-path calls)
 MODE_LAUNCHES = {"clear": 0, "cld_lut": 0, "cld_bands": 0, "lanes": 0}
 MODE_CODES = {"clear": 0, "cld_lut": 1, "cld_bands": 2, "lanes": 3}
 MAX_LANES = build.MAX_LANES
+# the kernels' geometry constants (csrc/common.cuh)
+GROUP_THREADS = 128   # kGroup: threads of one layer group, one per g-point
+MAX_GROUPS = 4        # kMaxGroups
+ROWS_PER_PASS = 16    # kMegaRows: layers per MLP pass of a group
+ROW_PAD = 4           # kRowPad: kRowStride = kMegaRows + kRowPad floats from one k to the next
+GROUP_CHOICES = (4, 2, 1)  # layer groups a plan may take, the most that fit
+MAX_SLAB_FLOATS = 6144     # 24 KB: each of the two buffers the LW weights stream through
+MIN_SLAB_ROWS = 4          # rows of the widest layer a slab holds at least
+MAX_SMEM = 232448     # kMaxSmem: dynamic shared memory a block may use on sm_90
+
+
+class LaunchPlan(NamedTuple):
+    """A fused kernel's launch geometry (csrc/common.cuh MegaPlan): layer
+    group i takes layers [i * layers_per_group, (i + 1) * layers_per_group)
+    cut at nlay, ``rows_per_pass`` of them per MLP pass; ``slab_floats`` is
+    the size of each of the two shared-memory buffers the weights stream
+    through (0: the kernel reads them through the cache)."""
+    threads: int
+    groups: int
+    layers_per_group: int
+    rows_per_pass: int
+    smem_bytes: int
+    slab_floats: int = 0
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def plan_groups(what: str, nlay: int, ngpt: int, field_floats: int, group_rows: int,
+                other_floats: int, smem_limit: int, stream_widths=()) -> LaunchPlan:
+    """The plan with the most layer groups (4, 2 or 1, none without a
+    layer) whose shared memory fits ``smem_limit``: ``field_floats`` for
+    the per-layer fields, ``group_rows`` k-major rows of MLP scratch (the
+    features and the hidden layers' widths) per group, and, if the kernel
+    streams its weights (``stream_widths``: the layers' output widths), two
+    slabs of what is left, up to MAX_SLAB_FLOATS each and at least
+    MIN_SLAB_ROWS rows of the widest layer. Raises ValueError saying what
+    does not fit."""
+    group_floats = (ROWS_PER_PASS + ROW_PAD) * group_rows
+    if nlay < 1 or ngpt < 1:
+        raise ValueError(f"{what}: nlay {nlay} and ngpt {ngpt} must be positive")
+    if ngpt > GROUP_THREADS:
+        raise ValueError(f"{what}: ngpt {ngpt} > {GROUP_THREADS}, a layer group has one thread "
+                         "per g-point")
+    min_slab = MIN_SLAB_ROWS * max(stream_widths, default=0)
+    for groups in GROUP_CHOICES:
+        if groups > 1 and groups > nlay:
+            continue
+        smem = 4 * (groups * group_floats + other_floats + field_floats)
+        slab = min(MAX_SLAB_FLOATS, (smem_limit - smem) // 8 & ~3) if stream_widths else 0
+        if smem <= smem_limit and slab >= min_slab:
+            return LaunchPlan(groups * GROUP_THREADS, groups, -(-nlay // groups), ROWS_PER_PASS,
+                              smem + 8 * slab, slab)
+    fields = 4 * (field_floats + other_floats)
+    if fields > smem_limit:
+        raise ValueError(
+            f"{what}: the per-layer fields of nlay {nlay} x ngpt {ngpt} take {fields} B of "
+            f"shared memory, a block may use {smem_limit}: too many layers for the fused "
+            "kernel (the staged path takes any nlay)")
+    raise ValueError(
+        f"{what}: the net is too wide: the MLP scratch of one layer group takes "
+        f"{4 * group_floats} B and the weights' two buffers {8 * min_slab} B beside {fields} B "
+        f"of per-layer fields (nlay {nlay} x ngpt {ngpt}), a block may use {smem_limit} B of "
+        "shared memory")
+
+
+def launch_plan(nlay: int, n2d: int, h1: int, h2: int, ngpt: int,
+                smem_limit: int = MAX_SMEM) -> LaunchPlan:
+    """Launch geometry of the LW kernel for ``nlay`` layers, ``n2d``
+    layer-varying features, hidden widths ``h1`` and ``h2`` and ``ngpt``
+    g-points: three fields of nlay x ngpt floats (one with a row more), the
+    column's per-layer scalars, per group the k-major feature rows and two
+    hidden layers, and the two buffers the weights stream through. Raises
+    ValueError in words when the shape does not fit the shared memory or
+    the 128 g-points of a group."""
+    return plan_groups("lw_clearsky_mega4", nlay, ngpt, 3 * nlay * ngpt + ngpt,
+                       n2d + h1 + h2, _align4(h1) + _align4(7 * nlay + 1), smem_limit,
+                       stream_widths=(h1, h2, 2 * ngpt))
 
 
 def cloud_lut_phases(cld_fields, cld_lut):
@@ -219,8 +302,7 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
     h1, h2 = w1.shape[1], w2.shape[1]
     ngpt = w3.shape[1] // 2
     ntab, nband = planck_table.totplnk.shape
-    if ngpt > 128:
-        raise ValueError(f"{what}: ngpt {ngpt} > 128 threads per block")
+    plan = launch_plan(nlay, n2d, h1, h2, ngpt, _smem_limit(dev))
     checks = [
         ("const_feats", const_feats, (ncol, nc)),
         ("w1a", w1a, (n2d, h1)), ("w1c", w1c, (nc, h1)), ("b1", b1, (h1,)),
@@ -266,11 +348,6 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
     _check("gpt2band", gpt2band, (ngpt,), torch.int32, dev)
 
     lib = build.library()
-    smem = lib.lw_clearsky_mega4_smem_bytes(nlay, n2d, h1, h2, ngpt)
-    limit = _smem_limit(dev)
-    if smem > limit:
-        raise ValueError(f"{what}: {smem} B of shared memory per "
-                         f"block needed, the card allows {limit} (nlay={nlay})")
     up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     args = build.LwArgs(
@@ -283,8 +360,8 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
                              planck_table.temp_ref_min, planck_table.totplnk_delta)
     ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.lw_clearsky_mega4_launch(
-        ref(args), ref(build.mlp3(w1a, w1c, model)), ref(planck), ref(cloud), ref(lane_list),
-        MODE_CODES[mode],
+        ref(args), ref(build.mlp3(w1a, w1c, model)), ref(planck), ref(build.MegaPlan(*plan)),
+        ref(cloud), ref(lane_list), MODE_CODES[mode],
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"{what} launch")

@@ -5,9 +5,12 @@ CUDA kernel (``csrc/sw_megakernel.cu``), and its plain PyTorch twin.
 Replaces rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py::
 sw_clearsky_megakernel (the Pallas ``_sw_mega_kernel``) with its cloud
 options and its ``input_mode="lanes"``. What bounds the kernel on an H100
-and how its design answers it is written at the top of the CUDA source: the
-two MLPs' weight reads and the six per-layer fields held in shared memory,
-one block per column, one thread per g-point.
+and how its design answers it is written at the top of the CUDA source:
+latency, with one column resident per SM (five per-layer fields in shared
+memory), so a block is up to four layer groups of one thread per g-point
+each, and the two nets' hidden layers run side by side. ``launch_plan``
+decides that geometry (threads, groups, shared memory) from the shapes; the
+launch entry checks it again.
 
 The kernel has four modes: clear-sky; clouds from (lwp, iwp, rel, rei)
 through the lookup tables inside the kernel, delta-scaled in the
@@ -32,7 +35,8 @@ from ...models.network import NNModel
 from ..sw_solver import sw_adding_broadband, sw_two_stream_coeffs
 from . import build
 from .lw_megakernel import (
-    MAX_LANES, MODE_CODES, _check, _smem_limit, _softsign, cloud_lut_phases)
+    MAX_LANES, MAX_SMEM, MODE_CODES, LaunchPlan, _align4, _check, _smem_limit,
+    _softsign, cloud_lut_phases, plan_groups)
 
 LAUNCHES = 0  # kernel launches by sw_clearsky_megakernel (not plain-path calls)
 # the same launches by kernel mode (csrc/common.cuh MegaMode)
@@ -40,6 +44,24 @@ MODE_LAUNCHES = {"clear": 0, "cld_lut": 0, "cld_bands": 0, "lanes": 0}
 # float32's eps guards the cloud combine's divides in every precision; the
 # float64 coefficient guard of the k*mu0 = 1 resonance is another constant
 CLD_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def launch_plan(nlay: int, n2d: int, h1, h2, ngpt: int,
+                smem_limit: int = MAX_SMEM) -> LaunchPlan:
+    """Launch geometry of the SW kernel for ``nlay`` layers, ``n2d``
+    layer-varying features, hidden widths ``h1`` and ``h2`` (an int for two
+    nets alike, or the (absorption, Rayleigh) pair) and ``ngpt`` g-points:
+    five fields of nlay x ngpt floats, three rows more, the broadband direct
+    flux, the column's per-layer scalars, and per group the k-major feature
+    rows and both nets' two hidden layers. Raises ValueError in words when
+    the shape does not fit the shared memory or the 128 g-points of a
+    group."""
+    h1a, h1r = (h1, h1) if isinstance(h1, int) else h1
+    h2a, h2r = (h2, h2) if isinstance(h2, int) else h2
+    return plan_groups("sw_clearsky_megakernel", nlay, ngpt,
+                       5 * nlay * ngpt + 3 * ngpt + nlay + 1,
+                       n2d + h1a + h1r + h2a + h2r,
+                       _align4(h1a) + _align4(h1r) + 5 * nlay, smem_limit)
 
 
 def _net_tau(m: NNModel, x2d, const_feats, perm, col_dry):
@@ -84,7 +106,15 @@ def sw_clearsky_megakernel_plain(
     k*mu0 = 1, where float32 loses up to ~10 W/m2); then the direct beam
     and the adding sweeps in the input precision with the exact
     exponential. Canonical top-at-0. Returns (flux_up, flux_dn_total,
-    flux_dn_dir), each (ncol, nlay+1)."""
+    flux_dn_dir), each (ncol, nlay+1).
+
+    The kernel groups two float64 products otherwise, so that no divide of
+    its loop has a zero numerator: the path is tau * (1 / mu0) where this
+    divides by mu0, and rdir / tdir take ssa * (rt_term / denom) where
+    sw_two_stream_coeffs takes ssa * rt_term / denom. Both differ in the
+    last float64 bits only and vanish in the rounding to float32 (kernel
+    against twin is the same to the digit either way); the twin keeps the
+    staged form and is not to be brought in line."""
     if input_mode == "lanes":
         x2d = torch.stack(list(x2d), dim=-1)
     tau_abs = _net_tau(abs_model, x2d, const_feats, perm, col_dry)
@@ -140,8 +170,6 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
     n2d = len(lanes) if lanes else x2d.shape[-1]
     nc = const_feats.shape[1]
     ngpt = abs_model.n_outputs
-    if ngpt > 128:
-        raise ValueError(f"{what}: ngpt {ngpt} > 128 threads per block")
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros((ncol, ngpt), dtype=f32, device=dev)
     checks = [
@@ -194,17 +222,12 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
             ("output_std", m.output_std, (ngpt,)),
         ):
             _check(f"{tag}.{name}", t, shape, f32, dev)
-        # w1a, w1c: new tensors, alive until the launch below is queued
-        nets.append((build.mlp3(w1a, w1c, m), w1a, w1c))
-    (net_a, *_), (net_r, *_) = nets
+        nets.append(build.mlp3(w1a, w1c, m))  # w1a, w1c: kept by the model
+    net_a, net_r = nets
 
+    plan = launch_plan(nlay, n2d, (net_a.h1, net_r.h1), (net_a.h2, net_r.h2), ngpt,
+                       _smem_limit(dev))
     lib = build.library()
-    smem = lib.sw_clearsky_megakernel_smem_bytes(nlay, n2d, net_a.h1, net_a.h2,
-                                                 net_r.h1, net_r.h2, ngpt)
-    limit = _smem_limit(dev)
-    if smem > limit:
-        raise ValueError(f"{what}: {smem} B of shared memory "
-                         f"per block needed, the card allows {limit} (nlay={nlay})")
     up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
     dn_dir = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
@@ -217,7 +240,8 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
         **mode_fields)
     ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.sw_clearsky_megakernel_launch(
-        ref(args), ref(net_a), ref(net_r), ref(cloud), ref(lane_list), MODE_CODES[mode],
+        ref(args), ref(net_a), ref(net_r), ref(build.MegaPlan(*plan)), ref(cloud),
+        ref(lane_list), MODE_CODES[mode],
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"{what} launch")

@@ -316,6 +316,59 @@ def test_cloud_modes_match_twins(dev, ncol, nlay, flavour, mode):
     assert _maxabs(got[2], clear[2]) > 1.0
 
 
+def _mode_calls(dev, ncol, nlay, mode, seed):
+    """[(kernel wrapper, plain twin, args, keywords, tolerance)] of K1 and K2
+    in one mode of the four on one synthesized atmosphere."""
+    lw, lwp = k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain
+    sw, swp = k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain
+    if mode in ("cld_lut", "cld_bands"):
+        (la, lkw), (sa, skw), cloudy = _allsky_args(dev, ncol, nlay, seed,
+                                                    "lut" if mode == "cld_lut" else "pade")
+        assert cloudy > 0.02
+        return [(lw, lwp, la, lkw, LW_ATOL), (sw, swp, sa, skw, SW_ATOL)]
+    if mode == "clear":
+        return [(lw, lwp, _lw_args(dev, ncol, nlay, seed), {}, LW_ATOL),
+                (sw, swp, _sw_args(dev, ncol, nlay, seed + 1), {}, SW_ATOL)]
+    spec = planck.lw_spectral_g128()
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed))
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    args5 = rfmip.lw_mega5_args([load_model_netcdf(LW_MODEL, device=dev)], table, spec,
+                                *rfmip.lw_canonical_inputs(data, spec, dev))
+    sargs = list(_sw_args(dev, ncol, nlay, seed + 1))
+    sargs[2] = [l.contiguous() for l in sargs[2].unbind(-1)]
+    return [(k1.lw_clearsky_mega5, k1.lw_clearsky_mega5_plain, args5, {}, LW_ATOL),
+            (sw, swp, sargs, dict(input_mode="lanes"), SW_ATOL)]
+
+
+# neither 13 nor 61 layers divide into the kernels' four layer groups or
+# their 16 layers per MLP pass: 4 + 4 + 4 + 1 and 16 + 16 + 16 + 13
+@pytest.mark.parametrize("mode", ["clear", "cld_lut", "cld_bands", "lanes"])
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (50, 61)])
+def test_fused_kernels_every_mode_at_ragged_sizes(dev, ncol, nlay, mode):
+    """K1 and K2 in each of their four modes against their twins where no
+    layer group and no pass is full, and bit for bit the same from two
+    launches on the same input (every sum has a fixed order)."""
+    for fn, twin, args, kw, tol in _mode_calls(dev, ncol, nlay, mode, seed=61):
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        again = fn(*args, **kw)
+        for a, b, c in zip(got, twin(*args, **kw), again):
+            assert a.is_cuda and tuple(a.shape) == (ncol, nlay + 1)
+            assert bool(torch.isfinite(a).all())
+            assert _maxabs(a, b) <= tol
+            assert torch.equal(a, c)
+
+
+def test_fused_kernels_take_their_launch_plan(dev):
+    """The plan the wrappers hand to the launch entries is accepted at the
+    sizes whose groups and slabs differ (the entry recomputes the shared
+    memory and refuses a plan that disagrees), down to one layer."""
+    for ncol, nlay in ((3, 1), (5, 2), (4, 5), (2, 33)):
+        for fn, twin, args, kw, tol in _mode_calls(dev, ncol, nlay, "clear", seed=62):
+            for a, b in zip(fn(*args, **kw), twin(*args, **kw)):
+                assert _maxabs(a, b) <= tol
+
+
 @pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60)])
 def test_lane_modes_match_twins(dev, ncol, nlay):
     """K8 (the LW kernel on raw lanes, transform and scaling in the kernel)

@@ -192,9 +192,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
                 p = p.strip()
                 types_.append(kinds["ptr" if "*" in p else p.split()[0]])
             sigs[name] = (ret.strip(), types_)
-    assert set(sigs) == {"lw_clearsky_mega4_launch", "lw_clearsky_mega4_smem_bytes",
-                         "sw_clearsky_megakernel_launch", "sw_clearsky_megakernel_smem_bytes",
-                         "lw_prep_launch",
+    assert set(sigs) == {"lw_clearsky_mega4_launch", "sw_clearsky_megakernel_launch",
+                         "lw_clearsky_mega4_blocks_per_sm",
+                         "sw_clearsky_megakernel_blocks_per_sm", "lw_prep_launch",
                          "mlp_predict_launch", "lw_noscat_broadband_launch",
                          "rte_cuda_error_string"}
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
@@ -232,7 +232,7 @@ def _c_struct_fields(name):
 
 
 @pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs",
-                                  "LwPrepArgs"])
+                                  "LwPrepArgs", "MegaPlan"])
 def test_ctypes_structs_mirror_the_c_structs(name):
     """The fused kernels' launch entries read their arguments from structs;
     build.py's ctypes mirror of each has the C declaration's fields, in its
@@ -489,3 +489,229 @@ def test_cloud_and_lane_wrappers_refuse_other_devices(tmp_path):
     with pytest.raises(ValueError, match="unsupported device"):
         k2.sw_clearsky_megakernel(*sargs, input_mode="lanes")
     assert before == (k1.LAUNCHES, k2.LAUNCHES, k1.MODE_LAUNCHES, k2.MODE_LAUNCHES)
+
+
+# -- the fused kernels' launch geometry -----------------------------------------------------
+
+PLAN_SIZES = [(60, 128), (60, 112), (13, 100), (61, 128), (1, 8)]
+SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+
+
+def _plan(kernel, nlay, ngpt, **kw):
+    """The LW kernel's plan for the g-128 demo net's widths (18 -> 128 -> 128)
+    or the SW kernel's for the g-112 demo nets' (7 -> 48 -> 48)."""
+    if kernel == "lw":
+        return k1.launch_plan(nlay, 18, 128, 128, ngpt, **kw)
+    return k2.launch_plan(nlay, 7, 48, 48, ngpt, **kw)
+
+
+@pytest.mark.parametrize("nlay,ngpt", PLAN_SIZES)
+@pytest.mark.parametrize("kernel", ["lw", "sw"])
+def test_launch_plan_covers_every_layer_once(kernel, nlay, ngpt):
+    """The layer groups of a plan are contiguous, cover every layer exactly
+    once, and the geometry is one the card can launch: whole groups of 128
+    threads, at most 1024 threads, shared memory within the 227 KB of sm_90,
+    and (the kernel's compile-time constant) 16 layers per MLP pass."""
+    plan = _plan(kernel, nlay, ngpt)
+    covered = []
+    for grp in range(plan.groups):
+        lbeg = min(grp * plan.layers_per_group, nlay)
+        covered += range(lbeg, min(lbeg + plan.layers_per_group, nlay))
+    assert covered == list(range(nlay))
+    assert plan.groups in (1, 2, 4) and plan.groups <= max(nlay, 1)
+    assert plan.threads == 128 * plan.groups <= 1024
+    assert plan.rows_per_pass == k1.ROWS_PER_PASS == 16
+    assert 0 < plan.smem_bytes <= SMEM_LIMIT
+    # the LW kernel streams its weights through two slabs of whole rows of
+    # its widest layer, in 16-byte pieces; the SW kernel reads them cached
+    if kernel == "lw":
+        assert plan.slab_floats % 4 == 0 and plan.slab_floats >= 4 * max(128, 2 * ngpt)
+    else:
+        assert plan.slab_floats == 0
+
+
+@pytest.mark.parametrize("kernel", ["lw", "sw"])
+def test_launch_plan_shared_memory_is_the_sum_of_the_kernel_s_regions(kernel):
+    """The plan's bytes are what the kernel lays out (the launch entry
+    recomputes them and refuses a plan that differs): per group the k-major
+    MLP scratch with 20 floats per k, the constant features' share of the
+    first layer, the weights' two slabs, the column's per-layer scalars and
+    the per-layer fields."""
+    nlay, ngpt, stride = 60, 112, k1.ROWS_PER_PASS + k1.ROW_PAD
+    plan = _plan(kernel, nlay, ngpt)
+    if kernel == "lw":
+        floats = (plan.groups * stride * (18 + 128 + 128) + 128 + 2 * plan.slab_floats
+                  + ((7 * nlay + 1 + 3) & ~3) + 3 * nlay * ngpt + ngpt)
+    else:
+        floats = (plan.groups * stride * (7 + 4 * 48) + 2 * 48 + 5 * nlay
+                  + 5 * nlay * ngpt + 3 * ngpt + nlay + 1)
+    assert plan.smem_bytes == 4 * floats
+    assert tuple(plan) == tuple(_plan(kernel, nlay, ngpt, smem_limit=SMEM_LIMIT))
+
+
+def test_launch_plan_takes_fewer_groups_when_the_scratch_is_wide():
+    """Four groups' scratch of two 128-wide SW nets does not fit beside the
+    fields of 60 x 56: the plan takes two groups of 30 layers (two MLP
+    passes each) instead of refusing; an unequal pair of nets counts each
+    net's widths."""
+    plan = k2.launch_plan(60, 7, 128, 128, 56)
+    assert (plan.groups, plan.threads, plan.layers_per_group) == (2, 256, 30)
+    assert plan.smem_bytes <= SMEM_LIMIT < k2.launch_plan(60, 7, 128, 128, 56,
+                                                          smem_limit=10**6).smem_bytes
+    mixed = k2.launch_plan(60, 7, (48, 128), (48, 128), 56)
+    assert mixed.groups == 4
+    assert k2.launch_plan(60, 7, 48, 48, 56).smem_bytes < mixed.smem_bytes <= SMEM_LIMIT
+    # a smaller card limit costs the weights' slabs their size, then groups,
+    # then raises
+    assert _plan("lw", 60, 128, smem_limit=200_000).slab_floats < _plan("lw", 60, 128).slab_floats
+    assert _plan("lw", 60, 128, smem_limit=180_000).groups == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan("lw", 60, 128, smem_limit=100_000)
+
+
+@pytest.mark.parametrize("kernel", ["lw", "sw"])
+@pytest.mark.parametrize("case,match", [
+    (dict(nlay=400, ngpt=128), "too many layers"),
+    (dict(nlay=60, ngpt=129), "ngpt 129 > 128"),
+    (dict(nlay=60, ngpt=112, wide=2048), "net is too wide"),
+    (dict(nlay=0, ngpt=112), "must be positive"),
+])
+def test_launch_plan_refuses_in_words(kernel, case, match):
+    """What does not fit is refused with the reason: the fields of too many
+    layers, more g-points than a group has threads, a net so wide that its
+    scratch no longer fits beside the fields."""
+    wide = case.get("wide")
+    with pytest.raises(ValueError, match=match):
+        if kernel == "lw":
+            k1.launch_plan(case["nlay"], 18, wide or 128, wide or 128, case["ngpt"])
+        else:
+            k2.launch_plan(case["nlay"], 7, wide or 48, wide or 48, case["ngpt"])
+
+
+def test_mega_plan_struct_takes_the_plan_field_by_field():
+    """build.MegaPlan(*plan) fills the C struct's fields in the named
+    tuple's order."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    plan = k1.launch_plan(60, 18, 128, 128, 128)
+    c = build.MegaPlan(*plan)
+    assert [n for n, _ in build.MegaPlan._fields_] == list(plan._fields)
+    assert all(getattr(c, n) == v for n, v in plan._asdict().items())
+
+
+@pytest.mark.parametrize("mode", ["clear", "cld_lut", "cld_bands", "lanes"])
+def test_wrappers_off_the_cpu_reach_the_launch_in_every_mode(monkeypatch, mode):
+    """A tensor that is not on the CPU takes the kernel's launch, in the mode
+    the arguments select, and never a plain twin (each twin raises here)."""
+    calls = []
+
+    def twin(*a, **k):
+        raise AssertionError("a plain twin ran for a tensor that is not on the CPU")
+
+    for mod in (k1, k2):
+        monkeypatch.setattr(mod, "_launch", lambda m, *a, _mod=mod.__name__, **k: calls.append((_mod, m)) or ())
+    for name in ("lw_clearsky_mega4_plain", "lw_clearsky_mega5_plain"):
+        monkeypatch.setattr(k1, name, twin)
+    monkeypatch.setattr(k2, "sw_clearsky_megakernel_plain", twin)
+    args = list(_lw_case(CPU, ncol=3, nlay=4))
+    sargs = list(_sw_case(CPU, ncol=3, nlay=4)[0])
+    x, sx = args[1].to("meta"), sargs[2].to("meta")
+    band = torch.zeros((4, 3, 16), device="meta")
+    lut = (band, band, (0.0, 1.0, 0.0, 1.0))
+    if mode == "lanes":
+        k1.lw_clearsky_mega5(args[0], list(x.unbind(-1)), (0,) * 9, None, *args[2:5], args[5],
+                             *args[7:])
+        sargs[2] = list(sx.unbind(-1))
+        k2.sw_clearsky_megakernel(*sargs, input_mode="lanes")
+    else:
+        kw = {"clear": {}, "cld_bands": dict(cld_tau_band=band),
+              "cld_lut": dict(cld_fields=(band,) * 4, cld_lut=lut)}[mode]
+        k1.lw_clearsky_mega4(args[0], x, *args[2:], **kw)
+        skw = {"clear": {}, "cld_bands": dict(cld_bands=(band,) * 3, gpt2band=band),
+               "cld_lut": dict(cld_fields=(band,) * 4, cld_lut=lut, gpt2band=band)}[mode]
+        sargs[2] = sx
+        k2.sw_clearsky_megakernel(*sargs, **skw)
+    assert calls == [(k1.__name__, mode), (k2.__name__, mode)]
+
+
+@pytest.mark.parametrize("constant,value", [
+    ("kGroup", k1.GROUP_THREADS), ("kMaxGroups", k1.MAX_GROUPS), ("kMegaRows", k1.ROWS_PER_PASS),
+    ("kRowPad", k1.ROW_PAD), ("kMaxSmem", k1.MAX_SMEM),
+])
+def test_plan_constants_mirror_the_c_header(constant, value):
+    """launch_plan reckons with the constants the kernels are compiled with
+    (csrc/common.cuh)."""
+    import re
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    text = (build.CSRC_DIR / "common.cuh").read_text()
+    found = re.findall(rf"constexpr int {constant} = (\d+);", text)
+    assert found == [str(value)]
+
+
+@pytest.mark.parametrize("entry", ["lw_clearsky_mega4", "sw_clearsky_megakernel"])
+def test_blocks_per_sm_asks_the_library(monkeypatch, entry):
+    """build.blocks_per_sm hands the plan, the mode and the device to the
+    kernel's occupancy entry and returns the count that entry wrote; a CUDA
+    error raises."""
+    import types
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    plan = k1.launch_plan(60, 18, 128, 128, 128)
+    seen = []
+
+    def occupancy(plan_ref, mode, device, blocks_ref):
+        seen.append((plan_ref._obj.threads, plan_ref._obj.smem_bytes, mode, device))
+        blocks_ref._obj.value = 1
+        return 0 if mode < 4 else 1
+
+    lib = types.SimpleNamespace(**{f"{entry}_blocks_per_sm": occupancy},
+                                rte_cuda_error_string=lambda err: b"invalid argument")
+    monkeypatch.setattr(build, "_lib", lib)
+    assert build.blocks_per_sm(entry, plan, 2, 0) == 1
+    assert seen == [(plan.threads, plan.smem_bytes, 2, 0)]
+    with pytest.raises(RuntimeError, match="occupancy: CUDA error 1"):
+        build.blocks_per_sm(entry, plan, 4, 0)
+
+
+def test_split_first_layer_is_made_once_and_kept_with_the_model():
+    """The first-layer split is made once per (permutation, n2d) and kept
+    with the model: a fused-kernel call then copies no index from the host
+    (which would make it wait for the card) and gathers nothing. The rows
+    are the weight's in the permutation's order."""
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as g
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    model = load_model_netcdf(SW_MODEL, device=CPU)
+    perm = [3, 0, 6, 2, 5, 1, 4]
+    w1a, w1c = g.split_first_layer(model, perm, 4)
+    again = g.split_first_layer(model, tuple(perm), 4)
+    assert again[0] is w1a and again[1] is w1c
+    assert list(model.first_layer_splits) == [((3, 0, 6, 2, 5, 1, 4), 4)]
+    w1 = model.weights[0]
+    assert torch.equal(w1a, w1[[3, 0, 6, 2]]) and torch.equal(w1c, w1[[5, 1, 4]])
+    assert w1a.is_contiguous() and w1c.is_contiguous()
+    # another split of the same permutation is another entry; no const
+    # feature gives one zero row
+    w1a7, w1c7 = g.split_first_layer(model, perm, 7)
+    assert torch.equal(w1a7, w1[perm]) and torch.equal(w1c7, torch.zeros((1, w1.shape[1])))
+    assert len(model.first_layer_splits) == 2
+
+
+def test_split_first_layer_is_dropped_when_the_model_moves():
+    """to() / double() replace the model's tensors, so the kept splits go
+    with them and the next call splits the new weight."""
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as g
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    model = load_model_netcdf(SW_MODEL, device=CPU)
+    perm = [3, 0, 6, 2, 5, 1, 4]
+    w1a, _ = g.split_first_layer(model, perm, 4)
+    assert w1a.dtype == torch.float32
+    model.double()
+    assert model.first_layer_splits == {}
+    w1a64, w1c64 = g.split_first_layer(model, perm, 4)
+    assert w1a64.dtype == w1c64.dtype == torch.float64
+    assert torch.equal(w1a64, model.weights[0][[3, 0, 6, 2]])
