@@ -90,16 +90,20 @@ non-zero and prints no result line):
      loaded function; K2's time at a quarter, half and all of the layers
      (7200 columns, so that the card and not the host is read), for the
      share of its time that grows with the layers (the coefficients, the
-     sweeps and the level sums: the nets run one pass at all three).
+     sweeps and the level sums: the nets run one pass at all three);
+ 19. K3-K6's launch plans, ptxas counts and blocks per SM as in phase 18,
+     and their times at 7200 columns (a kernel under 0.3 ms at 1800
+     columns reads the host).
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
 path, or for K8 and K9 a core or the wrapper, since no driver reaches
 them), its error against the twin, its time, the twin's, and the
 least time the card could take (``bound_ms``: bytes moved once over 3.35
-TB/s, or operations over 67 TFLOP/s float32, whichever is larger); the fused
-kernels' entries also have ``threads``, ``smem_bytes``, ``blocks_per_sm``,
-``registers`` and ``spill_bytes``.
+TB/s, or operations over 67 TFLOP/s float32, whichever is larger); the
+entries of the fused kernels and of K3-K6 also have ``threads``,
+``smem_bytes``, ``blocks_per_sm``, ``registers`` and ``spill_bytes``, and
+K3-K6's ``ms_wide``, the time of a call at 7200 columns.
 
 The models are the repository's in-repo stand-ins (artifacts/): the g-128
 LW demo net; the g-112 SW absorption demo net, used as both the absorption
@@ -301,29 +305,49 @@ def hold(name, kernel, twin, twin64, rtol, atol) -> dict:
     return r
 
 
+def mlp_inputs(dev, data, *models) -> tuple:
+    """(col_dry (ncol, nlay), the NN inputs of each model) of an RFMIP-like
+    atmosphere: what K3 / K4 / K5 take on the general path."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128
+
+    play, plev, tlay, _, _, _, concs = rfmip.lw_staged_inputs(data, lw_spectral_g128(), dev)
+    gases = GasConcs(concs)
+    col_dry = go.get_col_dry(gases.get_vmr("h2o", play.shape[0], play.shape[1]), plev)
+    return (col_dry,) + tuple(go.compute_nn_inputs(play, tlay, gases, m) for m in models)
+
+
+def k6_args(dev, data, lw_model, table, lw_spec) -> tuple:
+    """lw_prep's arguments (layer-major) on an RFMIP-like atmosphere."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+
+    play_t, plev_t, tlay_t, tlev_t, tsfc, _, concs_t = rfmip.lw_canonical_inputs(data, lw_spec, dev)
+    gases = GasConcs(concs_t)
+    nlay, ncol = tlay_t.shape
+    col_dry = go.get_col_dry_lay_major(gases.get_vmr("h2o", nlay, ncol), plev_t).contiguous()
+    x = go.compute_nn_inputs(play_t, tlay_t, gases, lw_model).contiguous()
+    return (lw_model, x, col_dry, table.interpolate(tlay_t), table.interpolate(tlev_t),
+            table.interpolate(tsfc), lw_spec.gpt2band_tensor(dev))
+
+
 def mlp_phase(dev, lw_model, sw_model, data) -> tuple[dict, dict, dict]:
     """Phase 7: K3/K4/K5 against their twins on the full-size NN inputs.
     Returns (max |kernel - twin| per kernel, the timing closures, each
     kernel's bound at the timed shapes)."""
     import torch
 
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
-    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
-    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf, nn_model_from_arrays
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
     from rte_rrtmgp_nn_tpu_torch.testing import (
         ALL_ACTIVATIONS, float64_copy, model_arrays, random_gas_optics_net_arrays,
         split_lw_both_arrays)
 
-    play, plev, tlay, _, _, _, concs = rfmip.lw_staged_inputs(data, lw_spectral_g128(), dev)
-    gases = GasConcs(concs)
-    col_dry = go.get_col_dry(gases.get_vmr("h2o", NCOL, NLAY), plev)
-    x_lw = go.compute_nn_inputs(play, tlay, gases, lw_model)
-    x_sw = go.compute_nn_inputs(play, tlay, gases, sw_model)
     pair = [load_model_netcdf(p, device=dev) for p in SW_PAIR]
-    x_pair = go.compute_nn_inputs(play, tlay, gases, pair[0])
+    col_dry, x_lw, x_sw, x_pair = mlp_inputs(dev, data, lw_model, sw_model, pair[0])
     deep = nn_model_from_arrays(*random_gas_optics_net_arrays(
         (18,) + (128,) * 7 + (256,), ALL_ACTIVATIONS + ("linear",), seed=SEED), device=dev)
     tau_net = nn_model_from_arrays(*split_lw_both_arrays(*model_arrays(lw_model))[0], device=dev)
@@ -1151,6 +1175,65 @@ def geometry_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar
     return geometry
 
 
+def kernels_wide_phase(dev, card, lw_model, sw_model, table, lw_spec) -> tuple[dict, dict]:
+    """Phase 19: K3-K6's launch plans, ptxas counts and the blocks per SM the
+    runtime's occupancy call gives, and their times at four times the
+    columns (a kernel under 0.3 ms at NCOL columns reads the host's time to
+    queue a call). Returns (geometry entry per kernel, ms per call at
+    4 x NCOL columns)."""
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.models.network import nn_model_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.testing import model_arrays, split_lw_both_arrays, synthesize_rfmip
+
+    ncol = 4 * NCOL
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, NLAY, SEED, top_at_1=True))
+    tau_net = nn_model_from_arrays(*split_lw_both_arrays(*model_arrays(lw_model))[0], device=dev)
+    col_dry, x_lw, x_sw = mlp_inputs(dev, data, lw_model, sw_model)
+    args = k6_args(dev, data, lw_model, table, lw_spec)
+    smem = k1._smem_limit(dev)
+    calls = {
+        "k3": (lambda: mlp.fused_predict_lw_both(lw_model, x_lw, col_dry), (lw_model.dims,)),
+        "k4": (lambda: mlp.fused_predict_tau(tau_net, x_lw, col_dry), (tau_net.dims,)),
+        "k5": (lambda: mlp.fused_predict_sw(sw_model, sw_model, x_sw, col_dry),
+               (sw_model.dims, sw_model.dims)),
+    }
+    geometry, wide = {}, {}
+    for k, (fn, dims) in calls.items():
+        plan = mlp.mlp_launch_plan(*map(tuple, dims), smem_limit=smem)
+        res = build.kernel_resources("mlp_kernel", plan.rows)
+        require(bool(res), f"{k}: the build's ptxas output has no entry for mlp_kernel<{plan.rows}>")
+        blocks = build.blocks_per_sm("mlp_predict", plan, 0, dev.index)
+        require(blocks >= 1, f"{k}: the runtime keeps no block of this plan on an SM")
+        geometry[k] = {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                       "blocks_per_sm": blocks, **res}
+        print(f"geometry {k}: {plan.threads} threads, {plan.rows} rows per block, activations "
+              f"{plan.width} wide, {plan.smem_bytes} B of shared memory (weight slabs 2 x "
+              f"{4 * plan.slab_floats} B), {res['registers']} registers, {res['spill_bytes']} B "
+              f"spill, {blocks} block(s) per SM by the runtime's occupancy call")
+        wide[k] = cuda_ms(fn)
+    _, x, *_ = args
+    dims = lw_model.dims
+    plan = k6.lw_prep_plan(NLAY, x.shape[-1], dims[1], dims[2], lw_spec.ngpt, smem)
+    res = build.kernel_resources("lw_prep_kernel")
+    require(bool(res), "k6: the build's ptxas output has no entry for lw_prep_kernel")
+    blocks = build.blocks_per_sm("lw_prep", plan, 0, dev.index)
+    require(blocks >= 1, "k6: the runtime keeps no block of this plan on an SM")
+    geometry["k6"] = {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                      "blocks_per_sm": blocks, **res}
+    print(f"geometry k6: {plan.threads} threads in {plan.groups} layer groups of "
+          f"{plan.layers_per_group} layers, {plan.smem_bytes} B of shared memory (weight slabs "
+          f"2 x {4 * plan.slab_floats} B), {res['registers']} registers, {res['spill_bytes']} B "
+          f"spill, {blocks} block(s) per SM by the runtime's occupancy call")
+    wide["k6"] = cuda_ms(lambda: k6.lw_prep(*args))
+    for k, ms in wide.items():
+        print(f"timing {k} at {ncol}x{NLAY}: {ms:.4f} ms, {ms / 4:.4f} ms per {NCOL} columns | {card}")
+    return geometry, wide
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
@@ -1191,8 +1274,6 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
 
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
-    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
-    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
@@ -1202,12 +1283,8 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
 
     # ---- 14. K6 vs plain ----------------------------------------------------
     play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band, concs_t = lw_in
-    gases = GasConcs(concs_t)
-    col_dry = go.get_col_dry_lay_major(gases.get_vmr("h2o", NLAY, NCOL), plev_t).contiguous()
-    x = go.compute_nn_inputs(play_t, tlay_t, gases, lw_model).contiguous()
-    g2b = lw_spec.gpt2band_tensor(dev)
-    args = (lw_model, x, col_dry, table.interpolate(tlay_t), table.interpolate(tlev_t),
-            table.interpolate(tsfc), g2b)
+    args = k6_args(dev, main[True][0], lw_model, table, lw_spec)
+    _, x, col_dry, *_, g2b = args
     got = k6.lw_prep(*args)
     torch.cuda.synchronize()
     ref = k6.lw_prep_plain(*args)
@@ -1694,6 +1771,11 @@ def run() -> dict:
     for k, g in geometry_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar,
                                lw_args, sw_args).items():
         results[k].update(g)
+
+    # ---- 19. K3-K6: geometry, and their times at four times the columns ---------------
+    geometry, wide = kernels_wide_phase(dev, card, lw_model, sw_model, table, lw_spec)
+    for k, g in geometry.items():
+        results[k].update(g, ms_wide=wide[k])
 
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])

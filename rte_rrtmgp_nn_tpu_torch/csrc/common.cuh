@@ -1,21 +1,20 @@
-// Device helpers shared by the fused kernels (lw_megakernel.cu,
-// sw_megakernel.cu, lw_prep.cu): the 3-layer softsign MLP evaluated for a few
-// layers of one column at a time, the totplnk interpolation, and the
-// per-level spectral sums.
+// Device helpers shared by the kernels (lw_megakernel.cu, sw_megakernel.cu,
+// lw_prep.cu, mlp.cu): the tiled MLP with its weights read through the cache
+// or streamed through shared memory, the totplnk interpolation, the cloud
+// lookup, and the per-level spectral sums.
 //
-// Layout rules: one thread block per column, one thread per g-point
-// (kThreads >= ngpt; threads at g >= ngpt only help with the MLP hidden
-// layers and the reductions). Weights are (n_in, n_out) row-major in device
-// memory and are read through the cache: neighbouring threads read
-// neighbouring output columns, so every weight load is coalesced.
+// Layout rules of the fused kernels: one thread block per column, layer
+// groups of one thread per g-point (threads at g >= ngpt only help with the
+// MLP and the reductions). Weights are (n_in, n_out) row-major in device
+// memory; neighbouring threads take neighbouring output columns, so every
+// weight load is coalesced.
 //
-// Two MLP evaluations live here. mlp_hidden / mlp_out (lw_prep.cu) keep
-// kRows rows row-major in shared memory: one weight load and kRows scalar
-// shared-memory loads per kRows multiply-adds. The tiled one (lw_megakernel.cu,
-// sw_megakernel.cu; "the tiled MLP" below) keeps kMegaRows rows k-major, so
-// that a thread reads its rows of one k as float4s that the whole warp
-// shares, and gives each thread a register tile of rows x output columns:
-// 16 to 32 multiply-adds for 3 load instructions.
+// The tiled MLP ("the tiled MLP" below) keeps the rows of a pass k-major in
+// shared memory, so that a thread reads its rows of one k as float4s that the
+// whole warp shares, and gives each thread a register tile of rows x output
+// columns: 16 to 32 multiply-adds for 3 load instructions. The fused kernels
+// take kMegaRows rows per pass and softsign; the generic MLP kernel (mlp.cu)
+// sets the rows of a pass and the activation as template parameters.
 //
 // Arithmetic is IEEE float32, compiled without --use_fast_math (expf, '/'
 // and sqrtf correctly rounded), with one exception: the SW kernel's
@@ -28,8 +27,6 @@
 
 namespace rte {
 
-constexpr int kThreads = 128;  // threads per block: one per g-point
-constexpr int kRows = 4;       // layers per MLP pass: each weight load serves kRows rows
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
 
 // One 3-layer MLP: softsign, softsign, linear. The first layer is split into
@@ -50,6 +47,11 @@ struct Mlp3 {
 
 __device__ __forceinline__ float softsign(float x) { return x / (1.0f + fabsf(x)); }
 
+// The fused kernels' hidden activation, as the tiled MLP's default.
+struct Softsign {
+  __device__ __forceinline__ float operator()(float x) const { return softsign(x); }
+};
+
 // s_hc[j] = sum_k cf[k] * w1c[k, j]: the constant features' share of the
 // first-layer pre-activation, once per column. No barrier.
 __device__ inline void mlp_const_part(const Mlp3& m, const float* cf, int nc, float* s_hc) {
@@ -58,64 +60,6 @@ __device__ inline void mlp_const_part(const Mlp3& m, const float* cf, int nc, fl
     for (int k = 0; k < nc; ++k) acc = fmaf(cf[k], m.w1c[k * m.h1 + j], acc);
     s_hc[j] = acc;
   }
-}
-
-// Hidden layers for kRows rows: s_x (kRows, n_in) -> s_h2 (kRows, h2) via
-// s_h1 (kRows, h1). The caller makes s_x and s_hc visible first; this
-// function ends with a barrier, after which s_h2 is readable by all.
-// kRank1 takes the first layer as the raw-lane Pallas kernel does: starting
-// from the const block's share plus the bias, one rounded product and one
-// rounded sum per feature, in feature order (no fused multiply-add), so the
-// raw-lane mode rounds as its plain version does.
-template <bool kRank1 = false>
-__device__ inline void mlp_hidden(const Mlp3& m, const float* s_x, int n_in, const float* s_hc,
-                                  float* s_h1, float* s_h2) {
-  for (int j = threadIdx.x; j < m.h1; j += blockDim.x) {
-    float acc[kRows];
-    const float hc = s_hc[j], b = __ldg(m.b1 + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = kRank1 ? hc + b : 0.0f;
-    for (int k = 0; k < n_in; ++k) {
-      const float w = __ldg(m.w1a + k * m.h1 + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        acc[r] = kRank1 ? __fadd_rn(acc[r], __fmul_rn(s_x[r * n_in + k], w))
-                        : fmaf(s_x[r * n_in + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      s_h1[r * m.h1 + j] = softsign(kRank1 ? acc[r] : (acc[r] + hc) + b);
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < m.h2; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < m.h1; ++k) {
-      const float w = __ldg(m.w2 + k * m.h2 + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h1[r * m.h1 + k], w, acc[r]);
-    }
-    const float b = __ldg(m.b2 + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s_h2[r * m.h2 + j] = softsign(acc[r] + b);
-  }
-  __syncthreads();
-}
-
-// Raw output column o of the last layer for the kRows rows.
-__device__ inline void mlp_out(const Mlp3& m, const float* s_h2, int o, float y[kRows]) {
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < m.h2; ++k) {
-    const float w = __ldg(m.w3 + k * m.nout + o);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h2[r * m.h2 + k], w, acc[r]);
-  }
-  const float b = __ldg(m.b3 + o);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) y[r] = acc[r] + b;
 }
 
 // a / b for finite b > 0, the IEEE quotient. The divide's straight-line code
@@ -132,17 +76,6 @@ __device__ __forceinline__ float tau_post(float y, float ystd, float ymean) {
   const float y2 = yt * yt;
   const float y4 = y2 * y2;
   return y4 * y4;
-}
-
-// Rows [l0, l0 + kRows) of the layer-major feature array x (nlay, ncol, n_in)
-// for column col into s_x (kRows, n_in); rows past nlay are zero. No barrier.
-__device__ inline void load_rows(const float* x, int l0, int nlay, int ncol, int col, int n_in,
-                                 float* s_x) {
-  for (int i = threadIdx.x; i < kRows * n_in; i += blockDim.x) {
-    const int r = i / n_in, k = i - r * n_in;
-    const int l = l0 + r;
-    s_x[i] = l < nlay ? x[((size_t)l * ncol + col) * n_in + k] : 0.0f;
-  }
 }
 
 // The fused kernels' input and cloud modes (template parameter of both).
@@ -278,7 +211,10 @@ __device__ inline void level_sums(const float* s_f, int nrow, int ngpt, float sc
 // tiles load less, but they leave warps without work, and on an H100 the
 // warps in flight count for more (scripts/tune_megakernel_tiles.py, PERF.md).
 // Every output's sum runs over k in ascending order in one accumulator with
-// fmaf, as mlp_hidden / mlp_out do and as cuBLAS rounds.
+// fmaf, as cuBLAS rounds. The streamed functions below take the rows of a
+// pass as the template parameter kPassRows (the stride from one k to the next
+// is kPassRows + kRowPad) and the hidden activation as a functor; the
+// defaults are the fused kernels'.
 constexpr int kGroup = 128;    // threads of one layer group: one per g-point
 constexpr int kMaxGroups = 4;  // layer groups of a block: at most 512 threads
 constexpr int kMegaRows = 16;  // layers per MLP pass of a group
@@ -370,9 +306,9 @@ __device__ __forceinline__ void load_weights(const float* __restrict__ wk, int c
 }
 
 // R rows of one k as float4s (s points at the tile's first row of k = 0).
-template <int R>
+template <int R, int kStride = kRowStride>
 __device__ __forceinline__ void load_rows_of_k(const float* s, int k, float (&x)[R]) {
-  const float4* p = reinterpret_cast<const float4*>(s + k * kRowStride);
+  const float4* p = reinterpret_cast<const float4*>(s + k * kStride);
 #pragma unroll
   for (int q = 0; q < R / 4; ++q) {
     const float4 v = p[q];
@@ -383,13 +319,13 @@ __device__ __forceinline__ void load_rows_of_k(const float* s, int k, float (&x)
 // acc[c][r] += sum over k in [k0, k0 + kc) of s_in[k][r] * w[k - k0, c0 + c],
 // in ascending k: w points at row k0 of the weights (device memory if kLdg,
 // else a shared-memory slab that starts at row k0).
-template <int R, int C, bool kVec, bool kRank1, bool kLdg>
+template <int R, int C, bool kVec, bool kRank1, bool kLdg, int kStride = kRowStride>
 __device__ __forceinline__ void tile_k_loop(const float* __restrict__ w, int k0, int kc, int n_out,
                                             int c0, const float* s_in, float (&acc)[C][R]) {
 #pragma unroll 4
   for (int k = 0; k < kc; ++k) {
     float x[R], wv[C];
-    load_rows_of_k<R>(s_in, k0 + k, x);
+    load_rows_of_k<R, kStride>(s_in, k0 + k, x);
     load_weights<C, kVec, kLdg>(w + (size_t)k * n_out, c0, n_out, wv);
 #pragma unroll
     for (int c = 0; c < C; ++c)
@@ -415,21 +351,21 @@ __device__ __forceinline__ void tile_begin(const float* __restrict__ bias, const
   }
 }
 
-template <int R, int C, bool kRank1>
+template <int R, int C, bool kRank1, int kStride = kRowStride, class Act = Softsign>
 __device__ __forceinline__ void tile_end(const float (&acc)[C][R], const float (&hc)[C],
                                          const float (&b)[C], bool has_hc, int n_out, int c0,
-                                         float* s_tile) {
+                                         float* s_tile, Act act = Act()) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (c0 + c >= n_out) break;
-    float4* out = reinterpret_cast<float4*>(s_tile + c * kRowStride);
+    float4* out = reinterpret_cast<float4*>(s_tile + c * kStride);
 #pragma unroll
     for (int q = 0; q < R / 4; ++q) {
       float v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = acc[c][4 * q + i];
-        v[i] = softsign(kRank1 ? a : has_hc ? (a + hc[c]) + b[c] : a + b[c]);
+        v[i] = act(kRank1 ? a : has_hc ? (a + hc[c]) + b[c] : a + b[c]);
       }
       out[q] = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -437,12 +373,16 @@ __device__ __forceinline__ void tile_end(const float (&acc)[C][R], const float (
 }
 
 // One hidden layer for the kMegaRows rows of a pass: s_in[k][row] (n_in) ->
-// s_out[j][row] = softsign(sum_k s_in[k][row] * w[k, j] (+ s_hc[j]) + bias[j])
+// s_out[j][row] = act(sum_k s_in[k][row] * w[k, j] (+ s_hc[j]) + bias[j])
 // for j < n_out, by ``nthr`` threads of which this is number ``tid``: each
 // takes tiles of R rows x C neighbouring output columns. s_hc is the
 // per-column constant features' share of the first layer (mlp_const_part),
-// null for the second layer. kRank1 as in mlp_hidden. The caller places a
-// barrier before (s_in complete) and after (s_out read by others).
+// null for the other layers. kRank1 takes the first layer as the raw-lane
+// Pallas kernel does: starting from the const block's share plus the bias,
+// one rounded product and one rounded sum per feature, in feature order (no
+// fused multiply-add), so that the raw-lane mode rounds as its plain version
+// does. The caller places a barrier before (s_in complete) and after (s_out
+// read by others).
 template <int R, int C, bool kRank1>
 __device__ inline void mlp_layer_tiled(const float* __restrict__ w, const float* __restrict__ bias,
                                        const float* s_hc, int n_in, int n_out, const float* s_in,
@@ -557,18 +497,18 @@ __device__ __forceinline__ void stream_slabs(WeightStream& ws, const float* w, i
   }
 }
 
-// mlp_layer_tiled with the weights streamed through shared memory: called by
-// every thread of the block (tid, nthr: this thread's number among the
-// threads that share s_in / s_out, its layer group). Ends without a barrier:
-// the next stream_slabs places one.
-template <int R, int C, bool kRank1>
+// mlp_layer_tiled with the weights streamed through shared memory, for kPassRows
+// rows a pass: called by every thread of the block (tid, nthr: this thread's
+// number among the threads that share s_in / s_out, its layer group or the
+// block). Ends without a barrier: the next stream_slabs places one.
+template <int R, int C, bool kRank1, int kPassRows = kMegaRows, class Act = Softsign>
 __device__ inline void mlp_layer_staged(WeightStream& ws, const float* __restrict__ w,
                                         const float* __restrict__ bias, const float* s_hc, int n_in,
                                         int n_out, const float* s_in, float* s_out, int tid,
                                         int nthr, const float* next, int next_n_in,
-                                        int next_n_out) {
-  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
-  constexpr int kRowTiles = kMegaRows / R;
+                                        int next_n_out, Act act = Act()) {
+  static_assert(kPassRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kPassRows / R, kStride = kPassRows + kRowPad;
   const int nct = (n_out + C - 1) / C, ntiles = nct * kRowTiles;
   const bool vec = n_out % C == 0;
   // a thread keeps one tile's sums across the slabs; more tiles than threads
@@ -584,25 +524,29 @@ __device__ inline void mlp_layer_staged(WeightStream& ws, const float* __restric
     stream_slabs(ws, w, n_in, n_out, last ? next : w, last ? next_n_in : n_in,
                  last ? next_n_out : n_out, [&](const float* slab, int k0, int kc) {
                    if (!has) return;
-                   if (vec) tile_k_loop<R, C, true, kRank1, false>(slab, k0, kc, n_out, c0, s_rows, acc);
-                   else tile_k_loop<R, C, false, kRank1, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                   if (vec)
+                     tile_k_loop<R, C, true, kRank1, false, kStride>(slab, k0, kc, n_out, c0,
+                                                                     s_rows, acc);
+                   else
+                     tile_k_loop<R, C, false, kRank1, false, kStride>(slab, k0, kc, n_out, c0,
+                                                                      s_rows, acc);
                  });
     if (has)
-      tile_end<R, C, kRank1>(acc, hc, b, s_hc != nullptr, n_out, c0,
-                             s_out + c0 * kRowStride + rt * R);
+      tile_end<R, C, kRank1, kStride>(acc, hc, b, s_hc != nullptr, n_out, c0,
+                                      s_out + c0 * kStride + rt * R, act);
   }
 }
 
-// mlp_last_tiled with the weights streamed through shared memory: called by
-// every thread of the block, with its number among its layer group's
-// threads.
-template <int R, int C, class End>
+// mlp_last_tiled with the weights streamed through shared memory, for kPassRows
+// rows a pass: called by every thread of the block, with its number among the
+// threads that share s_in.
+template <int R, int C, int kPassRows = kMegaRows, class End>
 __device__ __forceinline__ void mlp_last_staged(WeightStream& ws, const float* __restrict__ w,
                                                 int n_in, int n_out, const float* s_in, int tid,
                                                 int nthr, const float* next, int next_n_in,
                                                 int next_n_out, End end) {
-  static_assert(kMegaRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
-  constexpr int kRowTiles = kMegaRows / R;
+  static_assert(kPassRows % R == 0 && R % 4 == 0, "row tiles are float4s of a pass");
+  constexpr int kRowTiles = kPassRows / R, kStride = kPassRows + kRowPad;
   const int nct = (n_out + C - 1) / C, ntiles = nct * kRowTiles;
   const bool vec = n_out % C == 0;
   for (int t0 = 0; t0 < ntiles; t0 += nthr) {
@@ -619,14 +563,64 @@ __device__ __forceinline__ void mlp_last_staged(WeightStream& ws, const float* _
     stream_slabs(ws, w, n_in, n_out, last ? next : w, last ? next_n_in : n_in,
                  last ? next_n_out : n_out, [&](const float* slab, int k0, int kc) {
                    if (!has) return;
-                   if (vec) tile_k_loop<R, C, true, false, false>(slab, k0, kc, n_out, c0, s_rows, acc);
-                   else tile_k_loop<R, C, false, false, false>(slab, k0, kc, n_out, c0, s_rows, acc);
+                   if (vec)
+                     tile_k_loop<R, C, true, false, false, kStride>(slab, k0, kc, n_out, c0,
+                                                                    s_rows, acc);
+                   else
+                     tile_k_loop<R, C, false, false, false, kStride>(slab, k0, kc, n_out, c0,
+                                                                     s_rows, acc);
                  });
     if (has) {
 #pragma unroll
       for (int c = 0; c < C; ++c)
         if (c0 + c < n_out) end(rt * R, c0 + c, acc[c]);
     }
+  }
+}
+
+// Phase A's first loop of the LW kernels (lw_megakernel.cu, lw_prep.cu): a
+// "lw_both" net (Mlp3, weights streamed) over this layer group's layers
+// [lbeg, lend), kMegaRows a pass; every group runs every pass (the weights'
+// slabs are the block's), and a group with no layer left computes on repeated
+// rows and stores nothing. load(l0) fills s_x with the rows from l0
+// (load_rows_kmajor or load_rows_lanes_kmajor). The last layer leaves (ystd*y
+// + ymean)**8 of the tau columns in s_y8 and the square of the
+// Planck-fraction columns in s_pf, each (nlay, ngpt); after it the stream
+// copies the first layer for the next pass, nothing at the end. On entry the
+// first slab of m.w1a is on its way; ends without a barrier.
+template <bool kRank1, class Load>
+__device__ __forceinline__ void lw_both_nets(WeightStream& ws, const Mlp3& m, const float* s_hc,
+                                             int n2d, int ngpt, int lbeg, int lend,
+                                             int layers_per_group, float* s_x, float* s_h1,
+                                             float* s_h2, float* s_y8, float* s_pf, int gtid,
+                                             Load load) {
+  const int npass = (layers_per_group + kMegaRows - 1) / kMegaRows;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int l0 = lbeg + pass * kMegaRows;
+    load(l0);
+    mlp_layer_staged<kTileR, kTileC, kRank1>(ws, m.w1a, m.b1, s_hc, n2d, m.h1, s_x, s_h1, gtid,
+                                             kGroup, m.w2, m.h1, m.h2);
+    mlp_layer_staged<kTileR, kTileC, false>(ws, m.w2, m.b2, nullptr, m.h1, m.h2, s_h1, s_h2, gtid,
+                                            kGroup, m.w3, m.h2, m.nout);
+    const bool more = pass + 1 < npass;
+    mlp_last_staged<kOutR, kOutC>(
+        ws, m.w3, m.h2, m.nout, s_h2, gtid, kGroup, more ? m.w1a : nullptr, n2d, m.h1,
+        [&](int row0, int c, const float (&sum)[kOutR]) {
+          const float b = __ldg(m.b3 + c);
+          if (c < ngpt) {
+            const float ostd = __ldg(m.ostd + c), omean = __ldg(m.omean + c);
+#pragma unroll
+            for (int r = 0; r < kOutR; ++r)
+              if (l0 + row0 + r < lend)
+                s_y8[(l0 + row0 + r) * ngpt + c] = tau_post(sum[r] + b, ostd, omean);
+          } else {
+#pragma unroll
+            for (int r = 0; r < kOutR; ++r) {
+              const float y = sum[r] + b;
+              if (l0 + row0 + r < lend) s_pf[(l0 + row0 + r) * ngpt + c - ngpt] = y * y;
+            }
+          }
+        });
   }
 }
 

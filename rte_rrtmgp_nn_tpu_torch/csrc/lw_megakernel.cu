@@ -63,7 +63,6 @@
 #include "common.cuh"
 
 using rte::kGroup;
-using rte::kMegaRows;
 using rte::kRowStride;
 using rte::Mlp3;
 using rte::PlanckTab;
@@ -169,42 +168,15 @@ lw_mega_kernel(const LwArgs a, const Mlp3 m, const PlanckTab p, const int layers
   const int lend = min(lbeg + layers_per_group, nlay);
 
   // ---- phase A, first loop: the net, kMegaRows layers of each group a pass --
-  // Every group runs every pass (the weights' slabs are the block's): a
-  // group with no layer left computes on repeated rows and stores nothing.
-  const int npass = (layers_per_group + kMegaRows - 1) / kMegaRows;
-  for (int pass = 0; pass < npass; ++pass) {
-    const int l0 = lbeg + pass * kMegaRows;
-    if constexpr (kMode == rte::kLanes)
-      rte::load_rows_lanes_kmajor(lanes, a.scale, l0, lend, ncol, col, a.n2d, s_x, gtid);
-    else
-      rte::load_rows_kmajor(a.x, l0, lend, ncol, col, a.n2d, s_x, gtid);
-    rte::mlp_layer_staged<rte::kTileR, rte::kTileC, kMode == rte::kLanes>(
-        ws, m.w1a, m.b1, s_hc, a.n2d, m.h1, s_x, s_h1, gtid, kGroup, m.w2, m.h1, m.h2);
-    rte::mlp_layer_staged<rte::kTileR, rte::kTileC, false>(
-        ws, m.w2, m.b2, nullptr, m.h1, m.h2, s_h1, s_h2, gtid, kGroup, m.w3, m.h2, m.nout);
-    // the last layer leaves (ystd*y + ymean)**8 of the tau columns and the
-    // square of the Planck-fraction columns in the fields; after it the
-    // stream copies the first layer for the next pass, nothing at the end
-    const bool more = pass + 1 < npass;
-    rte::mlp_last_staged<rte::kOutR, rte::kOutC>(
-        ws, m.w3, m.h2, m.nout, s_h2, gtid, kGroup, more ? m.w1a : nullptr, a.n2d, m.h1,
-        [&](int row0, int c, const float (&sum)[rte::kOutR]) {
-          const float b = __ldg(m.b3 + c);
-          if (c < ngpt) {
-            const float ostd = __ldg(m.ostd + c), omean = __ldg(m.omean + c);
-#pragma unroll
-            for (int r = 0; r < rte::kOutR; ++r)
-              if (l0 + row0 + r < lend)
-                s_trans[(l0 + row0 + r) * ngpt + c] = rte::tau_post(sum[r] + b, ostd, omean);
-          } else {
-#pragma unroll
-            for (int r = 0; r < rte::kOutR; ++r) {
-              const float y = sum[r] + b;
-              if (l0 + row0 + r < lend) s_dn[(l0 + row0 + r) * ngpt + c - ngpt] = y * y;
-            }
-          }
-        });
-  }
+  // (y**8 of the tau columns into s_trans, the Planck fraction into s_dn)
+  rte::lw_both_nets<kMode == rte::kLanes>(
+      ws, m, s_hc, a.n2d, ngpt, lbeg, lend, layers_per_group, s_x, s_h1, s_h2, s_trans, s_dn,
+      gtid, [&](int l0) {
+        if constexpr (kMode == rte::kLanes)
+          rte::load_rows_lanes_kmajor(lanes, a.scale, l0, lend, ncol, col, a.n2d, s_x, gtid);
+        else
+          rte::load_rows_kmajor(a.x, l0, lend, ncol, col, a.n2d, s_x, gtid);
+      });
   __syncthreads();
 
   // The level-top source of the first layer of the group below, from the

@@ -11,30 +11,31 @@
 // mo_rte_solver_kernels.F90:119-330). tau, the Planck fraction and the
 // g-point Planck sources never reach device memory.
 //
-// It is the fused LW kernel's phase A (lw_megakernel.cu) with the band
-// Planck values read instead of interpolated and the three fields stored
-// instead of kept in shared memory: one block per column, one thread per
-// g-point, kRows layers per MLP pass (common.cuh). A thread owns a g-point
-// and knows its band, so the band -> g-point expansion is an index. The
-// source at a layer's lower level takes the Planck fraction of the layer
-// below, which is the level-top source of that layer: walking down the
-// column, a layer's down source is stored one step later, when that product
-// exists, from four values kept in registers. A warp stores 128 contiguous
-// bytes of each field per layer.
-//
 // What bounds it on an H100: the MLP, about 51k FMAs per (layer, column)
-// with the 18->128->128->256 net, each needing a weight from L1/L2 (the
-// weights, 206 KB, never leave the cache); the 166 MB it writes at 1800 x
-// 60 x 128 would take a tenth of that time. Shared memory holds only the
-// MLP's rows (5 KB), so registers set the residency. The launch bounds state
-// four blocks per SM (ptxas takes 92 registers, no spill); unlike the fused
-// kernel this one barely reads the stated residency: 64 to 106 registers at
-// 8 to 1 blocks per SM time within 4% of each other on an H100
-// (scripts/tune_lw_prep_residency.py, PERF.md), so FMA issue and the weight
-// loads bound it, not latency for want of warps.
+// with the 18->128->128->256 net, 5.6 GFMA at 1800 x 60, each needing a
+// weight and an activation in a register; the 166 MB it writes would take a
+// tenth of that time. The first version ran the MLP 4 layers at a time with
+// one weight load from the cache and four scalar shared-memory loads per
+// four FMAs. This one is the fused LW kernel's phase A (lw_megakernel.cu,
+// common.cuh lw_both_nets): up to four layer groups of 128 threads, each
+// taking a contiguous share of the layers through the tiled MLP, 16 layers
+// a pass, with k-major scratch of its own; the weights are copied once per
+// pass into two shared-memory slabs with cp.async while all groups compute
+// (WeightStream). The net leaves (ystd*y + ymean)**8 and the Planck fraction
+// in two (nlay, ngpt) shared-memory fields; then one thread per g-point walks
+// its group's layers, forms the transmittance and both sources from the band
+// Planck values (a thread knows its g-point's band, so the band -> g-point
+// expansion is an index) and stores them, a warp 128 contiguous bytes per
+// field and layer. The source at a layer's lower level is the level-top
+// source of the layer below, pf(l+1) * B_lev(l+1): the fields stay in shared
+// memory to the end, so at a group boundary the group above forms the same
+// rounded product from the same operands as the group below, bit for bit.
+// The geometry comes from lw_prep_plan (ops/cuda/lw_prep.py), checked again
+// by the launch entry.
 #include "common.cuh"
 
-using rte::kRows;
+using rte::kGroup;
+using rte::kRowStride;
 using rte::Mlp3;
 
 // The launch entry's first argument; ops/cuda/build.py mirrors it field by
@@ -56,88 +57,124 @@ struct LwPrepArgs {
 
 namespace {
 
-constexpr int kBlocksPerSm = 4;
-
-__global__ void __launch_bounds__(rte::kThreads, kBlocksPerSm)
-lw_prep_kernel(const LwPrepArgs a, const Mlp3 m) {
-  extern __shared__ float smem[];
-  const int col = blockIdx.x;
-  const int g = threadIdx.x;
-  const int nlay = a.nlay, ncol = a.ncol, ngpt = a.ngpt, nband = a.nband;
-  float* s_x = smem;                  // (kRows, nf)
-  float* s_hc = s_x + kRows * a.nf;   // (h1): no per-column constant block here, zeros
-  float* s_h1 = s_hc + m.h1;          // (kRows, h1)
-  float* s_h2 = s_h1 + kRows * m.h1;  // (kRows, h2)
-
-  for (int j = threadIdx.x; j < m.h1; j += blockDim.x) s_hc[j] = 0.0f;
-
-  const bool active = g < ngpt;
-  const int band = active ? a.gpt2band[g] : 0;
-  // the previous layer's terms for its down source, which needs this
-  // layer's level-top source (lev_b(l) = lev_t(l+1))
-  float p_omt = 0.0f, p_tf = 0.0f, p_lay = 0.0f, p_pf = 0.0f;
-
-  for (int l0 = 0; l0 < nlay; l0 += kRows) {
-    rte::load_rows(a.x, l0, nlay, ncol, col, a.nf, s_x);
-    __syncthreads();
-    rte::mlp_hidden(m, s_x, a.nf, s_hc, s_h1, s_h2);
-    if (active) {
-      float yt[kRows], yp[kRows];
-      rte::mlp_out(m, s_h2, g, yt);
-      rte::mlp_out(m, s_h2, ngpt + g, yp);
-      const float ostd = __ldg(m.ostd + g), omean = __ldg(m.omean + g);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int l = l0 + r;
-        if (l >= nlay) break;
-        const size_t lc = (size_t)l * ncol + col;
-        const float tl = rte::tau_post(yt[r], ostd, omean) * a.col_dry[lc] * a.d_secant;
-        const float pf = yp[r] * yp[r];
-        const float trans = expf(-tl);
-        const float fact = tl > a.tau_thresh ? (1.0f - trans) / tl - trans
-                                             : tl * (0.5f - (1.0f / 3.0f) * tl);
-        const float lay = pf * __ldg(a.b_lay + lc * nband + band);
-        const float lev_t = pf * __ldg(a.b_lev + lc * nband + band);
-        const float omt = 1.0f - trans, tf = 2.0f * fact;
-        a.trans[lc * ngpt + g] = trans;
-        a.src_up[lc * ngpt + g] = omt * lev_t + tf * (lay - lev_t);
-        if (l > 0) a.src_dn[(lc - ncol) * ngpt + g] = p_omt * lev_t + p_tf * (p_lay - lev_t);
-        p_omt = omt; p_tf = tf; p_lay = lay; p_pf = pf;
-      }
-    }
-  }
-
-  if (active) {
-    // bottom layer: its own Planck fraction at the bottom level
-    const size_t lc = (size_t)(nlay - 1) * ncol + col;
-    const float bot = p_pf * __ldg(a.b_lev + (lc + ncol) * nband + band);
-    a.src_dn[lc * ngpt + g] = p_omt * bot + p_tf * (p_lay - bot);
-    a.sfc_src[(size_t)col * ngpt + g] = p_pf * __ldg(a.b_sfc + (size_t)col * nband + band);
-  }
+// Floats of one layer group's MLP scratch: the feature rows and the two
+// hidden layers, k-major.
+__host__ __device__ inline int group_floats(int nf, int h1, int h2) {
+  return kRowStride * (nf + h1 + h2);
 }
 
-// Dynamic shared memory of one block.
-size_t smem_bytes(int nf, int h1, int h2) {
-  return sizeof(float) * ((size_t)rte::kRows * (nf + h1 + h2) + h1);
+// Dynamic shared memory of one block; ops/cuda/lw_prep.py lw_prep_plan
+// computes the same number: the groups' scratch, the weights' two slabs, the
+// column's col_dry and the two (nlay, ngpt) fields.
+size_t smem_bytes(int groups, int slab_floats, int nlay, int nf, int h1, int h2, int ngpt) {
+  return sizeof(float) * ((size_t)groups * group_floats(nf, h1, h2) + 2 * (size_t)slab_floats +
+                          rte::align4(nlay) + (size_t)2 * nlay * ngpt);
+}
+
+__global__ void __launch_bounds__(rte::kMaxGroups * kGroup, 1)
+lw_prep_kernel(const LwPrepArgs a, const Mlp3 m, const int layers_per_group,
+               const int slab_floats) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int col = blockIdx.x;
+  const int group = threadIdx.x / kGroup, gtid = threadIdx.x - group * kGroup;
+  const int ngroups = blockDim.x / kGroup;
+  const int g = gtid;
+  const int nlay = a.nlay, ncol = a.ncol, ngpt = a.ngpt, nband = a.nband;
+  const int gfl = group_floats(a.nf, m.h1, m.h2);
+  float* s_x = smem + group * gfl;              // (nf, kRowStride), this group's
+  float* s_h1 = s_x + kRowStride * a.nf;        // (h1, kRowStride)
+  float* s_h2 = s_h1 + kRowStride * m.h1;       // (h2, kRowStride)
+  float* s_slab = smem + ngroups * gfl;         // (2, slab_floats): the weights' two buffers
+  float* s_cd = s_slab + 2 * slab_floats;       // (nlay) col_dry of this column
+  float* s_y8 = s_cd + rte::align4(nlay);       // (nlay, ngpt): (ystd*y + ymean)**8
+  float* s_pf = s_y8 + nlay * ngpt;             // (nlay, ngpt): Planck fraction
+
+  // the weights' first slab starts on its way before anything else
+  rte::WeightStream ws{s_slab, slab_floats, 0};
+  rte::stream_issue(ws, 0, m.w1a, rte::first_slab_floats(ws, a.nf, m.h1));
+  for (int l = threadIdx.x; l < nlay; l += blockDim.x) s_cd[l] = a.col_dry[(size_t)l * ncol + col];
+
+  const int lbeg = min(group * layers_per_group, nlay);
+  const int lend = min(lbeg + layers_per_group, nlay);
+  // ---- the net: y**8 of the tau columns into s_y8, the fraction into s_pf ---
+  rte::lw_both_nets<false>(ws, m, nullptr, a.nf, ngpt, lbeg, lend, layers_per_group, s_x, s_h1,
+                           s_h2, s_y8, s_pf, gtid, [&](int l0) {
+                             rte::load_rows_kmajor(a.x, l0, lend, ncol, col, a.nf, s_x, gtid);
+                           });
+  __syncthreads();  // every group's fields (and col_dry) complete
+
+  // ---- transmittance and sources, stored -------------------------------------
+  if (g >= ngpt || lbeg >= lend) return;
+  const int band = a.gpt2band[g];
+  const float* b_lev = a.b_lev + (size_t)col * nband + band;  // level l at b_lev[l * ncol * nband]
+  const size_t lev_step = (size_t)ncol * nband;
+  float pf = s_pf[lbeg * ngpt + g];
+  float lev_t = __fmul_rn(pf, __ldg(b_lev + lbeg * lev_step));
+  for (int l = lbeg; l < lend; ++l) {
+    const int i = l * ngpt + g;
+    const size_t lc = (size_t)l * ncol + col;
+    const float tl = s_y8[i] * s_cd[l] * a.d_secant;
+    const float trans = expf(-tl);
+    const float fact = tl > a.tau_thresh ? (1.0f - trans) / tl - trans
+                                         : tl * (0.5f - (1.0f / 3.0f) * tl);
+    const float lay = __fmul_rn(pf, __ldg(a.b_lay + lc * nband + band));
+    // the source at the level below: the next layer's level-top source (in
+    // this group or the next); the bottom layer takes its own fraction at the
+    // bottom level
+    const float pf_next = l + 1 < nlay ? s_pf[i + ngpt] : pf;
+    const float lev_b = __fmul_rn(pf_next, __ldg(b_lev + (l + 1) * lev_step));
+    const float omt = 1.0f - trans, tf = 2.0f * fact;
+    a.trans[lc * ngpt + g] = trans;
+    a.src_up[lc * ngpt + g] = omt * lev_t + tf * (lay - lev_t);
+    a.src_dn[lc * ngpt + g] = omt * lev_b + tf * (lay - lev_b);
+    if (l + 1 == nlay)
+      a.sfc_src[(size_t)col * ngpt + g] = __fmul_rn(pf, __ldg(a.b_sfc + (size_t)col * nband + band));
+    pf = pf_next;
+    lev_t = lev_b;
+  }
 }
 
 }  // namespace
 
-// The structs are read on the host. ``net->w1a`` is the whole first layer
-// (nf, h1); w1c is not read.
-extern "C" int lw_prep_launch(const LwPrepArgs* args, const rte::Mlp3* net, int device,
-                              void* stream) {
+// ``plan`` is lw_prep_plan's geometry (ops/cuda/lw_prep.py), refused unless
+// it is one this file is compiled for and its shared memory is what the
+// kernel lays out. The structs are read on the host. ``net->w1a`` is the
+// whole first layer (nf, h1); w1c is not read.
+extern "C" int lw_prep_launch(const LwPrepArgs* args, const rte::Mlp3* net,
+                              const rte::MegaPlan* plan, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const LwPrepArgs& a = *args;
   const Mlp3& m = *net;
-  if (a.ngpt > rte::kThreads || a.ncol <= 0 || a.nlay <= 0 || m.nout != 2 * a.ngpt)
+  const rte::MegaPlan& pl = *plan;
+  if (a.ncol <= 0 || a.nlay <= 0 || m.nout != 2 * a.ngpt || pl.groups < 1 ||
+      pl.groups > rte::kMaxGroups)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.nf, m.h1, m.h2);
-  if (smem > (size_t)rte::kMaxSmem) return (int)cudaErrorInvalidValue;
+  // a slab holds whole rows of the widest layer, in 16-byte pieces
+  const int widest = max(max(m.h1, m.h2), m.nout);
+  if (pl.slab_floats < widest || pl.slab_floats % 4 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(pl.groups, pl.slab_floats, a.nlay, a.nf, m.h1, m.h2, a.ngpt);
+  if (!rte::plan_geometry_ok(pl, a.nlay, a.ngpt, smem)) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(lw_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  lw_prep_kernel<<<a.ncol, rte::kThreads, smem, (cudaStream_t)stream>>>(a, m);
+  lw_prep_kernel<<<a.ncol, pl.threads, pl.smem_bytes, (cudaStream_t)stream>>>(
+      a, m, pl.layers_per_group, pl.slab_floats);
   return (int)cudaGetLastError();
+}
+
+// *blocks: how many blocks of the kernel the device keeps resident on one SM
+// at the plan's threads and shared memory (the runtime's occupancy call).
+// ``mode`` is not read: the kernel has one.
+extern "C" int lw_prep_blocks_per_sm(const rte::MegaPlan* plan, int mode, int device,
+                                     int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  (void)mode;
+  err = cudaFuncSetAttribute(lw_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             plan->smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lw_prep_kernel, plan->threads,
+                                                            plan->smem_bytes);
 }

@@ -60,11 +60,20 @@ class NNModel(nn.Module):
         # {(perm, n2d): (w1a, w1c)}: the first layer's rows as the fused
         # kernels take them (gasoptics.nn_gas_optics.split_first_layer)
         self.first_layer_splits: dict = {}
+        # the net as the generic MLP kernel reads it (ops/cuda/mlp.kernel_net)
+        self.kernel_net = None
 
     def _apply(self, fn, *args, **kwargs):
-        # to(), float(), double(), cuda(): the kept splits are of the old tensors
+        # to(), float(), double(), cuda(): the kept splits and the kernel's
+        # view are of the old tensors
         self.first_layer_splits.clear()
+        self.kernel_net = None
         return super()._apply(fn, *args, **kwargs)
+
+    def __getstate__(self):
+        # a copy (deepcopy, pickle) has tensors of its own: the kernel's view
+        # is of this model's
+        return {**super().__getstate__(), "kernel_net": None}
 
     @property
     def n_inputs(self) -> int:

@@ -124,6 +124,7 @@ def kernel_resources(kernel: str, mode: int | None = None) -> dict:
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_LANES = 32  # csrc/common.cuh kMaxLanes
+MAX_LAYERS = 8  # csrc/mlp.cu kMaxLayers
 
 
 def _fields(ctype, names: str) -> list:
@@ -152,6 +153,15 @@ class LaneList(ctypes.Structure):  # csrc/common.cuh
 
 class MegaPlan(ctypes.Structure):  # csrc/common.cuh
     _fields_ = _fields(I, "threads groups layers_per_group rows_per_pass smem_bytes slab_floats")
+
+
+class MlpNet(ctypes.Structure):  # csrc/mlp.cu
+    _fields_ = [("w", P * MAX_LAYERS), ("b", P * MAX_LAYERS), ("omean", P), ("ostd", P),
+                ("nlayers", I), ("dims", I * (MAX_LAYERS + 1)), ("act", I * MAX_LAYERS)]
+
+
+class MlpPlan(ctypes.Structure):  # csrc/mlp.cu
+    _fields_ = _fields(I, "threads rows width smem_bytes slab_floats")
 
 
 class LwArgs(ctypes.Structure):  # csrc/lw_megakernel.cu
@@ -199,13 +209,15 @@ def _declare(lib) -> None:
     lib.sw_clearsky_megakernel_launch.argtypes = [P] * 6 + [I, I, P]
     lib.sw_clearsky_megakernel_launch.restype = I
     # (plan, mode, device, blocks)
-    for fn in (lib.lw_clearsky_mega4_blocks_per_sm, lib.sw_clearsky_megakernel_blocks_per_sm):
+    for entry in PLAN_STRUCTS:
+        fn = getattr(lib, f"{entry}_blocks_per_sm")
         fn.argtypes = [P, I, I, P]
         fn.restype = I
-    # (args, net, device, stream)
-    lib.lw_prep_launch.argtypes = [P, P, I, P]
+    # (args, net, plan, device, stream)
+    lib.lw_prep_launch.argtypes = [P, P, P, I, P]
     lib.lw_prep_launch.restype = I
-    lib.mlp_predict_launch.argtypes = [I, P, P] + [P, P, P, I] * 2 + [P, P, I, I, P]
+    # (epilogue, x, col_dry, net_a, net_b, plan, out0, out1, rows, device, stream)
+    lib.mlp_predict_launch.argtypes = [I] + [P] * 7 + [I, I, P]
     lib.mlp_predict_launch.restype = I
     lib.lw_noscat_broadband_launch.argtypes = [P] * 9 + [I] * 3 + [F] * 2 + [I, P]
     lib.lw_noscat_broadband_launch.restype = I
@@ -223,16 +235,32 @@ def library():
     return _lib
 
 
+# the launch entries with an occupancy entry, and the plan struct each takes
+PLAN_STRUCTS = {"lw_clearsky_mega4": MegaPlan, "sw_clearsky_megakernel": MegaPlan,
+                "lw_prep": MegaPlan, "mlp_predict": MlpPlan}
+
+
 def blocks_per_sm(entry: str, plan, mode: int, device: int) -> int:
-    """Blocks of a fused kernel (``entry``: "lw_clearsky_mega4" or
-    "sw_clearsky_megakernel") in ``mode`` that ``device`` keeps resident on
-    one SM at ``plan``'s threads and shared memory: the CUDA runtime's
-    occupancy reckoning for the loaded function."""
+    """Blocks of a kernel (``entry``: a key of PLAN_STRUCTS) in ``mode`` (0
+    for the kernels with one) that ``device`` keeps resident on one SM at
+    ``plan``'s threads and shared memory: the CUDA runtime's occupancy
+    reckoning for the loaded function."""
     blocks = I(0)
     err = getattr(library(), f"{entry}_blocks_per_sm")(
-        ctypes.byref(MegaPlan(*plan)), mode, device, ctypes.byref(blocks))
+        ctypes.byref(PLAN_STRUCTS[entry](*plan)), mode, device, ctypes.byref(blocks))
     check(err, f"{entry} occupancy")
     return blocks.value
+
+
+def launch_target(what: str, dev) -> tuple[int, int]:
+    """(device index, current stream) a kernel on ``dev`` launches on;
+    raises ValueError for a device that is not CUDA."""
+    import torch
+
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -287,8 +287,7 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
     global LAUNCHES
     what = f"lw_clearsky_mega4[{mode}]"
     dev = (lanes[0] if mode == "lanes" else x2d).device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
+    index, stream = build.launch_target(what, dev)
     if not megakernel_model_ok([model]):
         raise NotImplementedError(
             "lw_clearsky_mega4 hard-codes a 3-layer softsign/softsign/linear "
@@ -361,9 +360,7 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
     ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.lw_clearsky_mega4_launch(
         ref(args), ref(build.mlp3(w1a, w1c, model)), ref(planck), ref(build.MegaPlan(*plan)),
-        ref(cloud), ref(lane_list), MODE_CODES[mode],
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ref(cloud), ref(lane_list), MODE_CODES[mode], index, stream)
     build.check(err, f"{what} launch")
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1

@@ -6,10 +6,13 @@ sweeps read plus the surface source; and its plain PyTorch twin.
 Replaces rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py::lw_prep_pallas
 (``_prep_kernel`` on ``_phase_a_sources``). What bounds the kernel on an
 H100 and how its design answers it is written at the top of the CUDA
-source: the MLP's weight reads bound it; one block per column walks the
-layers downward, one thread per g-point, so the Planck fraction of the
-layer below is at hand when a layer's down source is stored, and tau, the
-Planck fraction and the g-point Planck sources never reach device memory.
+source: the MLP's FMA issue and the loads feeding it; it is the fused LW
+kernel's phase A (one block per column, up to four layer groups through the
+tiled MLP, the weights streamed through shared memory, tau and the Planck
+fraction left in shared-memory fields), then one thread per g-point forms
+and stores the transmittance and both sources. ``lw_prep_plan`` decides the
+geometry (threads, groups, shared memory) from the shapes; the launch entry
+checks it again.
 
 ``lw_prep`` launches the kernel for CUDA tensors and runs ``lw_prep_plain``
 for CPU tensors; it never falls back on CUDA. ``LAUNCHES`` counts kernel
@@ -25,10 +28,24 @@ from ...config import megakernel_model_ok, tau_thresh_for
 from ...models.network import NNModel
 from ..lw_solver import LW_DIFFUSIVITY, pfrac_sources
 from . import build
-from .lw_megakernel import _check
+from .lw_megakernel import MAX_SMEM, LaunchPlan, _align4, _check, _smem_limit, plan_groups
 from .mlp import fused_predict_lw_both_plain
 
 LAUNCHES = 0  # kernel launches by lw_prep (not plain-path calls)
+
+
+def lw_prep_plan(nlay: int, nf: int, h1: int, h2: int, ngpt: int,
+                 smem_limit: int = MAX_SMEM) -> LaunchPlan:
+    """Launch geometry of the kernel for ``nlay`` layers, ``nf`` features,
+    hidden widths ``h1`` and ``h2`` and ``ngpt`` g-points: two fields of
+    nlay x ngpt floats (the net's tau term and Planck fraction), the
+    column's col_dry, per layer group the k-major feature rows and two
+    hidden layers, and the two buffers the weights stream through (no sweep
+    row: the fields go to device memory). Raises ValueError in words when
+    the shape does not fit the shared memory or the 128 g-points of a
+    group."""
+    return plan_groups("lw_prep", nlay, ngpt, 2 * nlay * ngpt, nf + h1 + h2, _align4(nlay),
+                       smem_limit, stream_widths=(h1, h2, 2 * ngpt))
 
 
 def lw_prep_plain(
@@ -61,12 +78,11 @@ def _launch(model, x, col_dry, planck_lay_band, planck_lev_band, planck_sfc_band
     the launch."""
     global LAUNCHES
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"lw_prep: unsupported device {dev}")
     if not megakernel_model_ok([model]) or model.n_outputs % 2:
         raise NotImplementedError(
             "lw_prep hard-codes one 3-layer softsign/softsign/linear 'lw_both' net; other "
             "models take the staged path (fused_predict_lw_both, compute_planck_source_nn)")
+    index, stream = build.launch_target("lw_prep", dev)
     f32 = torch.float32
     nlay, ncol, nf = x.shape
     w1, w2, w3 = model.weights
@@ -74,8 +90,7 @@ def _launch(model, x, col_dry, planck_lay_band, planck_lev_band, planck_sfc_band
     h1, h2 = w1.shape[1], w2.shape[1]
     ngpt = w3.shape[1] // 2
     nband = planck_sfc_band.shape[-1]
-    if ngpt > 128:
-        raise ValueError(f"lw_prep: ngpt {ngpt} > 128 threads per block")
+    plan = lw_prep_plan(nlay, nf, h1, h2, ngpt, _smem_limit(dev))
     for name, t, shape in (
             ("x", x, (nlay, ncol, nf)), ("col_dry", col_dry, (nlay, ncol)),
             ("planck_lay_band", planck_lay_band, (nlay, ncol, nband)),
@@ -99,9 +114,7 @@ def _launch(model, x, col_dry, planck_lay_band, planck_lev_band, planck_sfc_band
     # the whole first layer multiplies the features: no per-column constant block
     net = build.mlp3(w1, w1, model)
     err = build.library().lw_prep_launch(
-        ctypes.byref(args), ctypes.byref(net),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.byref(args), ctypes.byref(net), ctypes.byref(build.MegaPlan(*plan)), index, stream)
     build.check(err, "lw_prep launch")
     LAUNCHES += 1
     return outs[0], outs[1], outs[2], sfc

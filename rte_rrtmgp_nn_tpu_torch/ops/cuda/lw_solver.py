@@ -69,8 +69,7 @@ def _launch(tau, lay_source, lev_source, sfc_emis, sfc_source, d_secant, weight,
     """Check the inputs and launch the kernel; returns (flux_up, flux_dn)."""
     global LAUNCHES
     dev = tau.device
-    if dev.type != "cuda":
-        raise ValueError(f"lw_noscat_broadband: unsupported device {dev}")
+    index, stream = build.launch_target("lw_noscat_broadband", dev)
     f32 = torch.float32
     ncol, nlay, ngpt = tau.shape
     if ngpt > MAX_NGPT:
@@ -92,8 +91,7 @@ def _launch(tau, lay_source, lev_source, sfc_emis, sfc_source, d_secant, weight,
     err = lib.lw_noscat_broadband_launch(
         p(tau), p(lay_source), p(lev_source), p(sfc_emis), p(sfc_source), p(ds), p(inc_rad),
         p(up), p(dn), ncol, nlay, ngpt, 2.0 * np.pi * float(weight), tau_thresh_for(f32),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        index, stream)
     build.check(err, "lw_noscat_broadband launch")
     LAUNCHES += 1
     return up, dn

@@ -159,8 +159,7 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
     what = f"sw_clearsky_megakernel[{mode}]"
     lanes = list(x2d) if mode == "lanes" else None
     dev = (lanes[0] if lanes else x2d).device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
+    index, stream = build.launch_target(what, dev)
     if not megakernel_model_ok([abs_model, ray_model]):
         raise NotImplementedError(
             "sw_clearsky_megakernel hard-codes 3-layer softsign/softsign/linear "
@@ -241,9 +240,7 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
     ref = lambda s: None if s is None else ctypes.byref(s)
     err = lib.sw_clearsky_megakernel_launch(
         ref(args), ref(net_a), ref(net_r), ref(build.MegaPlan(*plan)), ref(cloud),
-        ref(lane_list), MODE_CODES[mode],
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ref(lane_list), MODE_CODES[mode], index, stream)
     build.check(err, f"{what} launch")
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1

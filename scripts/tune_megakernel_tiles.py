@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time the two fused kernels (csrc/lw_megakernel.cu, csrc/sw_megakernel.cu)
-at several tile shapes and block geometries on one NVIDIA GPU.
+"""Time the kernels built on the tiled MLP (the fused K1 / K2,
+csrc/lw_megakernel.cu and csrc/sw_megakernel.cu; the MLP kernel of K3 / K5,
+csrc/mlp.cu; K6, csrc/lw_prep.cu) at several tile shapes and block
+geometries on one NVIDIA GPU.
 
     python3 scripts/tune_megakernel_tiles.py [--quick]
 
 A variant sets some of: layers per MLP pass, row padding, the register tile
 (rows x columns) of the hidden layers and of the last layer, layer groups per
-block. For each, edited copies of csrc/common.cuh and the two sources are
-built into a temporary directory and loaded in place of the package's
-library, and the wrappers' launch plan is told the same constants; K1 and K2
-are checked against the plain twins' results and timed (chip_smoke.cuda_ms
-around the wrappers' calls), clear-sky and in the lookup-table cloud mode, at
-chip_smoke.py's size (1800 x 60, the g-128 and g-112 demo nets). The variants
-run in one order and then in the reverse order, so that a drift of the card
-shows. Prints the card and, per build, the registers and spill ptxas reports,
-the blocks per SM the CUDA runtime's occupancy call gives, each kernel's
-error against its twin and its time.
+block (K1, K2, K6), the threads and rows per block of the MLP kernel (its
+plan's choice narrowed). For each, edited copies of csrc/common.cuh and the sources
+are built into a temporary directory and loaded in place of the package's
+library, and the wrappers' launch plans are told the same constants; K1 and
+K2 (clear-sky and in the lookup-table cloud mode), K3, K5 and K6 are checked
+against the plain twins' results and timed (chip_smoke.cuda_ms around the
+wrappers' calls) at chip_smoke.py's size (1800 x 60, the g-128 and g-112 demo
+nets). The variants run in one order and then in the reverse order, so that
+a drift of the card shows. Prints the card and, per build, the registers and
+spill ptxas reports, the blocks per SM the CUDA runtime's occupancy call
+gives, each kernel's error against its twin (the fused kernels' in W/m2,
+K3 / K5 / K6 as the largest ratio to their bound) and its time.
 ``--quick`` builds the shipped configuration only, checks it at a ragged size
-too and prints where the kernels' time goes: copies of the two sources that
+too and prints where the kernels' time goes: copies of the sources that
 return after a phase (STOPS) are built and timed like the kernel itself, at
 four times the columns, and a phase's time is the difference of two such
 times. Beside each time stands the host's time to queue one call: a reading
@@ -35,13 +39,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
-    LW_MODEL, NCOL, NLAY, SW_MODEL, cuda_ms, gpu_line, maxabs, mode_cases)
+    K6_SRC_REL, K6_TRANS_ATOL, LW_MODEL, MLP_RTOL, NCOL, NLAY, SEED, SW_MODEL, cuda_ms,
+    gpu_line, k6_args, maxabs, mlp_inputs, mode_cases)
 
 # the constants of csrc/common.cuh a variant may set, with the shipped values,
-# and the most layer groups a plan may take
+# the most layer groups a plan may take and the threads and rows per block
+# the MLP kernel's plan may take (None: its shipped choices)
+PLAN_KEYS = ("groups", "mlp_threads", "mlp_rows")
 SHIPPED = {"kMegaRows": 16, "kRowPad": 4, "kTileR": 8, "kTileC": 2, "kOutR": 8, "kOutC": 4,
-           "groups": 4}
-SHIPPED_CONSTANTS = {k: v for k, v in SHIPPED.items() if k != "groups"}
+           "groups": 4, "mlp_threads": None, "mlp_rows": None}
+SHIPPED_CONSTANTS = {k: v for k, v in SHIPPED.items() if k not in PLAN_KEYS}
+SOURCES = ("lw_megakernel", "sw_megakernel", "mlp", "lw_prep", "lw_noscat", "errors")
 VARIANTS = (
     {},                             # the shipped configuration
     {"kOutR": 16, "kOutC": 2},      # the last layer as 16 x 2 tiles
@@ -52,6 +60,11 @@ VARIANTS = (
     {"kTileC": 4},                  # as 8 x 4 tiles, half the threads
     {"kRowPad": 0},                 # no padding: the activations' stores conflict
     {"groups": 2},                  # 256 threads
+    {"mlp_threads": 512},           # the MLP kernel as one block of 512 threads an SM
+    {"mlp_threads": 512, "mlp_rows": 32},
+    {"mlp_threads": 512, "mlp_rows": 128},
+    {"mlp_rows": 64},               # two blocks of 256 at 64 rows (K3's slabs shrink to fit)
+    {"mlp_rows": 128},              # K5 at 128 rows in two blocks of 256; K3 takes 512 threads
 )
 
 
@@ -70,7 +83,14 @@ STOPS = {
         ("direct beam", "  if (sweeper) {\n    // ---- phase C: surface-to-top cumulative albedo"),
         ("sweeps", "  // ---- per-level spectral sums ------------------------------------------\n"),
     ),
+    "mlp.cu": (
+        ("hidden layers", "      // the last layer is linear; its epilogue writes device memory\n"),
+    ),
+    "lw_prep.cu": (
+        ("nets", "  // ---- transmittance and sources, stored -------------------------------------\n"),
+    ),
 }
+LAST_PHASES = {"mlp.cu": "last layer and stores", "lw_prep.cu": "sources and stores"}
 LAST_PHASE = "level sums"  # what the whole kernel runs beyond the last stop
 
 
@@ -88,7 +108,9 @@ def stopped(text: str, name: str, phase: str) -> str:
     (anchor,) = [a for p, a in STOPS[name] if p == phase]
     if text.count(anchor) != 1:
         raise RuntimeError(f"{name}: the line that follows {phase!r} is not there once")
-    return text.replace(anchor, "  return;\n" + anchor)
+    # (a copy still on its way into shared memory lands before the block ends)
+    return text.replace(anchor, '  asm volatile("cp.async.wait_all;" ::: "memory");\n  return;\n'
+                        + anchor)
 
 
 def build_variant(build, tmp: str, tag: str, values, stops=None) -> tuple[ctypes.CDLL, str]:
@@ -97,7 +119,7 @@ def build_variant(build, tmp: str, tag: str, values, stops=None) -> tuple[ctypes
     ``tag``; returns (library, ptxas output)."""
     d = os.path.join(tmp, tag)
     os.makedirs(d, exist_ok=True)
-    for name in ("common.cuh", "lw_megakernel.cu", "sw_megakernel.cu", "errors.cu"):
+    for name in ("common.cuh",) + tuple(f"{n}.cu" for n in SOURCES):
         text = (build.CSRC_DIR / name).read_text()
         if name == "common.cuh":
             text = edited(text, values)
@@ -106,7 +128,7 @@ def build_variant(build, tmp: str, tag: str, values, stops=None) -> tuple[ctypes
         with open(os.path.join(d, name), "w") as f:
             f.write(text)
     jobs = []
-    for name in ("lw_megakernel", "sw_megakernel", "errors"):
+    for name in SOURCES:
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-c", os.path.join(d, f"{name}.cu"), "-o",
                os.path.join(d, f"{name}.o")]
         jobs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -118,18 +140,9 @@ def build_variant(build, tmp: str, tag: str, values, stops=None) -> tuple[ctypes
             raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
     so = os.path.join(d, "kernels.so")
     subprocess.run([build._nvcc(), "-shared", "-o", so]
-                   + [os.path.join(d, f"{n}.o") for n in ("lw_megakernel", "sw_megakernel", "errors")],
-                   check=True)
+                   + [os.path.join(d, f"{n}.o") for n in SOURCES], check=True)
     lib = ctypes.CDLL(so)
-    P, I = build.P, build.I
-    for fn in (lib.lw_clearsky_mega4_launch, lib.sw_clearsky_megakernel_launch):
-        fn.argtypes = [P] * 6 + [I, I, P]
-        fn.restype = I
-    for fn in (lib.lw_clearsky_mega4_blocks_per_sm, lib.sw_clearsky_megakernel_blocks_per_sm):
-        fn.argtypes = [P, I, I, P]
-        fn.restype = I
-    lib.rte_cuda_error_string.argtypes = [I]
-    lib.rte_cuda_error_string.restype = ctypes.c_char_p
+    build._declare(lib)
     return lib, log
 
 
@@ -154,11 +167,15 @@ def main() -> int:
         return 1
     quick = "--quick" in sys.argv[1:]
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g128, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.testing import bound_excess, synthesize_rfmip
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(gpu_line())
@@ -172,43 +189,78 @@ def main() -> int:
     names = {"k1": "K1", "k1_cld_lut": "K1 cld_lut", "k2": "K2", "k2_cld_lut": "K2 cld_lut"}
 
     def cases(ncol, nlay):
-        """{name: (wrapper, twin, args, keywords, tolerance)} at one size."""
+        """{name: (wrapper, twin, args, keywords, tolerance)} at one size: the
+        fused kernels' tolerance in W/m2, K3 / K5 / K6's as (rtol, atol) per
+        output held (K5: tau)."""
         every = mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec, sw_spec, solar)
-        return {label: every[k] for k, label in names.items()}
+        out = {label: every[k] for k, label in names.items()}
+        data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, SEED, top_at_1=True))
+        col_dry, x_lw, x_sw = mlp_inputs(dev, data, lw_model, sw_model)
+        args6 = k6_args(dev, data, lw_model, table, lw_spec)
+        src = K6_SRC_REL * max(float(r.abs().max()) for r in k6.lw_prep_plain(*args6)[1:])
+        out["K3"] = (mlp.fused_predict_lw_both, mlp.fused_predict_lw_both_plain,
+                     (lw_model, x_lw, col_dry), {}, [(MLP_RTOL, 1e-8), (MLP_RTOL, 1e-9)])
+        out["K5"] = (mlp.fused_predict_sw, mlp.fused_predict_sw_plain,
+                     (sw_model, sw_model, x_sw, col_dry), {}, [(MLP_RTOL, 1e-8)])
+        out["K6"] = (k6.lw_prep, k6.lw_prep_plain, args6, {},
+                     [(MLP_RTOL, K6_TRANS_ATOL)] + [(0.0, src)] * 3)
+        return out
+
+    def error(got, twin, tol):
+        """(error, within the bound): W/m2 for the fused kernels, the largest
+        ratio to the bound for the others."""
+        if isinstance(tol, list):
+            err = max(bound_excess(a, b, *t) for a, b, t in zip(got, twin, tol))
+            return err, err <= 1.0
+        err = max(maxabs(a, b) for a, b in zip(got, twin))
+        return err, err <= tol
 
     full = cases(NCOL, NLAY)
     ragged = {f"{k} 37x{n}": v for n in (13, 61) for k, v in cases(37, n).items()} if quick else {}
     twins = {k: plain(*args, **kw) for k, (_, plain, args, kw, _) in {**full, **ragged}.items()}
     order = ({},) if quick else VARIANTS
     bad = 0
-    entries = {"K1": "lw_clearsky_mega4", "K2": "sw_clearsky_megakernel"}
+    entries = {"K1": "lw_clearsky_mega4", "K2": "sw_clearsky_megakernel", "K3": "mlp_predict",
+               "K5": "mlp_predict", "K6": "lw_prep"}
+    row_choices, thread_choices = mlp.ROW_CHOICES, mlp.THREAD_CHOICES
+    built = {}
     with tempfile.TemporaryDirectory() as tmp:
         for pass_no, variants in enumerate((order,) if quick else (order, order[::-1])):
             for changed in variants:
                 values = {**SHIPPED, **changed}
-                groups = values.pop("groups")
+                groups, threads, rows = (values.pop(k) for k in PLAN_KEYS)
                 tag = "_".join(str(v) for v in values.values())
-                lib, log = build_variant(build, tmp, tag, values)
+                if tag not in built:  # a variant of the plans alone takes the same build
+                    built[tag] = build_variant(build, tmp, tag, values)
+                lib, log = built[tag]
                 build._lib = lib  # the wrappers launch from this library from here on
                 k1.ROWS_PER_PASS, k1.ROW_PAD = values["kMegaRows"], values["kRowPad"]
+                mlp.ROW_PAD = values["kRowPad"]
                 k1.GROUP_CHOICES = tuple(g for g in (4, 2, 1) if g <= groups)
+                mlp.ROW_CHOICES = (rows,) if rows else row_choices
+                mlp.THREAD_CHOICES = (threads,) if threads else thread_choices
+                mlp.mlp_launch_plan.cache_clear()
                 regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
                 spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
                 plans = {"K1": k1.launch_plan(NLAY, 9, 128, 128, lw_spec.ngpt),
-                         "K2": k2.launch_plan(NLAY, 7, 48, 48, sw_spec.ngpt)}
+                         "K2": k2.launch_plan(NLAY, 7, 48, 48, sw_spec.ngpt),
+                         "K3": mlp.mlp_launch_plan(tuple(lw_model.dims)),
+                         "K5": mlp.mlp_launch_plan(tuple(sw_model.dims), tuple(sw_model.dims)),
+                         "K6": k6.lw_prep_plan(NLAY, 18, 128, 128, lw_spec.ngpt)}
                 print(f"variant {changed or 'shipped'} (pass {pass_no}): registers {regs} spill "
                       f"{spill}; "
-                      + "; ".join(f"{n} {p.threads} threads, {p.smem_bytes} B, "
-                                  f"{build.blocks_per_sm(entries[n], p, 0, dev.index)} block(s)/SM "
-                                  "clear-sky by the runtime's occupancy call"
+                      + "; ".join(f"{n} {p.threads} threads, {p.smem_bytes} B"
+                                  + (f", {p.rows} rows" if n in ("K3", "K5") else "")
+                                  + f", {build.blocks_per_sm(entries[n], p, 0, dev.index)} "
+                                  "block(s)/SM by the runtime's occupancy call"
                                   for n, p in plans.items()), flush=True)
                 for name, (fn, _, args, kw, tol) in {**full, **ragged}.items():
                     got = fn(*args, **kw)
                     torch.cuda.synchronize()
-                    err = max(maxabs(a, b) for a, b in zip(got, twins[name]))
-                    ok = err <= tol and all(bool(torch.isfinite(o).all()) for o in got)
+                    err, ok = error(got, twins[name], tol)
+                    ok = ok and all(bool(torch.isfinite(o).all()) for o in got)
                     bad += not ok
-                    line = f"  {name}: max|kernel-twin| {err:.3e} W/m2 ({'ok' if ok else 'BEYOND'} {tol})"
+                    line = f"  {name}: max|kernel-twin| {err:.3e} ({'ok' if ok else 'BEYOND'} {tol})"
                     if name in full:
                         line += f", {cuda_ms(lambda: fn(*args, **kw)):.4f} ms"
                     print(line, flush=True)
@@ -222,7 +274,8 @@ def main() -> int:
             # at four times the columns, so that the shortest copy still
             # takes the card longer than a call takes the host
             whole, wide = build._lib, cases(4 * NCOL, NLAY)
-            for name, f in (("K1", "lw_megakernel.cu"), ("K2", "sw_megakernel.cu")):
+            for name, f in (("K1", "lw_megakernel.cu"), ("K2", "sw_megakernel.cu"),
+                            ("K3", "mlp.cu"), ("K6", "lw_prep.cu")):
                 fn, _, args, kw, _ = wide[name]
                 run = lambda: fn(*args, **kw)
                 rows = []
@@ -231,7 +284,7 @@ def main() -> int:
                                                   SHIPPED_CONSTANTS, {f: phase})
                     rows.append((phase, cuda_ms(run), host_ms(run)))
                 build._lib = whole
-                rows.append((LAST_PHASE, cuda_ms(run), host_ms(run)))
+                rows.append((LAST_PHASES.get(f, LAST_PHASE), cuda_ms(run), host_ms(run)))
                 total, before = rows[-1][1], 0.0
                 print(f"  {name} by phase at {4 * NCOL}x{NLAY}, of {total:.4f} ms:")
                 for phase, ms, host in rows:

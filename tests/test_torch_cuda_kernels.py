@@ -37,6 +37,9 @@ LW_ATOL, SW_ATOL = 2e-3, 2e-2  # W/m2: the JAX package's kernel-vs-staged bounds
 ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts")
 LW_MODEL = os.path.join(ART, "lw-g128-demo_both_128_128_HR_8.62e-02_FRC_1.55e+00.nc")
 SW_MODEL = os.path.join(ART, "sw-g112-demo_absorption_48_48_HR_3.64e-02_FRC_2.14e+00.nc")
+# a matched absorption / Rayleigh pair of 48-wide nets (a real Rayleigh net)
+SW_PAIR = [os.path.join(ART, f"sw-synth56-lut_{k}_48_48_HR_3.61e-01_FRC_2.75e+00.nc")
+           for k in ("absorption", "rayleigh")]
 
 
 @pytest.fixture()
@@ -156,46 +159,94 @@ def _mlp_inputs(dev, rows, nin, seed):
     return x, cd
 
 
-# 481 rows: 15 full tiles of 32 and a ragged one
-@pytest.mark.parametrize("rows", [481, 6000])
+# 1 and 31 rows: one ragged block; 481: 7 blocks of 64 or 3 of 128 and a
+# ragged one; 108,000: the RFMIP size
+@pytest.mark.parametrize("rows", [1, 31, 481, 6000, 108000])
 def test_mlp_kernels_match_twins(dev, rows):
-    """K3 with the LW demo net and a seeded 8-layer net using all seven
-    activations, K4 with the demo net's tau half, K5 with the SW demo
-    net as both nets: the JAX package's bounds (rtol 2e-5; ssa atol
-    2e-5), beyond which float64 decides (testing.hold_kernel)."""
+    """K3 with the LW demo net, a net with a 512-wide hidden layer, a seeded
+    8-layer net using all seven activations and a net of 126 outputs (not
+    a multiple of the last layer's 4-column tiles); K4 with the demo net's
+    tau half and with 63 outputs; K5 with the SW demo net as both nets and
+    with the real-Rayleigh synthetic pair: the JAX package's bounds (rtol
+    2e-5; ssa atol 2e-5), beyond which float64 decides
+    (testing.hold_kernel). A second launch gives the same bits."""
     from rte_rrtmgp_nn_tpu_torch.models.network import nn_model_from_arrays
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
     from rte_rrtmgp_nn_tpu_torch.testing import (
         ALL_ACTIVATIONS, float64_copy, model_arrays, random_gas_optics_net_arrays,
         split_lw_both_arrays)
 
+    net = lambda dims, acts, seed: nn_model_from_arrays(
+        *random_gas_optics_net_arrays(dims, acts, seed=seed), device=dev)
     lw = load_model_netcdf(LW_MODEL, device=dev)
-    deep = nn_model_from_arrays(*random_gas_optics_net_arrays(
-        (18,) + (40,) * 7 + (96,), ALL_ACTIVATIONS + ("linear",), seed=41), device=dev)
-    tau_net, _ = (nn_model_from_arrays(*a, device=dev)
-                  for a in split_lw_both_arrays(*model_arrays(lw)))
+    both = [lw, net((18, 512, 128, 256), ("softsign",) * 2 + ("linear",), 43),
+            net((18,) + (40,) * 7 + (96,), ALL_ACTIVATIONS + ("linear",), 41),
+            net((18, 64, 64, 126), ("tanh", "relu", "linear"), 44)]
+    tau_nets = [nn_model_from_arrays(*split_lw_both_arrays(*model_arrays(m))[0], device=dev)
+                for m in (lw, both[-1])]
     x, cd = _mlp_inputs(dev, rows, 18, seed=42)
     x64, cd64 = x.double(), cd.double()
     n = dict(mlp.LAUNCHES)
-    for m in (lw, deep):
+
+    def same_again(fn, got):
+        for a, b in zip(got, fn()):
+            assert torch.equal(a, b)
+
+    for m in both:
         got = mlp.fused_predict_lw_both(m, x, cd)
         ref = mlp.fused_predict_lw_both_plain(m, x, cd)
         ref64 = mlp.fused_predict_lw_both_plain(float64_copy(m), x64, cd64)
-        _close(got[0], ref[0], 2e-5, 1e-8, "K3 tau", ref64[0])
-        _close(got[1], ref[1], 2e-5, 1e-9, "K3 pfrac", ref64[1])
-    _close(mlp.fused_predict_tau(tau_net, x, cd), mlp.fused_predict_tau_plain(tau_net, x, cd),
-           2e-5, 1e-8, "K4 tau", mlp.fused_predict_tau_plain(float64_copy(tau_net), x64, cd64))
+        _close(got[0], ref[0], 2e-5, 1e-8, f"K3 tau {m.dims}", ref64[0])
+        _close(got[1], ref[1], 2e-5, 1e-9, f"K3 pfrac {m.dims}", ref64[1])
+        same_again(lambda: mlp.fused_predict_lw_both(m, x, cd), got)
+    for m in tau_nets:
+        got = mlp.fused_predict_tau(m, x, cd)
+        _close(got, mlp.fused_predict_tau_plain(m, x, cd), 2e-5, 1e-8, f"K4 tau {m.dims}",
+               mlp.fused_predict_tau_plain(float64_copy(m), x64, cd64))
+        same_again(lambda: (mlp.fused_predict_tau(m, x, cd),), (got,))
     sw = load_model_netcdf(SW_MODEL, device=dev)
+    pair = [load_model_netcdf(p, device=dev) for p in SW_PAIR]
     x7 = x[:, :7].contiguous()
-    tau, ssa = mlp.fused_predict_sw(sw, sw, x7, cd)
-    rtau, rssa = mlp.fused_predict_sw_plain(sw, sw, x7, cd)
-    sw64 = float64_copy(sw)
-    tau64, ssa64 = mlp.fused_predict_sw_plain(sw64, sw64, x7.double(), cd64)
-    _close(tau, rtau, 2e-5, 1e-8, "K5 tau", tau64)
-    big = rtau > 1e-12  # ssa where tau is not an underflow residue
-    _close(ssa[big], rssa[big], 0.0, 2e-5, "K5 ssa", ssa64[big])
+    for ma, mr in ((sw, sw), pair):
+        tau, ssa = mlp.fused_predict_sw(ma, mr, x7, cd)
+        rtau, rssa = mlp.fused_predict_sw_plain(ma, mr, x7, cd)
+        tau64, ssa64 = mlp.fused_predict_sw_plain(float64_copy(ma), float64_copy(mr), x7.double(),
+                                                  cd64)
+        _close(tau, rtau, 2e-5, 1e-8, "K5 tau", tau64)
+        big = rtau > 1e-12  # ssa where tau is not an underflow residue
+        _close(ssa[big], rssa[big], 0.0, 2e-5, "K5 ssa", ssa64[big])
+        same_again(lambda: mlp.fused_predict_sw(ma, mr, x7, cd), (tau, ssa))
     torch.cuda.synchronize()
-    assert mlp.LAUNCHES == {k: v + {"fused_predict_lw_both": 2}.get(k, 1) for k, v in n.items()}
+    assert mlp.LAUNCHES == {"fused_predict_lw_both": n["fused_predict_lw_both"] + 8,
+                            "fused_predict_tau": n["fused_predict_tau"] + 4,
+                            "fused_predict_sw": n["fused_predict_sw"] + 4}
+
+
+def test_mlp_kernel_gives_the_same_bits_at_any_block_geometry(dev):
+    """Every output's sum runs over k ascending in one accumulator whatever
+    the rows and threads of a block, so the plans the tuning script tries
+    (512 threads; 32, 64 or 128 rows) give the shipped plan's bits: K3 with
+    the LW demo net, K5 with the SW demo net as both nets, 6,000 rows."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+
+    lw = load_model_netcdf(LW_MODEL, device=dev)
+    sw = load_model_netcdf(SW_MODEL, device=dev)
+    x, cd = _mlp_inputs(dev, 6000, 18, seed=42)
+    x7 = x[:, :7].contiguous()
+    calls = (lambda: mlp.fused_predict_lw_both(lw, x, cd),
+             lambda: mlp.fused_predict_sw(sw, sw, x7, cd))
+    shipped = [fn() for fn in calls]
+    kept = mlp.THREAD_CHOICES, mlp.ROW_CHOICES
+    try:
+        for threads, rows in ((512, kept[1]), (512, (32,)), (256, (64,))):
+            mlp.THREAD_CHOICES, mlp.ROW_CHOICES = (threads,), rows
+            mlp.mlp_launch_plan.cache_clear()
+            for fn, want in zip(calls, shipped):
+                for a, b in zip(fn(), want):
+                    assert torch.equal(a, b), (threads, rows)
+    finally:
+        mlp.THREAD_CHOICES, mlp.ROW_CHOICES = kept
+        mlp.mlp_launch_plan.cache_clear()
 
 
 @pytest.mark.parametrize("ncol,nlay,ngpt", [(37, 13, 128), (50, 60, 100)])
@@ -475,12 +526,14 @@ def _prep_args(dev, ncol, nlay, seed):
             table.interpolate(tsfc), spec.gpt2band_tensor(dev)), spec.expand(emis)
 
 
-# nlay 13 is not a multiple of the rows the kernel's MLP takes per pass
-@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60)])
+# no layer group and no MLP pass is full at 13 or 61 layers; one layer takes
+# one group; 1800 x 60 is the RFMIP size
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 60), (37, 61), (5, 1), (1800, 60)])
 def test_lw_prep_kernel_matches_twin(dev, ncol, nlay):
     """K6 against its twin: the transmittance to rtol 2e-5 (+1e-7 for opaque
     cells), the sources to 2e-5 of the largest g-point Planck source, beyond
-    either float64 decides; the sweeps on its fields to 2e-3 W/m2."""
+    either float64 decides; the sweeps on its fields to 2e-3 W/m2; a second
+    launch gives the same bits."""
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
     from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import lw_broadband_sweeps
     from rte_rrtmgp_nn_tpu_torch.testing import float64_copy, hold_kernel
@@ -490,6 +543,8 @@ def test_lw_prep_kernel_matches_twin(dev, ncol, nlay):
     got = k6.lw_prep(*args)
     torch.cuda.synchronize()
     assert k6.LAUNCHES == n + 1
+    for a, b in zip(got, k6.lw_prep(*args)):
+        assert torch.equal(a, b)
     ref = k6.lw_prep_plain(*args)
     a64 = [float64_copy(args[0])] + [a.double() for a in args[1:6]] + [args[6]]
     ref64 = k6.lw_prep_plain(*a64)

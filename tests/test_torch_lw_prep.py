@@ -197,3 +197,82 @@ def test_launch_refuses_a_non_softsign_net_off_the_cpu(monkeypatch):
 
     with pytest.raises(NotImplementedError, match="3-layer softsign"):
         k6._launch(relu, X(), None, None, None, None, None, 1.66)
+
+
+# -- the kernel's launch plan and the launch ------------------------------------------
+
+SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+
+
+@pytest.mark.parametrize("nlay", [1, 13, 60, 61])
+def test_plan_covers_every_layer_once_and_fits(nlay):
+    """The layer groups of lw_prep_plan are contiguous and cover every layer
+    once; the geometry is whole groups of 128 threads and 16 layers per MLP
+    pass; the shared memory is the sum of the kernel's regions (per group
+    the k-major MLP scratch, 20 floats per k; the weights' two slabs of
+    whole rows of the widest layer; col_dry; the two nlay x ngpt fields)
+    and fits sm_90."""
+    ngpt = 128
+    plan = k6.lw_prep_plan(nlay, 18, 128, 128, ngpt)
+    covered = []
+    for grp in range(plan.groups):
+        lbeg = min(grp * plan.layers_per_group, nlay)
+        covered += range(lbeg, min(lbeg + plan.layers_per_group, nlay))
+    assert covered == list(range(nlay))
+    assert plan.groups in (1, 2, 4) and plan.groups <= nlay
+    assert plan.threads == 128 * plan.groups and plan.rows_per_pass == 16
+    assert plan.slab_floats % 4 == 0 and plan.slab_floats >= 4 * 2 * ngpt
+    floats = (plan.groups * 20 * (18 + 128 + 128) + 2 * plan.slab_floats + ((nlay + 3) & ~3)
+              + 2 * nlay * ngpt)
+    assert plan.smem_bytes == 4 * floats <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(nlay=400, ngpt=128), "too many layers"),
+    (dict(nlay=60, ngpt=129), "ngpt 129 > 128"),
+    (dict(nlay=60, ngpt=128, wide=2048), "net is too wide"),
+    (dict(nlay=0, ngpt=128), "must be positive"),
+])
+def test_plan_refuses_in_words(case, match):
+    """The fields of too many layers, more g-points than a group has
+    threads, a net whose scratch does not fit beside the fields, no layer:
+    refused with the reason."""
+    wide = case.get("wide", 128)
+    with pytest.raises(ValueError, match=match):
+        k6.lw_prep_plan(case["nlay"], 18, wide, wide, case["ngpt"])
+
+
+def test_wrapper_off_the_cpu_reaches_the_launch_with_the_plan(monkeypatch):
+    """Off the CPU lw_prep hands the launch entry its arguments, the net and
+    lw_prep_plan's geometry, and counts the launch; meta tensors stand in
+    for the card and a recording library for the kernel, and the twin
+    raises."""
+    import types
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    seen = []
+
+    def launch(args, net, plan, device, stream):
+        a, p = args._obj, plan._obj
+        seen.append(((a.ncol, a.nlay, a.nf, a.ngpt, a.nband), (net._obj.h1, net._obj.nout),
+                     tuple(getattr(p, f) for f, _ in build.MegaPlan._fields_)))
+        return 0
+
+    def twin(*a, **k):
+        raise AssertionError("the plain twin ran for a tensor that is not on the CPU")
+
+    monkeypatch.setattr(build, "_lib", types.SimpleNamespace(lw_prep_launch=launch))
+    monkeypatch.setattr(build, "launch_target", lambda what, dev: (0, 0))
+    monkeypatch.setattr(k6, "_smem_limit", lambda dev: SMEM_LIMIT)
+    monkeypatch.setattr(k6, "lw_prep_plain", twin)
+    _, pm = model_pair(LW_MODEL)
+    meta = torch.device("meta")
+    args = [a.to(meta) for a in _prep_args(pm, CPU, ncol=5, nlay=13)[1:]]
+    model = nn_model_from_arrays(*model_arrays(pm), device=meta)
+    n = k6.LAUNCHES
+    got = k6.lw_prep(model, *args)
+    assert [tuple(t.shape) for t in got] == [(13, 5, 128)] * 3 + [(5, 128)]
+    assert seen == [((5, 13, 18, 128, 16), (128, 256),
+                     tuple(k6.lw_prep_plan(13, 18, 128, 128, 128)))]
+    assert k6.LAUNCHES == n + 1

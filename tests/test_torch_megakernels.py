@@ -195,7 +195,8 @@ def test_ctypes_declarations_match_the_c_entry_points():
     assert set(sigs) == {"lw_clearsky_mega4_launch", "sw_clearsky_megakernel_launch",
                          "lw_clearsky_mega4_blocks_per_sm",
                          "sw_clearsky_megakernel_blocks_per_sm", "lw_prep_launch",
-                         "mlp_predict_launch", "lw_noscat_broadband_launch",
+                         "lw_prep_blocks_per_sm", "mlp_predict_launch",
+                         "mlp_predict_blocks_per_sm", "lw_noscat_broadband_launch",
                          "rte_cuda_error_string"}
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
     build._declare(lib)
@@ -222,17 +223,16 @@ def _c_struct_fields(name):
         base, star, names = re.fullmatch(r"(?:const\s+)?(float|int)(\*?)\s+(.*)", decl.strip(),
                                          re.S).groups()
         ctype = ctypes.c_void_p if star else {"float": ctypes.c_float, "int": ctypes.c_int}[base]
+        sizes = {"kMaxLanes": build.MAX_LANES, "kMaxLayers": build.MAX_LAYERS,
+                 "kMaxDims": build.MAX_LAYERS + 1}
         for n in names.split(","):
-            n = n.strip()
-            if n.endswith("[kMaxLanes]"):
-                fields.append((n[:-len("[kMaxLanes]")], ctype * build.MAX_LANES))
-            else:
-                fields.append((n, ctype))
+            n, _, size = n.strip().rstrip("]").partition("[")
+            fields.append((n, ctype * sizes[size]) if size else (n, ctype))
     return fields
 
 
 @pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs",
-                                  "LwPrepArgs", "MegaPlan"])
+                                  "LwPrepArgs", "MegaPlan", "MlpNet", "MlpPlan"])
 def test_ctypes_structs_mirror_the_c_structs(name):
     """The fused kernels' launch entries read their arguments from structs;
     build.py's ctypes mirror of each has the C declaration's fields, in its
@@ -650,16 +650,19 @@ def test_plan_constants_mirror_the_c_header(constant, value):
     assert found == [str(value)]
 
 
-@pytest.mark.parametrize("entry", ["lw_clearsky_mega4", "sw_clearsky_megakernel"])
+@pytest.mark.parametrize("entry", ["lw_clearsky_mega4", "sw_clearsky_megakernel", "lw_prep",
+                                   "mlp_predict"])
 def test_blocks_per_sm_asks_the_library(monkeypatch, entry):
-    """build.blocks_per_sm hands the plan, the mode and the device to the
-    kernel's occupancy entry and returns the count that entry wrote; a CUDA
-    error raises."""
+    """build.blocks_per_sm hands the plan (as the entry's plan struct), the
+    mode and the device to the kernel's occupancy entry and returns the
+    count that entry wrote; a CUDA error raises."""
     import types
 
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
 
-    plan = k1.launch_plan(60, 18, 128, 128, 128)
+    plan = (mlp.mlp_launch_plan((18, 128, 128, 256)) if entry == "mlp_predict"
+            else k1.launch_plan(60, 18, 128, 128, 128))
     seen = []
 
     def occupancy(plan_ref, mode, device, blocks_ref):

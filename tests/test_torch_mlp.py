@@ -228,3 +228,199 @@ def test_hold_kernel_rule():
     beyond = torch.tensor([1.0, 1.0, 1.0 - 2e-5 * 2 * FLOAT32_SPREAD * 1.5, 1.0])
     r = hold_kernel(beyond, twin, ref64, 2e-5, 0.0)
     assert not r["ok"] and r["kernel_f64"] > FLOAT32_SPREAD * r["twin_f64"]
+
+
+# -- the MLP kernel's launch plan, the net as the kernel reads it, the launch --------
+
+SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+PLAN_NETS = {
+    "lw_demo": [(18, 128, 128, 256)],
+    "sw_demo_pair": [(7, 48, 48, 112)] * 2,
+    "deep_all_activations": [(18,) + (40,) * 7 + (96,)],
+    "hidden_512": [(18, 512, 512, 256)],
+    "odd_outputs": [(18, 128, 128, 127)],
+}
+
+
+def _covered_once(rows, n_in, n_out, c, threads):
+    """Walk the tiles of one layer as the kernel's threads walk them (round
+    by round, (row tile, column tile) pairs) and count each (row, column)."""
+    counts = np.zeros((rows, n_out), int)
+    nct = -(-n_out // c)
+    ntiles = nct * (rows // mlp.TILE_ROWS)
+    for t0 in range(0, ntiles, threads):
+        for t in range(t0, min(t0 + threads, ntiles)):
+            rt, c0 = t // nct, (t % nct) * c
+            counts[rt * mlp.TILE_ROWS:(rt + 1) * mlp.TILE_ROWS, c0:min(c0 + c, n_out)] += 1
+    return bool((counts == 1).all())
+
+
+@pytest.mark.parametrize("choices", [(256, 512), (512,)])
+@pytest.mark.parametrize("name", list(PLAN_NETS))
+def test_mlp_launch_plan_fits_and_covers_every_row_and_layer_once(monkeypatch, name, choices):
+    """The plan's geometry is one the kernel is compiled for, as shipped
+    (two blocks of 256 threads an SM where their shared memory fits, else
+    one of 512) and at 512 threads alone, as the tuning script tries it; its
+    shared memory is the sum of the kernel's regions (two k-major
+    activation buffers as wide as the widest input or hidden layer, rows +
+    4 floats from one k to the next, and two weight slabs of whole rows of
+    the widest layer output, in 16-byte pieces), and the blocks that make
+    512 threads fit an sm_90 SM together (1 KB reserved for each); the
+    blocks cover every row once; in every layer the threads' tiles cover
+    every (row, output) of a block once."""
+    monkeypatch.setattr(mlp, "THREAD_CHOICES", choices)
+    mlp.mlp_launch_plan.cache_clear()
+    nets = PLAN_NETS[name]
+    plan = mlp.mlp_launch_plan(*nets)
+    mlp.mlp_launch_plan.cache_clear()
+    width = max(max(d[:-1]) for d in nets)
+    widest_out = max(max(d[1:]) for d in nets)
+    assert plan.threads in choices and plan.rows in mlp.ROW_CHOICES
+    assert plan.width == width
+    assert plan.slab_floats % 4 == 0 and plan.slab_floats >= 4 * widest_out
+    assert plan.smem_bytes == 4 * (2 * width * (plan.rows + 4) + 2 * plan.slab_floats)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert 512 // plan.threads * (plan.smem_bytes + 1024) <= SMEM_LIMIT + 1024
+    for n in (1, 31, 481, 108000):
+        blocks = -(-n // plan.rows)
+        starts = [b * plan.rows for b in range(blocks)]
+        assert starts[-1] < n <= starts[-1] + plan.rows
+    for d in nets:
+        for i, (n_in, n_out) in enumerate(zip(d[:-1], d[1:])):
+            c = 2 if i + 2 < len(d) else mlp.last_tile_columns(plan.rows, n_out, plan.threads)
+            assert _covered_once(plan.rows, n_in, n_out, c, plan.threads), (d, i)
+
+
+def test_mlp_launch_plan_takes_the_rows_that_keep_the_threads_busy():
+    """Two blocks of 256 threads share an SM where their shared memory fits:
+    the LW demo net's 128-wide layers give all 256 threads a tile at 32 rows
+    per block, the SW nets' 48-wide layers need 64 rows for as few idle
+    threads; 512-wide hidden layers leave no room for two blocks, so one
+    block of 512 threads takes 32 rows. The last layer takes 8 x 4 tiles
+    unless 8 x 2 ones fill the block in fewer rounds."""
+    lw = mlp.mlp_launch_plan((18, 128, 128, 256))
+    assert (lw.threads, lw.rows) == (256, 32)
+    sw = mlp.mlp_launch_plan((7, 48, 48, 112), (7, 48, 48, 112))
+    assert (sw.threads, sw.rows) == (256, 64)
+    wide = mlp.mlp_launch_plan((18, 512, 512, 256))
+    assert (wide.threads, wide.rows) == (512, 32)
+    assert [mlp.last_tile_columns(r, n, t) for r, n, t in (
+        (64, 256, 512), (64, 128, 512), (128, 112, 512), (32, 256, 256), (32, 128, 256),
+        (64, 112, 256))] == [4, 2, 4, 4, 2, 4]
+    # a smaller card limit leaves no room for two blocks, then costs the
+    # weights' slabs their size, then rows
+    small = mlp.mlp_launch_plan((18, 128, 128, 256), smem_limit=80_000)
+    assert (small.threads, small.rows) == (512, 64) and small.slab_floats < 6144
+    assert mlp.mlp_launch_plan((18, 128, 128, 256), smem_limit=50_000).rows == 32
+
+
+@pytest.mark.parametrize("nets,match", [
+    ([(18,) + (40,) * 8 + (96,)], "9-layer net is deeper than the kernel's 8"),
+    ([(18, 513, 96)], "layer 513 wide is wider than the kernel's 512"),
+    ([(18, 0, 96)], "must be positive"),
+    ([(18, 512, 512, 256)], "too wide"),
+])
+def test_mlp_launch_plan_refuses_in_words(nets, match):
+    """A net deeper or wider than the kernel takes, a zero width, and nets
+    whose buffers do not fit the card's shared memory are refused with the
+    reason."""
+    limit = 100_000 if match == "too wide" else SMEM_LIMIT
+    with pytest.raises(ValueError, match=match):
+        mlp.mlp_launch_plan(*nets, smem_limit=limit)
+
+
+@pytest.mark.parametrize("constant,value", [
+    ("kThreads", mlp.THREADS), ("kTileRows", mlp.TILE_ROWS), ("kMaxLayers", 8),
+    ("kMaxWidth", 512),
+])
+def test_mlp_constants_mirror_the_c_source(constant, value):
+    """The plan reckons with the constants the kernel is compiled with
+    (csrc/mlp.cu), the same as config's limits and build's struct size;
+    the rows per block it may choose are the ones the launch entry
+    instantiates."""
+    import re
+
+    from rte_rrtmgp_nn_tpu_torch.config import MLP_KERNEL_MAX_LAYERS, MLP_KERNEL_MAX_WIDTH
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    text = (build.CSRC_DIR / "mlp.cu").read_text()
+    assert re.findall(rf"constexpr int {constant} = (\d+);", text) == [str(value)]
+    assert (MLP_KERNEL_MAX_LAYERS, MLP_KERNEL_MAX_WIDTH) == (8, 512)
+    assert build.MAX_LAYERS == 8
+    entry = text[text.index('extern "C" int mlp_predict_launch'):]
+    cases = re.findall(r"case (\d+): return launch_rows<(\d+)>", entry)
+    assert [(int(a), int(b)) for a, b in cases] == [(r, r) for r in mlp.ROW_CHOICES]
+
+
+def test_kernel_net_is_made_once_kept_with_the_model_and_dropped_when_it_moves():
+    """The net as the kernel reads it (each layer's weight and bias, the
+    output mean and std, widths and activation codes) is made once and kept
+    with the model, so a call packs nothing; to() / double() and copies
+    drop it with the tensors it points at."""
+    import copy
+
+    _, m = model_pair(LW_MODEL)
+    net = mlp.kernel_net("test", m, CPU)
+    assert mlp.kernel_net("test", m, CPU) is net and m.kernel_net == (CPU, net)
+    assert net.nlayers == 3 and list(net.dims[:4]) == [18, 128, 128, 256]
+    assert list(net.act[:3]) == [mlp.ACT_CODES["softsign"]] * 2 + [mlp.ACT_CODES["linear"]]
+    assert [net.w[i] for i in range(3)] == [w.data_ptr() for w in m.weights]
+    assert [net.b[i] for i in range(3)] == [b.data_ptr() for b in m.biases]
+    assert (net.omean, net.ostd) == (m.output_mean.data_ptr(), m.output_std.data_ptr())
+    assert copy.deepcopy(m).kernel_net is None and m.kernel_net is not None
+    m.to(torch.float32)
+    assert m.kernel_net is None
+    mlp.kernel_net("test", m, CPU)
+    m.double()
+    assert m.kernel_net is None
+    with pytest.raises(ValueError, match="dtype torch.float64"):
+        mlp.kernel_net("test", m, CPU)
+    deep = nn_model_from_arrays(*random_gas_optics_net_arrays(
+        (18,) + (24,) * 8 + (32,), ALL_ACTIVATIONS + ("linear", "linear"), seed=1), device=CPU)
+    with pytest.raises(ValueError, match="deeper"):
+        mlp.kernel_net("test", deep, CPU)
+
+
+def test_wrappers_off_the_cpu_reach_the_launch_with_the_plan(monkeypatch):
+    """Off the CPU each wrapper hands the launch entry its epilogue, the
+    nets as the kernel reads them and mlp_launch_plan's geometry, and counts
+    the launch; meta tensors stand in for the card and a recording library
+    for the kernel, and every twin raises."""
+    import types
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+
+    seen = []
+
+    def launch(epilogue, x, cd, net_a, net_b, plan, out0, out1, rows, device, stream):
+        seen.append((epilogue, list(net_a._obj.dims), None if net_b is None else
+                     list(net_b._obj.dims), tuple(getattr(plan._obj, f) for f, _ in
+                                                  build.MlpPlan._fields_), rows))
+        return 0
+
+    def twin(*a, **k):
+        raise AssertionError("a plain twin ran for a tensor that is not on the CPU")
+
+    monkeypatch.setattr(build, "_lib", types.SimpleNamespace(mlp_predict_launch=launch))
+    monkeypatch.setattr(build, "launch_target", lambda what, dev: (0, 0))
+    monkeypatch.setattr(mlp, "_smem_limit", lambda dev: SMEM_LIMIT)
+    for name in ("fused_predict_lw_both_plain", "fused_predict_tau_plain",
+                 "fused_predict_sw_plain"):
+        monkeypatch.setattr(mlp, name, twin)
+    meta = torch.device("meta")
+    on_meta = lambda arrays: nn_model_from_arrays(*arrays, device=meta)
+    lw = on_meta(model_arrays(model_pair(LW_MODEL)[1]))
+    tau = on_meta(split_lw_both_arrays(*model_arrays(model_pair(LW_MODEL)[1]))[0])
+    sw = [on_meta(model_arrays(model_pair(p)[1])) for p in SW_PAIR]
+    x, cd = torch.empty((5, 7, 18), device=meta), torch.empty((5, 7), device=meta)
+    n = dict(mlp.LAUNCHES)
+    got = mlp.fused_predict_lw_both(lw, x, cd)
+    assert [tuple(t.shape) for t in got] == [(5, 7, 128)] * 2
+    assert tuple(mlp.fused_predict_tau(tau, x, cd).shape) == (5, 7, 128)
+    x7 = torch.empty((35, 7), device=meta)
+    assert [tuple(t.shape) for t in mlp.fused_predict_sw(*sw, x7, cd.reshape(35))] == [(35, 56)] * 2
+    dims = lambda m: list(m.dims) + [0] * (9 - len(m.dims))
+    plan = lambda *ms: tuple(mlp.mlp_launch_plan(*(tuple(m.dims) for m in ms)))
+    assert seen == [(0, dims(lw), None, plan(lw), 35), (1, dims(tau), None, plan(tau), 35),
+                    (2, dims(sw[0]), dims(sw[1]), plan(*sw), 35)]
+    assert mlp.LAUNCHES == {k: v + 1 for k, v in n.items()}
