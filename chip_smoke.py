@@ -27,14 +27,16 @@ non-zero and prints no result line):
      with the demo net's tau half, K5 (fused_predict_sw) with the SW demo
      net as both nets and with the matched synthetic absorption/Rayleigh
      pair; beyond the bound float64 decides (testing.hold_kernel);
-  8. K7 (lw_noscat_broadband) against its twin on the optical depths and
-     sources gas_optics_lw_nn makes at 1800 x 60 x 128, for 1-4 Gauss
-     angles and once with per-(column, g-point) secants and an incident
-     flux;
+  8. K7 (lw_noscat_broadband) against its twins on the optical depths and
+     sources gas_optics_lw_nn makes at 1800 x 60 x 128: the angles mode for
+     1-4 Gauss angles in one launch each, with and without an incident
+     flux; one angle with per-(column, g-point) secants and an incident
+     radiance; the fields mode on the layer-major transmittance and
+     sources of the same fields;
   9. the general main path, each call driven with the kernels' launch
      counts set to 0 just before and read just after:
      rfmip_clear_sky_lw with 3 Gauss angles in both orientations (K3 once
-     and K7 three times per call); single-angle LW without the megakernel,
+     and K7 once for all three angles per call); single-angle LW without the megakernel,
      two-model (K4, then K7) and one-model (K3, then K7), equal to each
      other and to the K1 path; rfmip_clear_sky_sw without the megakernel
      (K5) held against the same path in float64 (a column beyond the bound
@@ -42,8 +44,9 @@ non-zero and prints no result line):
      1/|k*mu0 - 1| law, ROADMAP Queue 3 F1, and is printed); then a small
      input through both paths on CUDA against the same paths in float64
      on the CPU;
- 10. timing of K3, K4, K5, K7 and their twins, the general LW core (3
-     angles) and the staged SW core, and the fused cores once more;
+ 10. timing of K3, K4, K5, K7 (one angle, three angles, fields mode) and
+     their twins, the general LW core (3 angles) and the staged SW core,
+     and the fused cores once more;
  11. the cloud modes of K1 and K2 (lookup tables inside the kernel; band
      lanes) and their lane input modes (K8: lw_clearsky_mega5 on raw lanes;
      K9: sw_clearsky_megakernel(input_mode="lanes")) against their twins on
@@ -56,7 +59,7 @@ non-zero and prints no result line):
      directory, then allsky_lw / allsky_sw run on the card for both
      flavours on the fused route (one launch of K1 or K2 in its cloud mode,
      nothing else) and on the staged routes (3 Gauss angles: K3 once, K7
-     three times; megakernel off: K3 + K7, K5), each with the counts set to
+     once; megakernel off: K3 + K7, K5), each with the counts set to
      0 just before and read just after; finite fluxes, fused against staged
      and against float64 on the CPU, more LW down and less direct SW at the
      surface under clouds, SW TOA down = sum(solar) * mu0;
@@ -66,9 +69,9 @@ non-zero and prints no result line):
      transmittance and the three sources by the MLP kernel's rule (beyond
      the bound float64 decides), then the broadband sweeps on the kernel's
      and on the twin's fields; its time, its twin's and its bound;
- 15. the prep LW core (_lw_core_prep: K6, then the sweeps as PyTorch ops) in
-     both orientations with every count set to 0 just before and read just
-     after (one K6 launch, no other kernel), against the fused LW driver
+ 15. the prep LW core (_lw_core_prep: K6, then K7's fields mode) in both
+     orientations with every count set to 0 just before and read just
+     after (one K6 launch and one K7 launch, no other kernel), against the fused LW driver
      and, at 64 columns, against float64 on the CPU; no driver routes to
      this core, in the JAX package neither;
  16. parallel scans: rfmip_clear_sky_lw / _sw with scan_mode="parallel"
@@ -77,7 +80,7 @@ non-zero and prints no result line):
  17. the lookup-table gas optics: synthetic LW (256 g-points) and SW (224)
      k-distribution files are written to a temporary directory and loaded
      onto the card; gas_optics_lw_lut -> rte_lw (1 and 3 Gauss angles and
-     the optimal-angle secants: the transport kernel per angle, counted; the
+     the optimal-angle secants: the transport kernel once per solve, counted; the
      two-stream and the rescaled solve after a cloud increment) and
      gas_optics_sw_lut -> rte_sw at 1800 x 60, each stage timed; SW TOA down
      = sum(solar) * mu0; the LW heating rate; then 64 columns on the card
@@ -91,9 +94,10 @@ non-zero and prints no result line):
      (7200 columns, so that the card and not the host is read), for the
      share of its time that grows with the layers (the coefficients, the
      sweeps and the level sums: the nets run one pass at all three);
- 19. K3-K6's launch plans, ptxas counts and blocks per SM as in phase 18,
+ 19. K3-K7's launch plans, ptxas counts and blocks per SM as in phase 18,
      and their times at 7200 columns (a kernel under 0.3 ms at 1800
-     columns reads the host).
+     columns reads the host); K7 for one angle, three angles and the
+     fields mode, each beside its bound there.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -101,9 +105,11 @@ path, or for K8 and K9 a core or the wrapper, since no driver reaches
 them), its error against the twin, its time, the twin's, and the
 least time the card could take (``bound_ms``: bytes moved once over 3.35
 TB/s, or operations over 67 TFLOP/s float32, whichever is larger); the
-entries of the fused kernels and of K3-K6 also have ``threads``,
+entries of the fused kernels and of K3-K7 also have ``threads``,
 ``smem_bytes``, ``blocks_per_sm``, ``registers`` and ``spill_bytes``, and
-K3-K6's ``ms_wide``, the time of a call at 7200 columns.
+K3-K7's ``ms_wide``, the time of a call at 7200 columns (K7's also
+``bound_ms_wide``). K7 has three entries: one angle, three angles in one
+launch ("[angles]") and the fields mode ("[fields]").
 
 The models are the repository's in-repo stand-ins (artifacts/): the g-128
 LW demo net; the g-112 SW absorption demo net, used as both the absorption
@@ -151,7 +157,8 @@ PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 # and both adding sweeps (SW); the transport alone (K7, per angle); an MLP
 # output's postprocessing (mlp)
 # K6: the postprocessing, exp, source factor and both sources, no sweep
-ELEMENT_FLOPS = {"lw": 40, "sw": 110, "k7": 20, "mlp": 10, "k6": 25}
+# K7's fields mode: the two sweeps' multiply-adds and their level sums
+ELEMENT_FLOPS = {"lw": 40, "sw": 110, "k7": 20, "mlp": 10, "k6": 25, "k7_fields": 6}
 # what the cloud modes add, counted from csrc/ at the resolution the function
 # needs it and only for the cells that hold cloud (the others come out 0):
 #   lut_phase: one phase's table lookup per (cell, band): radius index and
@@ -400,55 +407,99 @@ def mlp_phase(dev, lw_model, sw_model, data) -> tuple[dict, dict, dict]:
     return errs, timers, bounds
 
 
-def k7_phase(dev, lw_model, table, lw_spec, data) -> tuple[float, dict, dict]:
-    """Phase 8: K7 against its twin for 1-4 Gauss angles and with
-    per-(column, g-point) secants and an incident flux. Returns (max
-    |kernel - twin| in W/m2, the timing closures, the bound of one angle)."""
+def k7_phase(dev, lw_model, table, lw_spec, data) -> tuple[dict, dict]:
+    """Phase 8: K7 against its twins on the optical depths and sources
+    gas_optics_lw_nn makes: the angles mode for 1-4 Gauss angles in one
+    launch, with and without an incident flux; the one-angle call with
+    per-(column, g-point) secants and an incident radiance; the fields mode
+    on the layer-major transmittance and sources of the same fields. Returns
+    (the result entries "k7" (one angle), "k7_angles" (N_ANGLES) and
+    "k7_fields": max |kernel - twin| in W/m2 and the bound, the timing
+    closures)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
     from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
-    from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import GAUSS_DS, GAUSS_WTS, LW_WEIGHT
 
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
     play, plev, tlay, tlev, tsfc, emis_band, concs = rfmip.lw_staged_inputs(data, lw_spec, dev)
     tau, src = go.gas_optics_lw_nn([lw_model], play, plev, tlay, tsfc, GasConcs(concs),
                                    lw_spec, table, tlev=tlev)
-    emis = lw_spec.expand(emis_band)
+    emis = lw_spec.expand(emis_band).contiguous()
     args = (tau, src.lay_source, src.lev_source, emis, src.sfc_source)
     ngpt = tau.shape[-1]
-    worst = 0.0
-    for n in range(1, 5):
-        got, ref = 0.0, 0.0
-        for i in range(n):
-            d = torch.full((NCOL, ngpt), float(GAUSS_DS[n - 1, i]), device=dev)
-            w = float(GAUSS_WTS[n - 1, i])
-            got = got + torch.stack(k7.lw_noscat_broadband(*args, d, w))
-            ref = ref + torch.stack(k7.lw_noscat_broadband_plain(*args, d, w))
-        torch.cuda.synchronize()
-        e = maxabs(got, ref)
-        worst = max(worst, e)
-        print(f"K7 lw_noscat_broadband {NCOL}x{NLAY}x{ngpt}, {n} angle(s): max|kernel-twin| "
-              f"(up, dn summed over angles) {e:.3e} W/m2 (tol {LW_ATOL}); mean dn "
-              f"{float(got[1].mean()):.4f}")
-        require(bool(torch.isfinite(got).all()) and e <= LW_ATOL, f"K7 with {n} angles")
     rng = np.random.default_rng(SEED)
+    inc_flux = t(rng.uniform(0.0, 2.0, (NCOL, ngpt)))
+    gauss = lambda n: ([float(d) for d in plw.GAUSS_DS[n - 1, :n]],
+                       [float(w) for w in plw.GAUSS_WTS[n - 1, :n]])
+    errs = {}
+
+    def check(name, got, ref):
+        got, ref = torch.stack(tuple(got)), torch.stack(tuple(ref))
+        e = maxabs(got, ref)
+        print(f"K7 {name}: max|kernel-twin| {e:.3e} W/m2 (tol {LW_ATOL}); mean dn "
+              f"{float(got[1].mean()):.4f}")
+        require(bool(torch.isfinite(got).all()) and e <= LW_ATOL, f"K7 {name}")
+        return e
+
+    for n in range(1, 5):
+        for inc in (None, inc_flux):
+            n0 = k7.MODE_LAUNCHES["angles"]
+            got = k7.lw_noscat_broadband_angles(*args, *gauss(n), inc)
+            torch.cuda.synchronize()
+            require(k7.MODE_LAUNCHES["angles"] == n0 + 1, f"K7 took more than one launch for {n} angles")
+            e = check(f"angles mode {NCOL}x{NLAY}x{ngpt}, {n} angle(s) in one launch"
+                      + (", incident flux" if inc is not None else ""),
+                      got, k7.lw_noscat_broadband_angles_plain(*args, *gauss(n), inc))
+            key = "k7" if n == 1 else "k7_angles"
+            errs[key] = max(errs.get(key, 0.0), e)
     ds = t(rng.uniform(1.2, 2.5, (NCOL, ngpt)))
-    inc = t(rng.uniform(0.0, 2.0, (NCOL, ngpt))) / (2.0 * np.pi * LW_WEIGHT)
-    got = torch.stack(k7.lw_noscat_broadband(*args, ds, LW_WEIGHT, inc))
-    ref = torch.stack(k7.lw_noscat_broadband_plain(*args, ds, LW_WEIGHT, inc))
-    e = maxabs(got, ref)
-    worst = max(worst, e)
-    print(f"K7 with per-(column, g-point) secants and an incident flux: max|kernel-twin| "
-          f"{e:.3e} W/m2 (tol {LW_ATOL})")
-    require(e <= LW_ATOL, "K7 with lw_ds and inc_flux")
-    d = torch.full((NCOL, ngpt), float(GAUSS_DS[0, 0]), device=dev)
-    timers = {"k7": lambda: k7.lw_noscat_broadband(*args, d, LW_WEIGHT),
-              "k7_plain": lambda: k7.lw_noscat_broadband_plain(*args, d, LW_WEIGHT)}
-    return worst, timers, bound(nbytes(*args, d) + 2 * NCOL * (NLAY + 1) * 4,
-                                ELEMENT_FLOPS["k7"] * NCOL * NLAY * ngpt)
+    inc_rad = inc_flux / (2.0 * np.pi * plw.LW_WEIGHT)
+    e = check("one angle, per-(column, g-point) secants, incident radiance",
+              k7.lw_noscat_broadband(*args, ds, plw.LW_WEIGHT, inc_rad),
+              k7.lw_noscat_broadband_plain(*args, ds, plw.LW_WEIGHT, inc_rad))
+    errs["k7"] = max(errs["k7"], e)
+    # the fields mode on the layer-major transmittance and sources of the
+    # diffusivity angle, as K6 writes them
+    tl = tau * plw.LW_DIFFUSIVITY
+    trans = torch.exp(-tl)
+    src_dn, src_up = plw.lw_source_noscat(tl, trans, src.lay_source, src.lev_source)
+    fields = tuple(f.transpose(0, 1).contiguous() for f in (trans, src_dn, src_up))
+    fk = k7.lw_broadband_sweeps_kernel(*fields, emis, src.sfc_source)
+    fp = plw.lw_broadband_sweeps(*fields, emis, src.sfc_source)
+    errs["k7_fields"] = check(f"fields mode {NLAY}x{NCOL}x{ngpt}", fk[:2], fp[:2])
+
+    d = torch.full((NCOL, ngpt), float(plw.GAUSS_DS[0, 0]), device=dev)
+    secants, weights = gauss(N_ANGLES)
+    timers = {"k7": lambda: k7.lw_noscat_broadband(*args, d, plw.LW_WEIGHT),
+              "k7_plain": lambda: k7.lw_noscat_broadband_plain(*args, d, plw.LW_WEIGHT),
+              "k7_angles": lambda: k7.lw_noscat_broadband_angles(*args, secants, weights),
+              "k7_angles_plain": lambda: k7.lw_noscat_broadband_angles_plain(*args, secants,
+                                                                             weights),
+              "k7_fields": lambda: k7.lw_broadband_sweeps_kernel(*fields, emis, src.sfc_source),
+              "k7_fields_plain": lambda: plw.lw_broadband_sweeps(*fields, emis, src.sfc_source)}
+    out_bytes = 2 * NCOL * (NLAY + 1) * 4
+    cells = NCOL * NLAY * ngpt
+    results = {
+        "k7": {"max_abs_err": errs["k7"], **k7_bound(nbytes(*args, d) + out_bytes, cells, 1)},
+        "k7_angles": {"max_abs_err": errs["k7_angles"],
+                      **k7_bound(nbytes(*args) + out_bytes, cells, N_ANGLES)},
+        "k7_fields": {"max_abs_err": errs["k7_fields"],
+                      **k7_bound(nbytes(*fields, emis, src.sfc_source) + out_bytes, cells, 0)},
+    }
+    return results, timers
+
+
+def k7_bound(bytes_moved: float, cells: int, angles: int) -> dict:
+    """K7's bound: its inputs read once per call and its outputs written
+    once, whatever the number of angles; ELEMENT_FLOPS["k7"] per (cell,
+    g-point) and angle, or for the fields mode (``angles`` 0) the sweeps
+    alone, ELEMENT_FLOPS["k7_fields"] per (cell, g-point)."""
+    per_cell = ELEMENT_FLOPS["k7"] * angles if angles else ELEMENT_FLOPS["k7_fields"]
+    return bound(bytes_moved, per_cell * cells)
 
 
 def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
@@ -536,8 +587,9 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
 
     def reset():
         k7.LAUNCHES = 0
-        for k in mlp.LAUNCHES:
-            mlp.LAUNCHES[k] = 0
+        for m in (mlp.LAUNCHES, k7.MODE_LAUNCHES):
+            for k in m:
+                m[k] = 0
 
     def finite(fb, names=("flux_up", "flux_dn", "flux_net")):
         for n in names:
@@ -551,11 +603,13 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     multi = {top: rfmip.rfmip_clear_sky_lw(d, [lw_model], n_gauss_angles=N_ANGLES, device=dev)
              for top, (d, _, _) in main.items()}
     torch.cuda.synchronize()
-    launches["k3"], launches["k7"] = mlp.LAUNCHES["fused_predict_lw_both"], k7.LAUNCHES
+    launches["k3"], launches["k7_angles"] = (mlp.LAUNCHES["fused_predict_lw_both"],
+                                             k7.MODE_LAUNCHES["angles"])
     print(f"general LW, {N_ANGLES} angles, both orientations: launches fused_predict_lw_both "
-          f"{launches['k3']}, lw_noscat_broadband {launches['k7']}")
-    require(launches["k3"] == 2 and launches["k7"] == 2 * N_ANGLES,
-            "multi-angle LW: K3 not once and K7 not once per angle per call")
+          f"{launches['k3']}, lw_noscat_broadband {k7.LAUNCHES} (angles mode "
+          f"{launches['k7_angles']})")
+    require(launches["k3"] == 2 and launches["k7_angles"] == 2 and k7.LAUNCHES == 2,
+            "multi-angle LW: K3 and K7 (all angles in one launch) not once per call")
     for fb in multi.values():
         finite(fb)
     flip = max(maxabs(multi[True].flux_up, multi[False].flux_up.flip(1)),
@@ -586,6 +640,7 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
           f"one-model (K3 + K7) vs the K1 path {e_one:.3e} (tol {LW_ATOL})")
     require((launches["k4"], k7_two, k3_one, k7_one) == (1, 1, 1, 1),
             "single-angle staged LW did not launch K4 or K3, then K7, once each")
+    launches["k7"] = k7_two + k7_one
     require(max(e_two, e_one) <= LW_ATOL, "the single-angle LW paths disagree")
 
     sw_models = [sw_model, sw_model]
@@ -989,10 +1044,10 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
                 c_sws = counts()
             print(f"all-sky {flavour}, staged routes: allsky_lw {N_ANGLES} angles {c_lw3}, 1 angle "
                   f"{c_lw1}, allsky_sw {c_sws}")
-            require(c_lw3 == {"fused_predict_lw_both": 1, "k7": N_ANGLES}
+            require(c_lw3 == {"fused_predict_lw_both": 1, "k7": 1}
                     and c_lw1 == {"fused_predict_lw_both": 1, "k7": 1}
                     and c_sws == {"fused_predict_sw": 1},
-                    "the staged all-sky routes did not launch K3 once and K7 once per angle, or K5 once")
+                    "the staged all-sky routes did not launch K3 and K7 (all angles) once, or K5 once")
             finite(lw3, lw_names)
             finite(sws, sw_names)
 
@@ -1176,7 +1231,7 @@ def geometry_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar
 
 
 def kernels_wide_phase(dev, card, lw_model, sw_model, table, lw_spec) -> tuple[dict, dict]:
-    """Phase 19: K3-K6's launch plans, ptxas counts and the blocks per SM the
+    """Phase 19: K3-K7's launch plans, ptxas counts and the blocks per SM the
     runtime's occupancy call gives, and their times at four times the
     columns (a kernel under 0.3 ms at NCOL columns reads the host's time to
     queue a call). Returns (geometry entry per kernel, ms per call at
@@ -1229,8 +1284,74 @@ def kernels_wide_phase(dev, card, lw_model, sw_model, table, lw_spec) -> tuple[d
           f"2 x {4 * plan.slab_floats} B), {res['registers']} registers, {res['spill_bytes']} B "
           f"spill, {blocks} block(s) per SM by the runtime's occupancy call")
     wide["k6"] = cuda_ms(lambda: k6.lw_prep(*args))
+    k7_geometry, k7_wide = k7_wide_phase(dev, lw_model, table, lw_spec, data, args, smem)
+    geometry.update(k7_geometry)
+    wide.update(k7_wide)
     for k, ms in wide.items():
-        print(f"timing {k} at {ncol}x{NLAY}: {ms:.4f} ms, {ms / 4:.4f} ms per {NCOL} columns | {card}")
+        extra = ""
+        if "bound_ms_wide" in geometry[k]:
+            b = geometry[k]["bound_ms_wide"]
+            extra = f", bound {b:.4f} ms ({b / ms:.3f} of it)"
+        print(f"timing {k} at {ncol}x{NLAY}: {ms:.4f} ms, {ms / 4:.4f} ms per {NCOL} columns"
+              f"{extra} | {card}")
+    return geometry, wide
+
+
+def k7_wide_phase(dev, lw_model, table, lw_spec, data, k6_args_wide, smem) -> tuple[dict, dict]:
+    """Phase 19 for K7: its plan, ptxas counts and blocks per SM for one
+    angle, N_ANGLES angles and the fields mode, and its time at the columns
+    of ``data`` (the angles mode on gas_optics_lw_nn's fields, the fields
+    mode on K6's output), each beside its bound there. Returns (geometry
+    entry per mode, ms per call)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    play, plev, tlay, tlev, tsfc, emis_band, concs = rfmip.lw_staged_inputs(data, lw_spec, dev)
+    tau, src = go.gas_optics_lw_nn([lw_model], play, plev, tlay, tsfc, GasConcs(concs),
+                                   lw_spec, table, tlev=tlev)
+    emis = lw_spec.expand(emis_band).contiguous()
+    args = (tau, src.lay_source, src.lev_source, emis, src.sfc_source)
+    ncol, _, ngpt = tau.shape
+    d = torch.full((ncol, ngpt), plw.LW_DIFFUSIVITY, device=dev)
+    secants = [float(x) for x in plw.GAUSS_DS[N_ANGLES - 1, :N_ANGLES]]
+    weights = [float(x) for x in plw.GAUSS_WTS[N_ANGLES - 1, :N_ANGLES]]
+    trans, src_dn, src_up, sfc = k6.lw_prep(*k6_args_wide)
+    out_bytes, cells = 2 * ncol * (NLAY + 1) * 4, ncol * NLAY * ngpt
+    calls = {
+        "k7": ("angles", 1, lambda: k7.lw_noscat_broadband(*args, d, plw.LW_WEIGHT),
+               k7_bound(nbytes(*args, d) + out_bytes, cells, 1)),
+        "k7_angles": ("angles", N_ANGLES,
+                      lambda: k7.lw_noscat_broadband_angles(*args, secants, weights),
+                      k7_bound(nbytes(*args) + out_bytes, cells, N_ANGLES)),
+        "k7_fields": ("fields", 1,
+                      lambda: k7.lw_broadband_sweeps_kernel(trans, src_dn, src_up, emis, sfc),
+                      k7_bound(nbytes(trans, src_dn, src_up, emis, sfc) + out_bytes, cells, 0)),
+    }
+    geometry, wide = {}, {}
+    for k, (mode, nang, fn, b) in calls.items():
+        plan = k7.lw_noscat_plan(NLAY, ngpt, nang, smem)
+        code = k7.MODE_CODES[mode]
+        res = build.kernel_resources("lw_noscat_kernel", (nang, code, plan.seg_layers))
+        require(bool(res), f"{k}: the build's ptxas output has no entry for lw_noscat_kernel<{nang}, "
+                           f"{code}, {plan.seg_layers}>")
+        blocks = build.blocks_per_sm("lw_noscat_broadband", plan, code, dev.index)
+        require(blocks >= 1, f"{k}: the runtime keeps no block of this plan on an SM")
+        geometry[k] = {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                       "blocks_per_sm": blocks, **res, "bound_ms_wide": b["bound_ms"]}
+        n_tiers = k7.tiers(NLAY, plan.seg_layers * plan.segments)
+        print(f"geometry {k} ({mode} mode, {nang} angle(s)): {plan.threads} threads, "
+              f"{plan.segments} per g-point of {plan.seg_layers} layers each, {plan.kept_tiers} of "
+              f"{n_tiers} tier(s) kept in shared memory, {plan.smem_bytes} B of shared memory, "
+              f"{res['registers']} registers, {res['spill_bytes']} B spill, {blocks} block(s) per "
+              "SM by the runtime's occupancy call")
+        wide[k] = cuda_ms(fn)
     return geometry, wide
 
 
@@ -1243,15 +1364,16 @@ def reset_counts():
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
 
     k1.LAUNCHES = k2.LAUNCHES = k6.LAUNCHES = k7.LAUNCHES = 0
-    for m in (k1.MODE_LAUNCHES, k2.MODE_LAUNCHES, mlp.LAUNCHES):
+    for m in (k1.MODE_LAUNCHES, k2.MODE_LAUNCHES, k7.MODE_LAUNCHES, mlp.LAUNCHES):
         for k in m:
             m[k] = 0
 
 
 def read_counts() -> dict:
     """After a synchronize, the kernels launched since reset_counts: k1, k2
-    (all modes), k6, k7 and the MLP kernel's epilogues by name; kernels
-    that were not launched are left out."""
+    (all modes), k6, k7 (all modes; k7_angles and k7_fields by mode) and
+    the MLP kernel's epilogues by name; kernels that were not launched are
+    left out."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
@@ -1262,14 +1384,15 @@ def read_counts() -> dict:
 
     torch.cuda.synchronize()
     c = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "k6": k6.LAUNCHES, "k7": k7.LAUNCHES,
-         **mlp.LAUNCHES}
+         **{f"k7_{k}": v for k, v in k7.MODE_LAUNCHES.items()}, **mlp.LAUNCHES}
     return {k: v for k, v in c.items() if v}
 
 
 def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, card):
     """Phases 14 and 15: K6 against its twin at full size, then the prep LW
     core end to end. ``main`` maps top_at_1 to (data, fused LW fluxes, ...).
-    Returns (K6's result entry, its launches in the core runs, timings)."""
+    Returns (K6's result entry, the launches of K6 and of K7's fields mode in
+    the core runs, timings)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
@@ -1319,7 +1442,7 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
              "k6_plain": cuda_ms(lambda: k6.lw_prep_plain(*args), reps=9)}
 
     # ---- 15. the prep LW core ------------------------------------------------
-    launches = 0
+    launches = {"k6": 0, "k7_fields": 0}
     for top, (d, fused, _) in main.items():
         staged_in = rfmip.lw_staged_inputs(d, lw_spec, dev)
         reset_counts()
@@ -1329,12 +1452,14 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
         print(f"prep LW core top_at_1={top}: launches {counts}; vs the fused driver (K1) "
               f"{e:.3e} W/m2 (tol {LW_ATOL}); mean up {float(fb.flux_up.mean()):.4f} dn "
               f"{float(fb.flux_dn.mean()):.4f}")
-        require(counts == {"k6": 1}, "_lw_core_prep did not launch K6 once and nothing else")
+        require(counts == {"k6": 1, "k7": 1, "k7_fields": 1},
+                "_lw_core_prep did not launch K6 once and K7's fields mode once, and nothing else")
         require(tuple(fb.flux_up.shape) == (NCOL, NLAY + 1)
                 and bool(torch.isfinite(fb.flux_up).all() and torch.isfinite(fb.flux_dn).all()),
                 "_lw_core_prep output")
         require(e <= LW_ATOL, "the prep LW core disagrees with the fused LW driver")
-        launches += counts.get("k6", 0)
+        launches["k6"] += counts.get("k6", 0)
+        launches["k7_fields"] += counts.get("k7_fields", 0)
     cpu, f64 = torch.device("cpu"), torch.float64
     small = rfmip_data_from_arrays(synthesize_rfmip(64, NLAY, SEED + 1, top_at_1=True))
     lw_cpu = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
@@ -1372,7 +1497,8 @@ def parallel_phase(dev, lw_model, sw_model, main):
     print(f"parallel-scan RFMIP requests: rfmip_clear_sky_lw launches {c_lw}, vs the sequential "
           f"request (K1) {e_lw:.3e} W/m2 (tol {LW_ATOL}); rfmip_clear_sky_sw launches {c_sw}")
     # the broadband LW solve does not read the scan mode: the transport kernel runs
-    require(c_lw == {"fused_predict_lw_both": 1, "k7": 1} and c_sw == {"fused_predict_sw": 1},
+    require(c_lw == {"fused_predict_lw_both": 1, "k7": 1, "k7_angles": 1}
+            and c_sw == {"fused_predict_sw": 1},
             "the parallel-scan RFMIP requests did not take K3 + K7 and K5")
     require(e_lw <= LW_ATOL, "parallel-scan LW disagrees with the sequential request")
     for fb, names in ((lw_par, ("flux_up", "flux_dn")), (sw_par, ("flux_up", "flux_dn", "flux_dn_dir"))):
@@ -1422,9 +1548,9 @@ def lut_phase(dev, card):
     reset_counts()
     out = testing.lut_fluxes(kd["lw"], kd["sw"], data, dev, f32)
     counts = read_counts()
-    print(f"LUT path {NCOL}x{NLAY}: launches {counts} (lw_noscat_broadband: 1 + {N_ANGLES} angles "
-          "+ the optimal-angle solve)")
-    require(counts == {"k7": 2 + N_ANGLES}, "the LUT LW solves did not launch K7 once per angle")
+    print(f"LUT path {NCOL}x{NLAY}: launches {counts} (lw_noscat_broadband once for each of "
+          f"the 1-angle, {N_ANGLES}-angle and optimal-angle solves)")
+    require(counts == {"k7": 3, "k7_angles": 3}, "the LUT LW solves did not launch K7 once each")
     for name, v in out.items():
         require(v.is_cuda, f"LUT path {name} is on {v.device}")
         require(bool(torch.isfinite(v).all()), f"LUT path {name} not finite")
@@ -1678,8 +1804,8 @@ def run() -> dict:
         results[k] = {"max_abs_err": e, **mlp_bounds[k]}
 
     # ---- 8. K7 vs plain -----------------------------------------------------
-    e7, k7_timers, k7_bound = k7_phase(dev, lw_model, table, lw_spec, data)
-    results["k7"] = {"max_abs_err": e7, **k7_bound}
+    k7_results, k7_timers = k7_phase(dev, lw_model, table, lw_spec, data)
+    results.update(k7_results)
 
     # ---- 9. main path: the general RTE path ---------------------------------
     launches.update(general_main_path(dev, lw_model, sw_model, main))
@@ -1711,7 +1837,8 @@ def run() -> dict:
           f"{SW_ATOL}, the other columns {rest:.3e} W/m2")
 
     # ---- 10. timing of the general path -------------------------------------
-    timed.update({k: cuda_ms(fn) for k, fn in {**mlp_timers, **k7_timers}.items()})
+    timed.update({k: cuda_ms(fn, reps=9 if k.startswith("k7") and k.endswith("_plain") else 25)
+                  for k, fn in {**mlp_timers, **k7_timers}.items()})
     lw_gen_in = rfmip.lw_staged_inputs(d1, lw_spec, dev)
     sw_gen_in = rfmip.sw_staged_inputs(d1, dev)
     timed["lw_core_general"] = cuda_ms(lambda: rfmip._lw_core(
@@ -1726,7 +1853,7 @@ def run() -> dict:
                             (" after phases 7-9", "lw_core_late", "sw_core_late")):
         ms = timed[lw_k] + timed[sw_k]
         print(f"timing LW+SW cores{tag}: {ms:.4f} ms, {NCOL / ms * 1e3:.0f} columns/s | {card}")
-    print(f"timing general LW core ({N_ANGLES} angles, K3 + {N_ANGLES} x K7) "
+    print(f"timing general LW core ({N_ANGLES} angles, K3 + K7) "
           f"{timed['lw_core_general']:.4f} ms, staged SW core (K5) {timed['sw_core_staged']:.4f} "
           f"ms | {card}")
     # ---- 11. cloud modes of K1/K2, K8, K9 ------------------------------------
@@ -1754,10 +1881,11 @@ def run() -> dict:
     timed.update(late)
 
     # ---- 14 / 15. K6 and the prep LW core --------------------------------------
-    results["k6"], launches["k6"], prep_timed = prep_phase(
+    results["k6"], prep_launches, prep_timed = prep_phase(
         dev, lw_model, table, lw_spec, lw_in, main, model64, a64[9], card)
+    launches.update(prep_launches)
     timed.update(prep_timed)
-    print(f"timing LW cores: prep (K6 + PyTorch sweeps) {timed['lw_core_prep']:.4f} ms, fused (K1) "
+    print(f"timing LW cores: prep (K6 + K7 fields mode) {timed['lw_core_prep']:.4f} ms, fused (K1) "
           f"{timed['lw_core_late']:.4f}, general ({N_ANGLES} angles, K3 + K7) "
           f"{timed['lw_core_general']:.4f} | {card}")
 
@@ -1828,7 +1956,18 @@ def main() -> int:
         {"name": "lw_noscat_broadband", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],
-         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations"},
+         "counted_around": "rfmip_clear_sky_lw(use_megakernel=False), one and two models: "
+                           "one angle"},
+        {"name": "lw_noscat_broadband[angles]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_angles"],
+         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations: all "
+                           "three angles in one launch"},
+        {"name": "lw_noscat_broadband[fields]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_fields"],
+         "counted_around": "drivers.rfmip._lw_core_prep, both orientations: a core, no driver "
+                           "routes to it"},
         {"name": "lw_clearsky_mega4[cld_lut]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:431", **r["k1_cld_lut"],

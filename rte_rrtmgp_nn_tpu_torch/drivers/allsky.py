@@ -22,7 +22,8 @@ The route is taken once per call by ``config.resolve_use_megakernel``:
   - "staged" LW: on CUDA, and for more than one angle or a parallel-scan
     request anywhere, ``_allsky_lw_core`` (NN gas optics through the MLP
     kernel, ``increment`` by band, then ``rte_lw``: the transport kernel
-    once per angle, or spectral log-depth scans for ``scan_mode="parallel"``); on the
+    once for all its angles, or spectral log-depth scans for
+    ``scan_mode="parallel"``); on the
     CPU with one angle ``_allsky_lw_core_lay_major``, whose sweeps are
     PyTorch ops (the oracle of the fused core, not a CUDA route);
   - "staged" SW: ``_allsky_sw_core_lay_major`` (the MLP kernel, then the

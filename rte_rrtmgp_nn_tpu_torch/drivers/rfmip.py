@@ -51,8 +51,8 @@ from ..gasoptics.planck import (
 from ..models.network import NNModel
 from ..ops.cuda.lw_megakernel import lw_clearsky_mega4, lw_clearsky_mega5
 from ..ops.cuda.lw_prep import lw_prep
+from ..ops.cuda.lw_solver import lw_broadband_sweeps_kernel
 from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
-from ..ops.lw_solver import lw_broadband_sweeps
 from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str
 from ..rte import rte_lw, rte_sw
@@ -272,9 +272,11 @@ def _lw_core_prep(
     """Prep LW core: the front-end kernel (ops/cuda/lw_prep.lw_prep, K6)
     makes exactly the three layer-major fields the broadband sweeps read
     and the surface source, from band Planck values interpolated here; the
-    sweeps stay tensor ops (lw_broadband_sweeps). Column-major inputs in
-    the caller's orientation. No driver routes to it, in the JAX package
-    neither: tests and benchmarks call it."""
+    sweeps are the transport kernel's fields mode on CUDA
+    (ops/cuda/lw_solver.lw_broadband_sweeps_kernel, K7) and tensor ops on
+    the CPU (lw_broadband_sweeps). Column-major inputs in the caller's
+    orientation. No driver routes to it, in the JAX package neither: tests
+    and benchmarks call it."""
     ncol, nlay = play.shape
     canon = lambda a: (a if top_at_1 else a.flip(1)).T.contiguous()
     play_t, plev_t, tlay_t, tlev_t = canon(play), canon(plev), canon(tlay), canon(tlev)
@@ -285,7 +287,8 @@ def _lw_core_prep(
         models[0], x, col_dry,
         planck_table.interpolate(tlay_t), planck_table.interpolate(tlev_t),
         planck_table.interpolate(tsfc), spectral.gpt2band_tensor(play.device))
-    sol = lw_broadband_sweeps(trans, src_dn, src_up, spectral.expand(sfc_emis_band), sfc_src)
+    sol = lw_broadband_sweeps_kernel(trans, src_dn, src_up,
+                                     spectral.expand(sfc_emis_band).contiguous(), sfc_src)
     up, dn = sol.flux_up, sol.flux_dn
     if not top_at_1:
         up, dn = up.flip(1), dn.flip(1)

@@ -104,13 +104,14 @@ def build() -> Path:
     return out
 
 
-def kernel_resources(kernel: str, mode: int | None = None) -> dict:
+def kernel_resources(kernel: str, mode: int | tuple | None = None) -> dict:
     """{"registers", "spill_bytes"} of a ``__global__`` function as ptxas
     reported them in the build that made the loaded library: ``kernel`` is
     the function's name in the source, ``mode`` the value of its integer
-    template parameter, if it has one. Empty if the build's output is not
-    at hand."""
-    want = f"{len(kernel)}{kernel}" + (f"ILi{mode}E" if mode is not None else "")
+    template parameter, or the tuple of them, if it has any. Empty if the
+    build's output is not at hand."""
+    args = () if mode is None else (mode,) if isinstance(mode, int) else tuple(mode)
+    want = f"{len(kernel)}{kernel}" + ("I" + "".join(f"Li{v}E" for v in args) if args else "")
     blocks = re.split(r"Compiling entry function '", BUILD_INFO.get("log", ""))[1:]
     for block in blocks:
         name, _, rest = block.partition("'")
@@ -125,6 +126,7 @@ def kernel_resources(kernel: str, mode: int | None = None) -> dict:
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_LANES = 32  # csrc/common.cuh kMaxLanes
 MAX_LAYERS = 8  # csrc/mlp.cu kMaxLayers
+MAX_ANGLES = 4  # csrc/lw_noscat.cu kMaxAngles
 
 
 def _fields(ctype, names: str) -> list:
@@ -183,6 +185,18 @@ class SwArgs(ctypes.Structure):  # csrc/sw_megakernel.cu
                 + _fields(P, "lwp iwp rel rei cld_tau cld_ts cld_tsg"))
 
 
+class NoscatArgs(ctypes.Structure):  # csrc/lw_noscat.cu
+    _fields_ = (_fields(P, "f0 f1 f2 emis sfc ds inc up dn")
+                + _fields(I, "col_stride0 lay_stride0 col_stride1 lay_stride1 col_stride2 "
+                             "lay_stride2 ncol nlay ngpt nang")
+                + [(n, F * MAX_ANGLES) for n in ("secant", "two_pi_w", "inc_div")]
+                + [("tau_thresh", F)])
+
+
+class NoscatPlan(ctypes.Structure):  # csrc/lw_noscat.cu
+    _fields_ = _fields(I, "threads seg_layers segments kept_tiers angles smem_bytes")
+
+
 def mlp3(w1a, w1c, model) -> Mlp3:
     """The Mlp3 of a 3-layer model whose first layer is split into the
     lanes' rows ``w1a`` and the const block's rows ``w1c``."""
@@ -219,7 +233,8 @@ def _declare(lib) -> None:
     # (epilogue, x, col_dry, net_a, net_b, plan, out0, out1, rows, device, stream)
     lib.mlp_predict_launch.argtypes = [I] + [P] * 7 + [I, I, P]
     lib.mlp_predict_launch.restype = I
-    lib.lw_noscat_broadband_launch.argtypes = [P] * 9 + [I] * 3 + [F] * 2 + [I, P]
+    # (args, plan, mode, device, stream)
+    lib.lw_noscat_broadband_launch.argtypes = [P, P, I, I, P]
     lib.lw_noscat_broadband_launch.restype = I
     lib.rte_cuda_error_string.argtypes = [I]
     lib.rte_cuda_error_string.restype = ctypes.c_char_p
@@ -237,7 +252,7 @@ def library():
 
 # the launch entries with an occupancy entry, and the plan struct each takes
 PLAN_STRUCTS = {"lw_clearsky_mega4": MegaPlan, "sw_clearsky_megakernel": MegaPlan,
-                "lw_prep": MegaPlan, "mlp_predict": MlpPlan}
+                "lw_prep": MegaPlan, "mlp_predict": MlpPlan, "lw_noscat_broadband": NoscatPlan}
 
 
 def blocks_per_sm(entry: str, plan, mode: int, device: int) -> int:

@@ -20,10 +20,10 @@ rte/mo_rte_lw.F90:113-125.
 
 Orientation is canonicalized to top-at-0 by flipping. The layer
 recurrences are Python loops over layers; on CUDA the broadband transport
-of each angle is one kernel (ops/cuda/lw_solver.py, K7), except under
-``fast_exponential``, the Pade source or the Jacobian, which the kernel
-does not take (the JAX package's conditions), and the rescaled solve,
-which is spectral.
+of all the angles of a call is one kernel launch (ops/cuda/lw_solver.py,
+K7), except under ``fast_exponential``, the Pade source or the Jacobian,
+which the kernel does not take (the JAX package's conditions), and the
+rescaled solve, which is spectral.
 """
 from __future__ import annotations
 
@@ -209,17 +209,6 @@ def _lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, 
     and the up and down radiances adjust each other (Tang et al. 2018)."""
     two_pi_w = 2.0 * np.pi * weight
     if broadband and not do_rescaling and not config.use_pade_source:
-        # the transport kernel's conditions, as in the JAX package: exact
-        # exponential, no Jacobian. Its wrapper launches it for CUDA
-        # tensors (float32, or it raises) and runs its twin for CPU ones.
-        if not config.fast_exponential and sfc_source_jac is None:
-            from .cuda.lw_solver import lw_noscat_broadband
-
-            c = lambda t: t.contiguous()  # the kernel reads contiguous (col, lay, gpt) fields
-            up, dn = lw_noscat_broadband(
-                c(tau), c(lay_source), c(lev_source), c(sfc_emis), c(sfc_source), c(D), weight,
-                c(inc_flux) / two_pi_w)
-            return LWSolution(up, dn)
         return _lw_noscat_broadband_fused(tau, lay_source, lev_source, sfc_emis, sfc_source,
                                           inc_flux, D, weight, sfc_source_jac)
 
@@ -296,21 +285,38 @@ def lw_solver_noscat(
     ncol, _, ngpt = tau.shape
     dtype, dev = tau.dtype, tau.device
     broadband = broadband and not do_rescaling
-    if inc_flux is None:
-        inc_flux = torch.zeros((ncol, ngpt), dtype=dtype, device=dev)
+    if lw_ds is None and not 1 <= n_gauss_angles <= 4:
+        raise ValueError("n_gauss_angles must be in 1..4")
     if not top_at_1:
         tau, lay_source, lev_source = tau.flip(1), lay_source.flip(1), lev_source.flip(1)
         if ssa is not None:
             ssa, g = ssa.flip(1), g.flip(1)
+    n = n_gauss_angles
+    weights = [LW_WEIGHT] if lw_ds is not None else [float(w) for w in GAUSS_WTS[n - 1, :n]]
 
+    if (broadband and not config.use_pade_source and not config.fast_exponential
+            and sfc_source_jac is None):
+        # the transport kernel's conditions, as in the JAX package: exact
+        # exponential, linear-in-tau source, no Jacobian. One call takes every
+        # angle; its wrapper launches the kernel once for CUDA tensors
+        # (float32, or it raises) and runs its twin for CPU ones.
+        from .cuda.lw_solver import lw_noscat_broadband_angles
+
+        secants = (lw_ds.to(dtype) if lw_ds is not None
+                   else [float(d) for d in GAUSS_DS[n - 1, :n]])
+        flux_up, flux_dn = lw_noscat_broadband_angles(
+            tau, lay_source, lev_source, sfc_emis, sfc_source, secants, weights, inc_flux)
+        if not top_at_1:
+            flux_up, flux_dn = flux_up.flip(1), flux_dn.flip(1)
+        return LWSolution(flux_up, flux_dn)
+
+    if inc_flux is None:
+        inc_flux = torch.zeros((ncol, ngpt), dtype=dtype, device=dev)
     if lw_ds is not None:
         angles = [(lw_ds.to(dtype), LW_WEIGHT)]
     else:
-        n = n_gauss_angles
-        if not 1 <= n <= 4:
-            raise ValueError("n_gauss_angles must be in 1..4")
         angles = [(torch.full((ncol, ngpt), float(GAUSS_DS[n - 1, i]), dtype=dtype, device=dev),
-                   float(GAUSS_WTS[n - 1, i])) for i in range(n)]
+                   weights[i]) for i in range(n)]
     sols = [_lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source,
                                      inc_flux, D, w, sfc_source_jac, ssa, g, do_rescaling,
                                      scan_mode, broadband)

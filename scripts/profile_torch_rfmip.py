@@ -10,11 +10,11 @@ power limit:
     host-to-device copies) on the host clock, each ended by a synchronize;
   - a torch.profiler window over ITERS calls of the fused LW and SW cores
     (K1, K2), one over the general cores (LW with N_ANGLES Gauss angles:
-    K3 + K7 per angle; staged SW: K5 + the PyTorch sweeps), one over the
+    K3 + K7 once for all angles; staged SW: K5 + the PyTorch sweeps), one over the
     fused all-sky cores (K1 and K2 in their lookup-table cloud mode, on
     chip_smoke.py's synthetic Garand and coefficient files), one over
     the staged all-sky cores (K3 + K7; K5 + the PyTorch sweeps), one over
-    the prep LW core (K6 + the sweeps as PyTorch ops) and one each over the
+    the prep LW core (K6 + K7's fields mode) and one each over the
     lookup-table LW path (gas_optics_lw_lut -> rte_lw, one angle: K7) and SW
     path (gas_optics_sw_lut -> rte_sw) on chip_smoke.py's synthetic
     k-distributions, on device-resident inputs: the window per call (CUDA events), the device
@@ -105,7 +105,7 @@ def main() -> int:
     window("fused all-sky LW+SW cores (lookup-table clouds)", both("fused"), tag)
     window("staged all-sky LW+SW cores (LW 1 angle)", both("staged"), tag)
 
-    window("prep LW core (K6 + PyTorch sweeps)", lambda: rfmip._lw_core_prep(
+    window("prep LW core (K6 + K7 fields mode)", lambda: rfmip._lw_core_prep(
         [lw_model], table, lw_spec, *lw_gen_in, top_at_1=True), tag)
 
     from rte_rrtmgp_nn_tpu_torch import testing

@@ -4,7 +4,7 @@ csrc/lw_megakernel.cu and csrc/sw_megakernel.cu; the MLP kernel of K3 / K5,
 csrc/mlp.cu; K6, csrc/lw_prep.cu) at several tile shapes and block
 geometries on one NVIDIA GPU.
 
-    python3 scripts/tune_megakernel_tiles.py [--quick]
+    python3 scripts/tune_megakernel_tiles.py [--quick] [--k7]
 
 A variant sets some of: layers per MLP pass, row padding, the register tile
 (rows x columns) of the hidden layers and of the last layer, layer groups per
@@ -26,6 +26,17 @@ return after a phase (STOPS) are built and timed like the kernel itself, at
 four times the columns, and a phase's time is the difference of two such
 times. Beside each time stands the host's time to queue one call: a reading
 near it is the host's, not the card's.
+
+The LW transport (K7, csrc/lw_noscat.cu) is swept on its own, after the
+others or, with ``--k7``, alone: its plan's geometry (4, 8 or 16 layers per
+thread, and twice and half the segments per g-point) for one angle, three angles and
+the fields mode at 128 g-points and one and three angles at 256, at 7200 x
+60, each variant
+checked against the twin and printed with its blocks per SM; in both
+passes. With ``--quick`` the shipped plan only, and where its time goes:
+copies of the source that return after phase A (loads, trans and the
+sources, the segments' maps) and after the down sweep, and ablation copies
+(no divide, no exponential, no level sums) timed for what each costs.
 """
 from __future__ import annotations
 
@@ -146,6 +157,172 @@ def build_variant(build, tmp: str, tag: str, values, stops=None) -> tuple[ctypes
     return lib, log
 
 
+# K7's stop copies: the line a copy returns before (its first occurrence),
+# in the kernel's order
+K7_STOPS = (
+    ("phase A (loads, trans and sources, maps)",
+     "    __syncthreads();\n#pragma unroll\n    for (int k = 0; k < NA; ++k) rad[k] = t == 0"),
+    ("down sweep", "  // ---- surface, then the up sweep"),
+)
+# K7's ablation copies (timing only, wrong results): what a part of the
+# arithmetic costs, by the text it replaces
+K7_ABLATIONS = {
+    "no divide": ("(1.0f - trans) / tl - trans", "(1.0f - trans) * tl - trans"),
+    "no exponential": ("trans = expf(-tl);", "trans = 1.0f - tl;"),
+    "no level sums": ("    transpose_sums<L, 16, L, NA>(rb, lane);\n", ""),
+}
+
+
+def k7_stopped(text: str, phase: str) -> str:
+    """csrc/lw_noscat.cu returning once ``phase`` is done."""
+    (anchor,) = [a for p, a in K7_STOPS if p == phase]
+    if anchor not in text:
+        raise RuntimeError(f"lw_noscat.cu: the line after {phase!r} is not there")
+    return text.replace(anchor, "  return;\n" + anchor, 1)
+
+
+def k7_cases(dev, lw_model, table, lw_spec, ncol):
+    """{label: (mode, angles, call, twin)} of K7 at ``ncol`` x NLAY: the
+    angles mode on gas_optics_lw_nn's fields (the diffusivity angle, three
+    Gauss angles; 256 g-points from the fields repeated twice along g), the
+    fields mode on K6's output."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
+
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, NLAY, SEED, top_at_1=True))
+    play, plev, tlay, tlev, tsfc, emis_band, concs = rfmip.lw_staged_inputs(data, lw_spec, dev)
+    tau, src = go.gas_optics_lw_nn([lw_model], play, plev, tlay, tsfc, GasConcs(concs),
+                                   lw_spec, table, tlev=tlev)
+    emis = lw_spec.expand(emis_band).contiguous()
+    a128 = (tau, src.lay_source, src.lev_source, emis, src.sfc_source)
+    a256 = tuple(torch.cat([a, a], -1).contiguous() for a in a128)
+    fields = k6.lw_prep(*k6_args(dev, data, lw_model, table, lw_spec))
+    gauss = lambda n: ([float(d) for d in plw.GAUSS_DS[n - 1, :n]],
+                       [float(w) for w in plw.GAUSS_WTS[n - 1, :n]])
+    out = {}
+    for g, a in ((128, a128), (256, a256)):
+        for n in (1, 3):
+            out[f"K7 {n} angle(s) {g} g-points"] = (
+                "angles", n, lambda a=a, n=n: k7.lw_noscat_broadband_angles(*a, *gauss(n)),
+                lambda a=a, n=n: k7.lw_noscat_broadband_angles_plain(*a, *gauss(n)))
+    sweeps = fields[:3] + (emis, fields[3])
+    out["K7 fields 128 g-points"] = (
+        "fields", 1, lambda: tuple(k7.lw_broadband_sweeps_kernel(*sweeps)[:2]),
+        lambda: tuple(plw.lw_broadband_sweeps(*sweeps)[:2]))
+    return out
+
+
+def k7_sweep(build, tmp, dev, lw_model, table, lw_spec, quick: bool) -> int:
+    """K7's geometry sweep (the shipped plan alone with ``quick``, then the
+    stop copies). Returns the number of results beyond the bound."""
+    import functools
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    cases = k7_cases(dev, lw_model, table, lw_spec, 4 * NCOL)
+    twins = {k: twin() for k, (_, _, _, twin) in cases.items()}
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    shipped = k7.lw_noscat_plan
+    bad = 0
+
+    def variants(nang, ngpt):
+        """(seg_layers, segments): the shipped plan, the other layers per
+        thread, and twice and half the shipped segments."""
+        if quick:
+            return [(None, None)]
+        L = k7.seg_layers_for(nang)
+        nseg = shipped(NLAY, ngpt, nang, smem).segments
+        most = min(-(-NLAY // L), k7.max_threads(L) // max(ngpt, 32))
+        return ([(None, None)] + [(other, None) for other in k7.SEG_LAYERS if other != L]
+                + [(L, n) for n in (2 * nseg, nseg // 2) if 1 <= n <= most])
+
+    for pass_no in range(1 if quick else 2):
+        for name, (mode, nang, call, _) in cases.items():
+            ngpt = 256 if "256" in name else 128
+            vs = variants(nang, ngpt)
+            for seg_layers, cap in (vs if pass_no == 0 else vs[::-1]):
+                k7.lw_noscat_plan = functools.partial(shipped, seg_layers=seg_layers,
+                                                      segments=cap)
+                try:
+                    plan = k7.lw_noscat_plan(NLAY, ngpt, nang, smem)
+                    got = call()
+                    torch.cuda.synchronize()
+                    err = max(maxabs(a, b) for a, b in zip(got, twins[name]))
+                    ok = err <= 2e-3 and all(bool(torch.isfinite(o).all()) for o in got)
+                    bad += not ok
+                    blocks = build.blocks_per_sm("lw_noscat_broadband", plan,
+                                                 k7.MODE_CODES[mode], dev.index)
+                    print(f"  {name} (pass {pass_no}) {plan.segments} segments of {plan.seg_layers} "
+                          f"layers ({plan.threads} threads{', set' if cap else ''}), "
+                          f"{plan.kept_tiers} tier(s) kept, {plan.smem_bytes} B, {blocks} block(s)/SM"
+                          f": max|kernel-twin| {err:.3e} ({'ok' if ok else 'BEYOND'} 2e-3), "
+                          f"{cuda_ms(call):.4f} ms at {4 * NCOL}x{NLAY}", flush=True)
+                finally:
+                    k7.lw_noscat_plan = shipped
+    if quick:
+        whole, rows = build._lib, {}
+
+        def copy_with(tag, edit):
+            d = os.path.join(tmp, f"k7_{tag.replace(' ', '_')}")
+            os.makedirs(d, exist_ok=True)
+            for name in ("common.cuh",) + tuple(f"{n}.cu" for n in SOURCES):
+                text = (build.CSRC_DIR / name).read_text()
+                with open(os.path.join(d, name), "w") as f:
+                    f.write(edit(text) if name == "lw_noscat.cu" else text)
+            return compile_dir(build, d)
+
+        for tag, (old, new) in K7_ABLATIONS.items():
+            def ablate(text, old=old, new=new):
+                if old not in text:
+                    raise RuntimeError(f"lw_noscat.cu: {old!r} is not there")
+                return text.replace(old, new)
+            build._lib = copy_with(tag, ablate)
+            print("  K7 ablation " + tag + " (timing only): " + ", ".join(
+                f"{k} {cuda_ms(c[2]):.4f} ms" for k, c in cases.items()), flush=True)
+        for phase, _ in K7_STOPS:
+            build._lib = copy_with(phase.split(" (")[0], lambda text, phase=phase: k7_stopped(text, phase))
+            rows[phase] = {k: cuda_ms(c[2]) for k, c in cases.items()}
+        build._lib = whole
+        rows["up sweep and level sums"] = {k: cuda_ms(c[2]) for k, c in cases.items()}
+        for k in cases:
+            total, before = rows["up sweep and level sums"][k], 0.0
+            print(f"  {k} by phase at {4 * NCOL}x{NLAY}, of {total:.4f} ms:")
+            for phase, ms in rows.items():
+                host = host_ms(cases[k][2])
+                print(f"    through {phase}: {ms[k]:.4f} ms (host {host:.4f} ms per call): "
+                      f"{phase} {ms[k] - before:.4f} ms, {(ms[k] - before) / total:.4f}",
+                      flush=True)
+                before = ms[k]
+    return bad
+
+
+def compile_dir(build, d: str) -> ctypes.CDLL:
+    """nvcc every source in directory ``d`` into one library and load it."""
+    jobs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-c", os.path.join(d, f"{n}.cu"),
+                              "-o", os.path.join(d, f"{n}.o")], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for n in SOURCES]
+    for j in jobs:
+        log = j.communicate()[0]
+        if j.returncode != 0:
+            raise RuntimeError(f"nvcc failed in {d}:\n{log}")
+    so = os.path.join(d, "kernels.so")
+    subprocess.run([build._nvcc(), "-shared", "-o", so]
+                   + [os.path.join(d, f"{n}.o") for n in SOURCES], check=True)
+    lib = ctypes.CDLL(so)
+    build._declare(lib)
+    return lib
+
+
 def host_ms(fn, calls=50) -> float:
     """Milliseconds the host takes to queue one fn() call."""
     import torch
@@ -185,6 +362,14 @@ def main() -> int:
     sw_model = load_model_netcdf(SW_MODEL, device=dev)
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
+
+    if "--k7" in sys.argv[1:]:
+        build.library()
+        with tempfile.TemporaryDirectory() as tmp:
+            bad = k7_sweep(build, tmp, dev, lw_model, table, lw_spec, quick)
+        if bad:
+            print(f"tune_megakernel_tiles: {bad} result(s) beyond the bound", file=sys.stderr)
+        return 1 if bad else 0
 
     names = {"k1": "K1", "k1_cld_lut": "K1 cld_lut", "k2": "K2", "k2_cld_lut": "K2 cld_lut"}
 
@@ -291,6 +476,9 @@ def main() -> int:
                     print(f"    through {phase}: {ms:.4f} ms (host {host:.4f} ms per call): "
                           f"{phase} {ms - before:.4f} ms, {(ms - before) / total:.4f}", flush=True)
                     before = ms
+        build._lib = None  # the package's own build for K7
+        build.library()
+        bad += k7_sweep(build, tmp, dev, lw_model, table, lw_spec, quick)
     if bad:
         print(f"tune_megakernel_tiles: {bad} result(s) beyond the bound", file=sys.stderr)
     return 1 if bad else 0

@@ -348,7 +348,7 @@ _OFF_CPU = {
     "lw_staged_one_angle": ("lw", {}, dict(use_megakernel=False), "lut", None,
                             {"fused_predict_lw_both": 1, "k7": 1}),
     "lw_three_angles": ("lw", dict(n_gauss_angles=3), dict(use_megakernel=True), "pade", None,
-                        {"fused_predict_lw_both": 1, "k7": 3}),
+                        {"fused_predict_lw_both": 1, "k7": 1}),
     "sw_staged": ("sw", {}, dict(use_megakernel=False), "lut", None, {"fused_predict_sw": 1}),
     "sw_fast_exp": ("sw", {}, dict(use_megakernel=True, fast_exponential=True), "pade", None,
                     {"fused_predict_sw": 1}),
@@ -364,7 +364,7 @@ def test_allsky_drivers_off_the_cpu_launch_kernels_never_twins(tmp_path, models,
     CPU to the kernel, the launches are recorded instead of run, and every
     twin raises. The fused route launches K1 or K2 once in the cloud mode of
     the coefficient file and nothing else; staged LW launches the MLP kernel
-    once and the transport kernel once per angle, single-angle included
+    once and the transport kernel once for all its angles, single-angle included
     (no PyTorch sweeps off the CPU); staged SW launches the MLP kernel."""
     from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1

@@ -272,9 +272,113 @@ def test_lw_noscat_kernel_matches_twin(dev, ncol, nlay, ngpt):
         _close(g, r, 2e-6, LW_ATOL, "K7")
 
 
+def _noscat_fields(dev, ncol, nlay, ngpt, seed):
+    """Seeded tau, layer and level sources, emissivity and surface source
+    on the card, as test_lw_noscat_kernel_matches_twin makes them."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, lo, hi: torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                                               device=dev)
+    return (t(ncol, nlay, ngpt, lo=1e-6, hi=3.0), t(ncol, nlay, ngpt, lo=0.1, hi=1.0),
+            t(ncol, nlay + 1, ngpt, lo=0.1, hi=1.0), t(ncol, ngpt, lo=0.8, hi=1.0),
+            t(ncol, ngpt, lo=0.1, hi=1.0))
+
+
+# 13 g-points: one ragged warp; 256: the LUT width, eight warps. 37 x 13 and
+# 37 x 61: no segment of layers is full; 300 layers at 128 and 256 g-points
+# do not fit the shared memory: tiers whose rows are formed again in the up
+# sweep (as at 61 layers, 256 g-points and 3-4 angles)
+@pytest.mark.parametrize("nang", [1, 2, 3, 4])
+@pytest.mark.parametrize("ngpt", [13, 128, 256])
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 61), (4, 300)])
+def test_lw_noscat_angles_match_twin(dev, nang, ngpt, ncol, nlay):
+    """K7's angles mode against its twin for 1-4 Gauss angles with an
+    incident flux, within LW atol 2e-3 W/m2 and rtol 2e-6; one launch for
+    all the angles; a second launch gives the same bits."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import GAUSS_DS, GAUSS_WTS
+
+    args = _noscat_fields(dev, ncol, nlay, ngpt, seed=45 + nang)
+    plan = k7.lw_noscat_plan(nlay, ngpt, nang)
+    n_tiers = k7.tiers(nlay, plan.seg_layers * plan.segments)
+    assert nlay < 300 or ngpt == 13 or plan.kept_tiers < n_tiers
+    inc = torch.rand((ncol, ngpt), generator=torch.Generator().manual_seed(nang)).to(dev)
+    secants, weights = list(GAUSS_DS[nang - 1, :nang]), list(GAUSS_WTS[nang - 1, :nang])
+    n = k7.MODE_LAUNCHES["angles"]
+    got = k7.lw_noscat_broadband_angles(*args, secants, weights, inc)
+    torch.cuda.synchronize()
+    assert k7.MODE_LAUNCHES["angles"] == n + 1
+    for a, b in zip(got, k7.lw_noscat_broadband_angles(*args, secants, weights, inc)):
+        assert torch.equal(a, b)
+    for g, r in zip(got, k7.lw_noscat_broadband_angles_plain(*args, secants, weights, inc)):
+        assert tuple(g.shape) == (ncol, nlay + 1) and bool(torch.isfinite(g).all())
+        _close(g, r, 2e-6, LW_ATOL, f"K7 {nang} angles, {plan}")
+
+
+@pytest.mark.parametrize("ngpt", [13, 128, 256])
+def test_lw_noscat_per_gpoint_secants_and_strided_fields(dev, ngpt):
+    """K7's angles mode with per-(column, g-point) secants and an incident
+    flux, on fields read through a transposed view (layer-major storage),
+    against its twin on contiguous copies."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    ncol, nlay = 37, 61
+    args = _noscat_fields(dev, ncol, nlay, ngpt, seed=50)
+    strided = [a.transpose(0, 1).contiguous().transpose(0, 1) for a in args[:3]] + list(args[3:])
+    assert not strided[0].is_contiguous()
+    rng = np.random.default_rng(51)
+    ds = torch.as_tensor(rng.uniform(1.2, 2.8, (ncol, ngpt)), dtype=torch.float32, device=dev)
+    inc = torch.as_tensor(rng.uniform(0.0, 2.0, (ncol, ngpt)), dtype=torch.float32, device=dev)
+    got = k7.lw_noscat_broadband_angles(*strided, ds, [0.5], inc)
+    for g, r in zip(got, k7.lw_noscat_broadband_angles_plain(*args, ds, [0.5], inc)):
+        _close(g, r, 2e-6, LW_ATOL, "K7 per-g secants")
+
+
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (37, 61), (1800, 60)])
+def test_lw_noscat_fields_mode_on_k6_fields(dev, ncol, nlay):
+    """K7's fields mode on K6's layer-major output against the twin
+    (ops/lw_solver.lw_broadband_sweeps) on the same fields, LW atol 2e-3
+    W/m2; a second launch gives the same bits."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.lw_solver import lw_broadband_sweeps
+
+    args, emis = _prep_args(dev, ncol, nlay, seed=66)
+    trans, src_dn, src_up, sfc = k6.lw_prep(*args)
+    n = k7.MODE_LAUNCHES["fields"]
+    got = k7.lw_broadband_sweeps_kernel(trans, src_dn, src_up, emis, sfc)
+    torch.cuda.synchronize()
+    assert k7.MODE_LAUNCHES["fields"] == n + 1
+    again = k7.lw_broadband_sweeps_kernel(trans, src_dn, src_up, emis, sfc)
+    assert torch.equal(got.flux_up, again.flux_up) and torch.equal(got.flux_dn, again.flux_dn)
+    ref = lw_broadband_sweeps(trans, src_dn, src_up, emis, sfc)
+    for g, r in ((got.flux_up, ref.flux_up), (got.flux_dn, ref.flux_dn)):
+        assert tuple(g.shape) == (ncol, nlay + 1) and bool(torch.isfinite(g).all())
+        _close(g, r, 2e-6, LW_ATOL, "K7 fields")
+
+
+def test_lw_noscat_refuses_what_the_kernel_does_not_take(dev):
+    """A CUDA tensor that is not float32, fields without contiguous
+    g-points and more than four angles raise before any launch."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    args = list(_noscat_fields(dev, 5, 7, 32, seed=52))
+    n = k7.LAUNCHES
+    with pytest.raises(ValueError, match="float32"):
+        k7.lw_noscat_broadband_angles(args[0].double(), *args[1:], [1.66], [0.5])
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.lw_noscat_broadband_angles(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                                      *args[1:], [1.66], [0.5])
+    with pytest.raises(ValueError, match="angles"):
+        k7.lw_noscat_broadband_angles(*args, [1.66] * 5, [0.1] * 5)
+    fields = [a.transpose(0, 1).contiguous() for a in args[:2]] + [args[2][:, :-1].transpose(0, 1)]
+    with pytest.raises(ValueError, match="float32"):
+        k7.lw_broadband_sweeps_kernel(*(f.double() for f in fields), *args[3:])
+    assert k7.LAUNCHES == n
+
+
 @pytest.mark.parametrize("top_at_1", [True, False])
 def test_general_drivers_on_cuda_match_float64_cpu(dev, top_at_1):
-    """Multi-angle LW (K3 once, K7 per angle) and the staged SW driver (K5)
+    """Multi-angle LW (K3 once, K7 once for all angles) and the staged SW driver (K5)
     on CUDA against the same paths in float64 on the CPU."""
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
@@ -294,7 +398,7 @@ def test_general_drivers_on_cuda_match_float64_cpu(dev, top_at_1):
         got_sw = rfmip.rfmip_clear_sky_sw(data, [sw, sw], device=dev)
         torch.cuda.synchronize()
     assert (mlp.LAUNCHES["fused_predict_lw_both"], mlp.LAUNCHES["fused_predict_sw"],
-            k7.LAUNCHES) == (n3 + 1, n5 + 1, n7 + 3)
+            k7.LAUNCHES) == (n3 + 1, n5 + 1, n7 + 1)
     for n in ("flux_up", "flux_dn", "flux_net"):
         assert getattr(got_lw, n).is_cuda
         assert _maxabs(getattr(got_lw, n), getattr(ref_lw, n)) <= LW_ATOL, n
@@ -469,7 +573,7 @@ def _write_allsky_files(tmp_path, nlay, flavour, top_at_1=True):
 def test_allsky_drivers_on_cuda_match_float64_cpu(dev, tmp_path, top_at_1, flavour, mode):
     """allsky_lw / allsky_sw on CUDA, on the fused route (one launch of K1
     or K2 in the cloud mode of the coefficient file's flavour) and on the
-    staged routes (K3 then K7 per angle; K5), against the same request in
+    staged routes (K3 then K7 once for all angles; K5), against the same request in
     float64 on the CPU."""
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers.allsky import allsky_lw, allsky_sw
@@ -498,7 +602,7 @@ def test_allsky_drivers_on_cuda_match_float64_cpu(dev, tmp_path, top_at_1, flavo
         got_sw_staged = allsky_sw(paths["garand"], paths["sw"], [sw, sw], ncol=ncol, device=dev)
     torch.cuda.synchronize()
     assert (mlp.LAUNCHES["fused_predict_lw_both"], mlp.LAUNCHES["fused_predict_sw"],
-            k7.LAUNCHES) == (n3 + 1, n5 + 1, n7 + 3)
+            k7.LAUNCHES) == (n3 + 1, n5 + 1, n7 + 1)
     for got, ref in ((got_lw, ref_lw[1]), (got_lw3, ref_lw[3])):
         for n in ("flux_up", "flux_dn", "flux_net"):
             assert getattr(got, n).is_cuda
@@ -559,8 +663,9 @@ def test_lw_prep_kernel_matches_twin(dev, ncol, nlay):
 
 @pytest.mark.parametrize("top_at_1", [True, False])
 def test_prep_core_on_cuda_matches_float64_cpu(dev, top_at_1):
-    """_lw_core_prep on CUDA launches K6 once and no other kernel, and
-    agrees with itself in float64 on the CPU and with the fused driver."""
+    """_lw_core_prep on CUDA launches K6 once and K7's fields mode once and
+    no other kernel, and agrees with itself in float64 on the CPU and with
+    the fused driver."""
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
@@ -572,13 +677,14 @@ def test_prep_core_on_cuda_matches_float64_cpu(dev, top_at_1):
     t64 = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=cpu, dtype=f64)
     ref = rfmip._lw_core_prep([lw64], t64, spec, *rfmip.lw_staged_inputs(data, spec, cpu, f64),
                               top_at_1=top_at_1)
-    before = (k6.LAUNCHES, k1.LAUNCHES, k7.LAUNCHES, sum(mlp.LAUNCHES.values()))
+    counts = lambda: (k6.LAUNCHES, k7.MODE_LAUNCHES["fields"], k7.LAUNCHES, k1.LAUNCHES,
+                      sum(mlp.LAUNCHES.values()))
+    before = counts()
     table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     got = rfmip._lw_core_prep([lw], table, spec, *rfmip.lw_staged_inputs(data, spec, dev),
                               top_at_1=top_at_1)
     torch.cuda.synchronize()
-    after = (k6.LAUNCHES, k1.LAUNCHES, k7.LAUNCHES, sum(mlp.LAUNCHES.values()))
-    assert after == (before[0] + 1,) + before[1:]
+    assert counts() == tuple(b + 1 for b in before[:3]) + before[3:]
     fused = rfmip.rfmip_clear_sky_lw(data, [lw], device=dev)
     for n in ("flux_up", "flux_dn", "flux_net"):
         assert getattr(got, n).is_cuda
@@ -622,7 +728,7 @@ def test_parallel_scan_requests_on_cuda(dev, tmp_path, band):
 
 @pytest.mark.parametrize("top_at_1", [True, False])
 def test_lut_gas_optics_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
-    """The lookup-table gas optics on CUDA with rte_lw (K7 per angle,
+    """The lookup-table gas optics on CUDA with rte_lw (K7 once a call,
     optimal angles, the two-stream solver after a cloud increment) and
     rte_sw behind it, against the same calls in float64 on the CPU, at 60
     layers: on coarser grids the float32 no-scattering solve itself (the
@@ -640,7 +746,7 @@ def test_lut_gas_optics_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
     got = testing.lut_reference_fluxes(str(tmp_path), 9, 60, seed=64, top_at_1=top_at_1,
                                        device=dev, dtype=torch.float32)
     torch.cuda.synchronize()
-    assert k7.LAUNCHES == n7 + 5  # 1 + 3 angles + the optimal-angle solve
+    assert k7.LAUNCHES == n7 + 3  # 1 angle, 3 angles, the optimal-angle solve
     assert set(got) == set(ref)
     # float32 two-stream coefficients lose accuracy as 1/|k*mu0 - 1| near the
     # SW resonance: a column is held within max(2e-2, 4e-3 / its distance)

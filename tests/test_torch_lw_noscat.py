@@ -65,18 +65,18 @@ def test_twin_with_secants_and_incident_radiance(rng):
 @pytest.mark.parametrize("top_at_1", [True, False])
 @pytest.mark.parametrize("n_angles", [1, 3])
 def test_dispatch_through_lw_solver_noscat(rng, monkeypatch, top_at_1, n_angles):
-    """Each angle of the broadband solve goes through the transport
-    kernel's wrapper (its twin on the CPU), with an incident flux and
-    flipped orientation, and agrees with the JAX solver; under
-    fast_exponential (which the kernel does not take, as in the JAX
-    package) the wrapper is not called."""
+    """The broadband solve goes through the transport kernel's angles
+    entry (its twin on the CPU) in one call carrying every angle's weight,
+    with an incident flux and flipped orientation, and agrees with the JAX
+    solver; under fast_exponential (which the kernel does not take, as in
+    the JAX package) the entry is not called."""
     ncol, nlay = 9, 10
     arrs = _problem(rng, ncol, nlay)
     inc = rng.uniform(0.0, 5.0, (ncol, NGPT)).astype(np.float32)
     calls = []
-    wrapper = k7.lw_noscat_broadband
-    monkeypatch.setattr(k7, "lw_noscat_broadband",
-                        lambda *a, **k: calls.append(a[6]) or wrapper(*a, **k))
+    wrapper = k7.lw_noscat_broadband_angles
+    monkeypatch.setattr(k7, "lw_noscat_broadband_angles",
+                        lambda *a, **k: calls.append(list(a[6])) or wrapper(*a, **k))
     t = [torch.from_numpy(a) for a in arrs]
     for fast in (False, True):
         with jco(fast_exponential=fast):
@@ -87,7 +87,7 @@ def test_dispatch_through_lw_solver_noscat(rng, monkeypatch, top_at_1, n_angles)
             got = plw.lw_solver_noscat(*t, inc_flux=torch.from_numpy(inc), top_at_1=top_at_1,
                                        n_gauss_angles=n_angles, broadband=True)
         _close((got.flux_up, got.flux_dn), (ref.flux_up, ref.flux_dn))
-        assert calls == ([] if fast else list(plw.GAUSS_WTS[n_angles - 1, :n_angles]))
+        assert calls == ([] if fast else [list(plw.GAUSS_WTS[n_angles - 1, :n_angles])])
         calls.clear()
 
 

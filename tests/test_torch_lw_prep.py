@@ -136,9 +136,11 @@ def test_wrapper_runs_the_twin_on_cpu():
 
 
 def test_prep_core_off_the_cpu_launches_the_kernel_never_the_twin(monkeypatch):
-    """Off the CPU the prep core reaches the kernel's launch once and no
-    plain twin. Meta tensors stand in for the card: the launch is recorded
-    instead of run, and the twins raise."""
+    """Off the CPU the prep core reaches the kernel's launch once, then the
+    transport kernel's fields mode once (K7), and no plain twin. Meta
+    tensors stand in for the card: the launches are recorded instead of
+    run, and the twins raise."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
 
     meta = torch.device("meta")
@@ -150,10 +152,16 @@ def test_prep_core_off_the_cpu_launches_the_kernel_never_the_twin(monkeypatch):
         field = torch.empty((nlay, ncol, g2b.shape[0]), device=x.device)
         return field, field, field, field[0]
 
+    def k7_fields(trans, src_dn, src_up, sfc_emis, sfc_source):
+        launched.append(("k7 fields", tuple(trans.shape), tuple(sfc_emis.shape)))
+        return [torch.empty((trans.shape[1], trans.shape[0] + 1), device=trans.device)] * 2
+
     def twin(*args, **kwargs):
         raise AssertionError("a kernel's plain twin ran off the CPU")
 
     monkeypatch.setattr(k6, "_launch", launch)
+    monkeypatch.setattr(k7, "_launch_fields", k7_fields)
+    monkeypatch.setattr(k7, "lw_broadband_sweeps", twin)
     monkeypatch.setattr(k6, "lw_prep_plain", twin)
     monkeypatch.setattr(mlp, "fused_predict_lw_both_plain", twin)
     _, pm = model_pair(LW_MODEL)
@@ -164,7 +172,7 @@ def test_prep_core_off_the_cpu_launches_the_kernel_never_the_twin(monkeypatch):
     got = prfmip._lw_core_prep([net], table, spec, *prfmip.lw_staged_inputs(pd, spec, meta),
                                top_at_1=True)
     assert got.flux_dn.device == meta and tuple(got.flux_dn.shape) == (6, 6)
-    assert launched == [((5, 6, 18), (6, 6, 16), 1.66)]
+    assert launched == [((5, 6, 18), (6, 6, 16), 1.66), ("k7 fields", (5, 6, 128), (6, 128))]
 
 
 def test_launch_refuses_what_the_kernel_does_not_take():

@@ -197,6 +197,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
                          "sw_clearsky_megakernel_blocks_per_sm", "lw_prep_launch",
                          "lw_prep_blocks_per_sm", "mlp_predict_launch",
                          "mlp_predict_blocks_per_sm", "lw_noscat_broadband_launch",
+                         "lw_noscat_broadband_blocks_per_sm",
                          "rte_cuda_error_string"}
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
     build._declare(lib)
@@ -224,7 +225,7 @@ def _c_struct_fields(name):
                                          re.S).groups()
         ctype = ctypes.c_void_p if star else {"float": ctypes.c_float, "int": ctypes.c_int}[base]
         sizes = {"kMaxLanes": build.MAX_LANES, "kMaxLayers": build.MAX_LAYERS,
-                 "kMaxDims": build.MAX_LAYERS + 1}
+                 "kMaxDims": build.MAX_LAYERS + 1, "kMaxAngles": build.MAX_ANGLES}
         for n in names.split(","):
             n, _, size = n.strip().rstrip("]").partition("[")
             fields.append((n, ctype * sizes[size]) if size else (n, ctype))
@@ -232,7 +233,8 @@ def _c_struct_fields(name):
 
 
 @pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs",
-                                  "LwPrepArgs", "MegaPlan", "MlpNet", "MlpPlan"])
+                                  "LwPrepArgs", "MegaPlan", "MlpNet", "MlpPlan", "NoscatArgs",
+                                  "NoscatPlan"])
 def test_ctypes_structs_mirror_the_c_structs(name):
     """The fused kernels' launch entries read their arguments from structs;
     build.py's ctypes mirror of each has the C declaration's fields, in its

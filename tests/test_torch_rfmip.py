@@ -318,22 +318,22 @@ def test_cuda_requests_raise_instead_of_plain_fallback(models, request_name):
 # staged request -> (driver keywords, config, kernel launches, non-kernel
 # broadband LW solves): what each takes when its tensors are not on the CPU
 _OFF_CPU = {
-    "lw_3_angles": (dict(lw=True, n_gauss_angles=3), {}, {"fused_predict_lw_both": 1, "k7": 3}, 0),
+    "lw_3_angles": (dict(lw=True, n_gauss_angles=3), {}, {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "lw_megakernel_off": (dict(lw=True), dict(use_megakernel=False),
                           {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "lw_two_models": (dict(lw=True, models="lw_pair"), {}, {"fused_predict_tau": 1, "k7": 1}, 0),
     "lw_relu_net": (dict(lw=True, models="relu_lw", n_gauss_angles=2), {},
-                    {"fused_predict_lw_both": 1, "k7": 2}, 0),
+                    {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "lw_fast_exp": (dict(lw=True), dict(fast_exponential=True), {"fused_predict_lw_both": 1}, 1),
     "lw_pade": (dict(lw=True, n_gauss_angles=2), dict(use_pade_source=True),
                 {"fused_predict_lw_both": 1}, 0),
     "sw_megakernel_off": (dict(), dict(use_megakernel=False), {"fused_predict_sw": 1}, 0),
     "sw_fast_exp": (dict(models="relu_sw"), dict(fast_exponential=True), {"fused_predict_sw": 1}, 0),
     # a parallel-scan LW request solves broadband, which does not read the
-    # scan mode: the transport kernel still runs, once per angle
+    # scan mode: the transport kernel still runs, once per call for every angle
     "lw_parallel": (dict(lw=True, scan_mode="parallel"), {}, {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "lw_parallel_2_angles": (dict(lw=True, scan_mode="parallel", n_gauss_angles=2), {},
-                             {"fused_predict_lw_both": 1, "k7": 2}, 0),
+                             {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "sw_parallel": (dict(scan_mode="parallel"), {}, {"fused_predict_sw": 1}, 0),
 }
 
