@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths at RFMIP size, 1800 columns x 60 layers, through
-its hand-written CUDA kernels, and checks them. Phases (any failure exits
+Drives the port's paths at RFMIP size, 1800 columns x 60 layers, and the
+GCM sweep at 1,036,800 columns, through its hand-written CUDA kernels, and
+checks them. Phases (any failure exits
 non-zero and prints no result line):
 
   1. environment: torch / CUDA / nvcc versions, the card and its power
@@ -97,7 +98,31 @@ non-zero and prints no result line):
  19. K3-K7's launch plans, ptxas counts and blocks per SM as in phase 18,
      and their times at 7200 columns (a kernel under 0.3 ms at 1800
      columns reads the host); K7 for one angle, three angles and the
-     fields mode, each beside its bound there.
+     fields mode, each beside its bound there;
+ 20. the GCM sweep (drivers/gcm.py): 1,036,800 columns x 60 layers
+     (synthesize_gcm_columns over the RFMIP-size atmosphere, the gases a
+     Garand file carries) in 18 blocks of 57,600: gcm_sweep_allsky with
+     lookup-table clouds streamed (twice: the first sweep also allocates
+     its pinned buffers), resident and in mixed precision, gcm_sweep_lw
+     streamed and resident, each counted sweep with the launch counts set
+     to 0 just before and read just after (one K1 and one K2 launch a
+     block on the fused route, nothing else); streamed equal to resident
+     bit for bit, mixed within 0.05 W/m2 of f32, night SW exactly 0, the
+     first 1800 columns within 1e-4 W/m2 of allsky_lw / allsky_sw on a
+     Garand file of the same columns; one block's copy from pinned memory
+     (GB/s); one streamed sweep under torch.profiler (the device's idle
+     share, K1 + K2 a block against the block's window); at 115,200
+     columns Pade clouds (K1 and K2 in the cld_bands mode) and the staged
+     route (K3 + K7, K5; its SW held by the F1 law against the fused
+     route); 100,000 columns with a ragged last block against one block.
+     The kernels' calls at the GCM's own shapes are kept (kept_calls) and
+     held against their plain twins on the card on the same tensors (the
+     twins 14,400 columns a call): K1 and K2 cld_lut on block 0 (57,600
+     columns) of the 1,036,800-column sweep and on the ragged last block
+     (42,400) of the 100,000-column one, K1 clear on block 0 of the LW
+     sweep, K1 and K2 cld_bands on a Pade block, and K3, K7 and K5 on both
+     blocks of the staged route's 100,000-column sweep.
+     "gcm ..." lines, each with the card's name and power limit.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -120,6 +145,8 @@ and the generic net are synthesized from seeds
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -281,18 +308,6 @@ def bound(bytes_moved: float, flops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}  # no single PyTorch call computes any of these functions
-
-
-def to64(args):
-    import torch
-
-    out = []
-    for a in args:
-        if torch.is_tensor(a) and a.is_floating_point():
-            out.append(a.double())
-        else:
-            out.append(a)
-    return out
 
 
 def hold(name, kernel, twin, twin64, rtol, atol) -> dict:
@@ -682,7 +697,7 @@ def synthetic_cloud_optics(spec, flavour, dev, dtype=None):
 
 
 def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
-                lw_in, sw_in, model64, table64) -> tuple[dict, dict, dict]:
+                lw_in, sw_in) -> tuple[dict, dict, dict]:
     """Phase 11: K1 and K2 in both cloud modes, K8 and K9, each against its
     plain twin on the card at full size; then K8 and K9 through their cores
     with the counts read around. Returns (per-kernel results, launches,
@@ -703,23 +718,6 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     print(f"clouds at {NCOL}x{NLAY}: share of cells liquid-only {share['liquid']:.4f}, ice-only "
           f"{share['ice']:.4f}, mixed {share['mixed']:.4f}")
     require(all(v > 0 for v in share.values()), f"a kind of cloudy cell is missing: {share}")
-
-    def lw64_args(args, kw):
-        a = to64(args)
-        a[0], a[9] = model64(lw_model), table64
-        kw64 = {k: (tuple(to64(v)) if isinstance(v, tuple) else v.double()) for k, v in kw.items()}
-        if "cld_lut" in kw:
-            kw64["cld_lut"] = kw["cld_lut"]
-        return a, kw64
-
-    def sw64_args(args, kw):
-        a = to64(args)
-        a[0] = a[1] = model64(sw_model)
-        kw64 = dict(kw)
-        for k in ("cld_fields", "cld_bands"):
-            if k in kw:
-                kw64[k] = tuple(to64(kw[k]))
-        return a, kw64
 
     rows, ncell = NCOL * NLAY, NCOL * NLAY
     lw_flops = mlp_flops(lw_model, rows) + ELEMENT_FLOPS["lw"] * ncell * lw_spec.ngpt
@@ -744,7 +742,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
         require(moved > 1.0, f"K1 {mode}: the clouds do not show in the fluxes")
 
         def ref64(args=args, kw=kw):
-            a, k = lw64_args(args, kw)
+            a, k = in_float64(args, kw)
             return k1.lw_clearsky_mega4_plain(*a, **k)
 
         adjudicate_lazy(f"K1 {mode}", e, LW_ATOL, got, ref, ref64)
@@ -773,7 +771,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
         require(moved > 1.0, f"K2 {mode}: the clouds do not show in the fluxes")
 
         def ref64(args=args, kw=kw):
-            a, k = sw64_args(args, kw)
+            a, k = in_float64(args, kw)
             return k2.sw_clearsky_megakernel_plain(*a, **k)
 
         adjudicate_lazy(f"K2 {mode}", e, SW_ATOL, got, ref, ref64)
@@ -796,9 +794,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
           f"{e:.3e}, vs the stacked-input mode {e_st:.3e} W/m2 (tol {LW_ATOL})")
 
     def ref64_k8():
-        a = to64(args5)
-        a[0], a[1], a[10] = model64(lw_model), to64(args5[1]), table64
-        return k1.lw_clearsky_mega5_plain(*a)
+        return k1.lw_clearsky_mega5_plain(*in_float64(args5, {})[0])
 
     adjudicate_lazy("K8", e, LW_ATOL, got, ref, ref64_k8)
     if e_st > LW_ATOL:
@@ -831,10 +827,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     require(e_st == 0.0, "K9 differs from the stacked-input mode of the same kernel")
 
     def ref64_k9():
-        a = to64(largs)
-        a[0] = a[1] = model64(sw_model)
-        a[2] = to64(lanes)
-        return k2.sw_clearsky_megakernel_plain(*a, input_mode="lanes")
+        return k2.sw_clearsky_megakernel_plain(*in_float64(largs, {})[0], input_mode="lanes")
 
     adjudicate_lazy("K9", e, SW_ATOL, got, ref, ref64_k9)
     results["k9"] = {"max_abs_err": e, **bound(
@@ -1627,6 +1620,405 @@ def lut_phase(dev, card):
           f"the others {rest:.3e} W/m2")
     return timed
 
+GCM_NCOL, GCM_BLOCK = 1_036_800, 57_600  # scripts/bench_gcm.py's defaults: 18 blocks
+GCM_SIDE_NCOL, GCM_RAGGED_NCOL = 115_200, 100_000
+GCM_ATOL = 1e-4  # W/m2: the sweep against the all-sky drivers on the same columns
+GCM_TWIN_COLUMNS = 14_400  # columns a plain-twin call takes at GCM block size (by_columns)
+
+
+def sza_for_mu0(mu0: float) -> np.float32:
+    """A float32 solar zenith angle whose cosine, as the GCM sweep takes it
+    (float32 cos of float32 radians), is float32(mu0) exactly."""
+    want = np.float32(mu0)
+    s = np.float32(np.degrees(np.arccos(mu0)))
+    for _ in range(256):
+        got = np.cos(np.deg2rad(np.array([s], np.float32)))[0]
+        if got == want:
+            return s
+        s = np.nextafter(s, np.float32(0 if got < want else 90))
+    raise SmokeFailure(f"no float32 zenith angle has the cosine {want}")
+
+
+def gcm_host(directory) -> tuple[dict, dict]:
+    """The GCM columns of phase 20 and the files of the all-sky drivers:
+    synthesize_gcm_columns over the RFMIP-size atmosphere of SEED, with
+    the gases a Garand file carries; its first NCOL columns take the
+    all-sky example's boundary conditions (emissivity 0.98, albedo 0.06,
+    mu0 0.86, the surface at the lowest level's temperature) and are
+    written as a Garand file. Returns (host, the paths of write_allsky_files
+    with "garand" that file)."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import gcm
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky_io import GARAND_GASES
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.testing import garand_nc_variables, synthesize_rfmip
+    from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc
+
+    base = synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=True)
+    base["gases"] = {g: v for g, v in base["gases"].items() if g in GARAND_GASES}
+    host = gcm.synthesize_gcm_columns(rfmip_data_from_arrays(base), GCM_NCOL, seed=SEED)
+    head = slice(0, NCOL)
+    host["sfc_emis"][head], host["sfc_alb"][head] = 0.98, 0.06
+    host["tsfc"][head] = host["tlev"][head, -1]
+    host["sza"][head] = sza_for_mu0(ALLSKY_MU0)
+    paths = write_allsky_files(directory)
+    garand = {"p_lay": host["play"][head].T, "p_lev": host["plev"][head].T,
+              "t_lay": host["tlay"][head].T, "t_lev": host["tlev"][head].T}
+    for k, v in host.items():
+        if k.startswith("gas:"):
+            v = v[head]
+            garand[f"vmr_{k[4:]}"] = (v if v.ndim == 2 else np.broadcast_to(v[:, None], (NCOL, NLAY))).T
+    paths["garand"] = os.path.join(directory, "garand-gcm-head.nc")
+    write_nc(paths["garand"], *garand_nc_variables(
+        {k: np.ascontiguousarray(v, np.float32) for k, v in garand.items()}))
+    return host, paths
+
+
+@contextlib.contextmanager
+def kept_calls(sites: dict, keep):
+    """Within the block, each kernel wrapper of ``sites`` ({tag: (module,
+    attribute)}: the name the GCM path calls it through) keeps a copy of the
+    arguments of its calls whose index ``keep`` picks, then launches as
+    before. A copy, because a streamed block's views into its staging
+    buffer are refilled by a later block; copies of strided views are
+    contiguous. Yields {tag: [(args, kwargs), ...]}."""
+    import torch
+
+    def copy(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if type(x) in (list, tuple):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    kept = {tag: [] for tag in sites}
+    saved = []
+    for tag, (module, attr) in sites.items():
+        fn = getattr(module, attr)
+        calls = itertools.count()
+
+        def wrapper(*a, _fn=fn, _tag=tag, _calls=calls, **kw):
+            if keep(next(_calls)):
+                kept[_tag].append((copy(a), {k: copy(v) for k, v in kw.items()}))
+            return _fn(*a, **kw)
+
+        saved.append((module, attr, fn))
+        setattr(module, attr, wrapper)
+    try:
+        yield kept
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def by_columns(fn, args, kw, ncol: int):
+    """fn's tuple of outputs on ``ncol`` columns, called GCM_TWIN_COLUMNS
+    columns at a time (each tensor is cut on its first axis of size ncol)
+    and joined on the outputs' column axis: the plain twins at GCM block
+    size in a bounded share of the card's memory."""
+    import torch
+
+    def cut(x, s0, n):
+        if torch.is_tensor(x):
+            axis = next((i for i, m in enumerate(x.shape) if m == ncol), None)
+            return x if axis is None else x.narrow(axis, s0, n)
+        if type(x) in (list, tuple):
+            return type(x)(cut(v, s0, n) for v in x)
+        return x
+
+    parts = []
+    for s0 in range(0, ncol, GCM_TWIN_COLUMNS):
+        n = min(GCM_TWIN_COLUMNS, ncol - s0)
+        out = fn(*(cut(a, s0, n) for a in args), **{k: cut(v, s0, n) for k, v in kw.items()})
+        parts.append((n, tuple(out)))
+    n0, first = parts[0]
+    axes = [o.shape.index(n0) for o in first]
+    return tuple(torch.cat([p[i] for _, p in parts], dim=axes[i]) for i in range(len(first)))
+
+
+def in_float64(args, kw) -> tuple[list, dict]:
+    """The arguments of a kernel's plain twin in float64: tensors, nets
+    (testing.float64_copy) and the Planck table; the cloud lookup-table pack
+    stays as it is."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable
+    from rte_rrtmgp_nn_tpu_torch.models.network import NNModel
+    from rte_rrtmgp_nn_tpu_torch.testing import float64_copy
+
+    nets = {}
+
+    def up(x):
+        if torch.is_tensor(x):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, NNModel):
+            if id(x) not in nets:
+                nets[id(x)] = float64_copy(x)
+            return nets[id(x)]
+        if isinstance(x, PlanckTable):
+            return PlanckTable(x.totplnk.double(), x.totplnk_diff.double(), x.temp_ref_min,
+                               x.totplnk_delta)
+        if type(x) in (list, tuple):
+            return type(x)(up(v) for v in x)
+        return x
+
+    return [up(a) for a in args], {k: (v if k == "cld_lut" else up(v)) for k, v in kw.items()}
+
+
+def gcm_hold_kept(what: str, kept: dict, blocks) -> None:
+    """Each kept call of the GCM path launched again through its wrapper on
+    the card and held against its plain twin on the same tensors, at the
+    block's own column count (the one of ``blocks``, the sweep's block
+    widths, that its arguments carry): K1, K2 and K7 by the rule of phases
+    3, 4 and 8 (LW_ATOL, SW_ATOL, float64 decides beyond), K3 and K5 by
+    phase 7's (testing.hold_kernel; K5's ssa where tau is not an underflow
+    residue)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.testing import bound_excess
+
+    kernels = {"k1": (k1, "lw_clearsky_mega4", LW_ATOL), "k2": (k2, "sw_clearsky_megakernel", SW_ATOL),
+               "k7": (k7, "lw_noscat_broadband_angles", LW_ATOL),
+               "k3": (mlp, "fused_predict_lw_both", None), "k5": (mlp, "fused_predict_sw", None)}
+    require(any(kept.values()), f"gcm {what}: no kernel call was kept")
+    for tag, calls in kept.items():
+        module, name, tol = kernels[tag.split(":")[0]]
+        kernel, twin = getattr(module, name), getattr(module, name + "_plain")
+        for args, kw in calls:
+            ncol = next(n for a in args if torch.is_tensor(a) for n in a.shape if n in blocks)
+            label = f"gcm {what} {tag} ({name}) on a block of {ncol} columns"
+            got = tuple(kernel(*args, **kw))
+            torch.cuda.synchronize()
+            require(all(bool(torch.isfinite(o).all()) for o in got), f"{label}: not finite")
+            ref = by_columns(twin, args, kw, ncol)
+            ref64 = lambda a=args, k=kw, n=ncol: by_columns(twin, *in_float64(a, k), n)
+            if tol is not None:
+                e = max(maxabs(a, b) for a, b in zip(got, ref))
+                print(f"{label}: max|kernel-twin| {e:.3e} W/m2 (tol {tol})")
+                adjudicate_lazy(label, e, tol, got, ref, ref64)
+                continue
+            bounds = [(MLP_RTOL, 1e-8), (MLP_RTOL, 1e-9) if tag == "k3" else (0.0, SSA_ATOL)]
+            pick = [slice(None), slice(None) if tag == "k3" else ref[0] > 1e-12]
+            beyond = any(bound_excess(g[p], r[p], rt, at) > 1.0
+                         for g, r, p, (rt, at) in zip(got, ref, pick, bounds))
+            r64 = ref64() if beyond else ref
+            for out, g, r, r6, p, (rt, at) in zip(("tau", "pfrac" if tag == "k3" else "ssa"),
+                                                   got, ref, r64, pick, bounds):
+                hold(f"{label} {out}", g[p], r[p], r6[p], rt, at)
+        calls.clear()
+    # the twins' memory back to the card before the next sweep allocates
+    torch.cuda.empty_cache()
+
+
+def gcm_profile(sweep, nblocks: int, card: str) -> None:
+    """One streamed sweep under torch.profiler: the device's idle share over
+    the sweep (1 - kernel time / the sweep's time), the copies' time, and
+    K1 + K2 per block against the block's window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = sweep()
+    window = r["elapsed_s"] * 1e3
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    require(events, "the profiler's trace of the GCM sweep holds no device time")
+    copies = sum(dev_us(e) for e in events if e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    kernels = sum(dev_us(e) for e in events if not e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    mega = {k: sum(dev_us(e) for e in events if f"{k}_mega_kernel" in e.key) / 1e3
+            for k in ("lw", "sw")}
+    launches = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
+    print(f"gcm profile, one streamed sweep: window {window:.1f} ms, kernels {kernels:.1f} ms "
+          f"({launches / nblocks:.1f} launches a block), copies {copies:.1f} ms, idle share "
+          f"{1 - kernels / window:.4f}; K1 + K2 {(mega['lw'] + mega['sw']) / nblocks:.3f} ms a "
+          f"block (K1 {mega['lw'] / nblocks:.3f}, K2 {mega['sw'] / nblocks:.3f}) of a "
+          f"{window / nblocks:.3f} ms window | {card}")
+    for e in sorted(events, key=dev_us, reverse=True)[:6]:
+        print(f"gcm profile kernel {e.key[:60]!r}: {dev_us(e) / 1e3 / nblocks:.3f} ms a block, "
+              f"{e.count / nblocks:.1f} launches a block")
+
+
+def gcm_phase(dev, lw_model, sw_model, card) -> None:
+    """Phase 20: the GCM sweep at GCM_NCOL columns x NLAY layers in blocks
+    of GCM_BLOCK, each sweep's launches counted around it."""
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, gcm, rfmip
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.testing import gcm_sw_resonance_distance
+
+    t_phase = time.perf_counter()
+    nblocks = -(-GCM_NCOL // GCM_BLOCK)
+    sw_pair = [sw_model, sw_model]
+    # where the GCM step calls each kernel's wrapper (kept_calls)
+    fused_sites = {"k1": (allsky, "lw_clearsky_mega4"), "k2": (allsky, "sw_clearsky_megakernel")}
+    staged_sites = {"k3": (mlp, "fused_predict_lw_both"), "k7": (k7, "lw_noscat_broadband_angles"),
+                    "k5": (mlp, "fused_predict_sw")}
+    first = lambda i: i == 0
+    with tempfile.TemporaryDirectory() as tmp:
+        host, paths = gcm_host(tmp)
+        co = {k: allsky.load_cloud_optics_checked(paths[k], device=dev)
+              for k in ("lw_lut", "sw_lut", "lw_pade", "sw_pade")}
+        t_host = time.perf_counter() - t_phase
+        sky = lambda h, flavour="lut", **kw: gcm.gcm_sweep_allsky(
+            h, [lw_model], sw_pair, co[f"lw_{flavour}"], co[f"sw_{flavour}"],
+            block_size=GCM_BLOCK, device=dev, **kw)
+
+        def counted(fn):
+            reset_counts()
+            r = fn()
+            c = read_counts()
+            c.update({f"k1_{k}": v for k, v in k1.MODE_LAUNCHES.items() if v})
+            c.update({f"k2_{k}": v for k, v in k2.MODE_LAUNCHES.items() if v})
+            return r, c
+
+        def line(name, r):
+            gbs = r["bytes_per_column"] * r["ncol"] / r["elapsed_s"] / 1e9
+            print(f"gcm {name}: {r['ncol']} x {NLAY} in {r['elapsed_s']:.3f} s, "
+                  f"{r['columns_per_s']:.0f} columns/s, {r['bytes_per_column']:.1f} H2D bytes a "
+                  f"column, {gbs:.2f} GB/s over the sweep | {card}")
+
+        # the fused route, lookup-table clouds: K1 and K2 once a block each;
+        # the first sweep also allocates the pinned staging and result buffers
+        line("all-sky streamed f32, first sweep", sky(host))
+        f32, c = counted(lambda: sky(host))
+        line("all-sky streamed f32 (K1 + K2 cld_lut)", f32)
+        print(f"gcm all-sky streamed f32 launches: {c}")
+        require(c == {"k1": nblocks, "k2": nblocks, "k1_cld_lut": nblocks, "k2_cld_lut": nblocks},
+                f"the streamed GCM sweep did not launch K1 and K2 once a block in the cld_lut "
+                f"mode and nothing else: {c}")
+        diag = f32["diagnostics"]
+        require(diag.shape == (GCM_NCOL, 3) and np.isfinite(diag).all(),
+                "GCM diagnostics not finite or of the wrong shape")
+        # the host link's rate for one block from pinned memory
+        nbytes = int(f32["bytes_per_column"] * GCM_BLOCK)
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        on_dev = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        ms = cuda_ms(lambda: on_dev.copy_(pinned, non_blocking=True), reps=5, batch=4)
+        print(f"gcm H2D: one block of {nbytes / 1e6:.1f} MB from pinned memory in {ms:.3f} ms, "
+              f"{nbytes / ms / 1e6:.2f} GB/s | {card}")
+        del pinned, on_dev
+        # the resident sweep runs block 0 once before its timer starts: its
+        # K1 and K2 calls are kept and held against the twins
+        with kept_calls(fused_sites, first) as kept:
+            resident = sky(host, resident=True)
+        line("all-sky resident f32", resident)
+        gcm_hold_kept("all-sky block 0 (cld_lut)", kept, {GCM_BLOCK})
+        require(np.array_equal(resident["diagnostics"], diag),
+                "the resident GCM sweep differs from the streamed one")
+        mixed = sky(host, precision="mixed")
+        line("all-sky streamed mixed", mixed)
+        e_mixed = float(np.abs(mixed["diagnostics"] - diag).max())
+        mu0 = np.cos(np.deg2rad(host["sza"]))
+        night = mu0 <= 0.0
+        require(night.any() and ((mu0 > 0) & (mu0 <= 0.1)).any(),
+                "the GCM columns hold no night or no grazing sun")
+        zero = all(np.all(d[night, 2] == 0.0) for d in (diag, mixed["diagnostics"]))
+        print(f"gcm mixed vs f32: max {e_mixed:.3e} W/m2 (tol 0.05); night SW of "
+              f"{int(night.sum())} columns exactly 0: {zero}; means olr {f32['mean_olr']:.4f} "
+              f"lw_sfc_dn {f32['mean_lw_sfc_dn']:.4f} sw_sfc_dn {f32['mean_sw_sfc_dn']:.4f}")
+        require(e_mixed <= 0.05, "the mixed-precision GCM sweep is beyond 0.05 W/m2 of f32")
+        require(zero, "night SW of the GCM sweep is not exactly 0")
+        del mixed, resident
+
+        # the first NCOL columns against the all-sky drivers on the same columns
+        lw = allsky.allsky_lw(paths["garand"], paths["lw_lut"], [lw_model], ncol=NCOL, device=dev)
+        sw = allsky.allsky_sw(paths["garand"], paths["sw_lut"], sw_pair, ncol=NCOL, device=dev)
+        ref = torch.stack([lw.flux_up[:, 0], lw.flux_dn[:, -1], sw.flux_dn[:, -1]], 1).cpu().numpy()
+        e_drv = np.abs(diag[:NCOL] - ref).max(0)
+        print(f"gcm first {NCOL} columns vs allsky_lw / allsky_sw: olr {e_drv[0]:.3e}, lw_sfc_dn "
+              f"{e_drv[1]:.3e}, sw_sfc_dn {e_drv[2]:.3e} W/m2 (tol {GCM_ATOL})")
+        require(e_drv.max() <= GCM_ATOL, "the GCM sweep disagrees with the all-sky drivers")
+
+        # clear-sky LW: K1 once a block
+        lw_s, c = counted(lambda: gcm.gcm_sweep_lw(host, [lw_model], block_size=GCM_BLOCK,
+                                                   device=dev))
+        line("LW streamed f32 (K1 clear)", lw_s)
+        require(c == {"k1": nblocks, "k1_clear": nblocks},
+                f"the LW GCM sweep did not launch K1 once a block and nothing else: {c}")
+        with kept_calls({"k1:clear": (rfmip, "lw_clearsky_mega4")}, first) as kept:
+            lw_r = gcm.gcm_sweep_lw(host, [lw_model], block_size=GCM_BLOCK, resident=True,
+                                    device=dev)
+        line("LW resident f32", lw_r)
+        gcm_hold_kept("LW block 0 (clear)", kept, {GCM_BLOCK})
+        require(np.array_equal(lw_s["diagnostics"], lw_r["diagnostics"]),
+                "the resident LW GCM sweep differs from the streamed one")
+        del lw_s, lw_r
+
+        # the device's idle share over one streamed sweep
+        gcm_profile(lambda: sky(host), nblocks, card)
+
+        # GCM_SIDE_NCOL columns: Pade clouds (the band modes) and the staged route
+        side = {k: v[:GCM_SIDE_NCOL] for k, v in host.items()}
+        nside = -(-GCM_SIDE_NCOL // GCM_BLOCK)
+        pade, c = counted(lambda: sky(side, flavour="pade"))
+        line("all-sky streamed f32, Pade (K1 + K2 cld_bands)", pade)
+        require(c == {"k1": nside, "k2": nside, "k1_cld_bands": nside, "k2_cld_bands": nside},
+                f"the Pade GCM sweep did not launch K1 and K2 once a block in the cld_bands mode: {c}")
+        pd = pade["diagnostics"]
+        require(np.isfinite(pd).all() and np.all(pd[night[:GCM_SIDE_NCOL], 2] == 0.0),
+                "the Pade GCM sweep is not finite or its night SW not 0")
+        with kept_calls(fused_sites, first) as kept:
+            sky({k: v[:GCM_BLOCK] for k, v in host.items()}, flavour="pade")
+        gcm_hold_kept("all-sky Pade block 0 (cld_bands)", kept, {GCM_BLOCK})
+        with config_override(use_megakernel=False):
+            staged, c = counted(lambda: sky(side))
+        line("all-sky streamed f32, staged route (K3 + K7, K5)", staged)
+        require(c == {"fused_predict_lw_both": nside, "k7": nside, "k7_angles": nside,
+                      "fused_predict_sw": nside},
+                f"the staged GCM sweep did not launch K3, K7 and K5 once a block: {c}")
+        st = staged["diagnostics"]
+        e_lw = float(np.abs(st[:, :2] - diag[:GCM_SIDE_NCOL, :2]).max())
+        col_err = np.abs(st[:, 2] - diag[:GCM_SIDE_NCOL, 2])
+        over = np.nonzero(col_err > SW_ATOL)[0]
+        # the resonance distance where it decides: a column within SW_ATOL
+        # keeps that bound (F1_LAW / 1 < SW_ATOL)
+        dist = np.ones(GCM_SIDE_NCOL)
+        if over.size:
+            dist[over] = gcm_sw_resonance_distance(side, over, sw_pair, co["lw_lut"], co["sw_lut"])
+        print(f"gcm staged vs fused route on {GCM_SIDE_NCOL} columns: LW {e_lw:.3e} W/m2 "
+              f"(tol {LW_ATOL})")
+        require(e_lw <= LW_ATOL, "the staged GCM route's LW disagrees with the fused one")
+        e_sw, n_over, rest = f1_law("gcm staged vs fused SW", col_err, dist, mu0[:GCM_SIDE_NCOL])
+        print(f"gcm staged vs fused SW: max {e_sw:.3e} W/m2, {n_over} columns beyond {SW_ATOL} "
+              f"(held by the F1 law), the others {rest:.3e}")
+        del side, pade, staged
+
+        # a ragged last block against the same columns in one block
+        rag = {k: v[:GCM_RAGGED_NCOL] for k, v in host.items()}
+        widths = {GCM_BLOCK, GCM_RAGGED_NCOL - GCM_BLOCK}
+        with kept_calls(fused_sites, lambda i: i == 1) as kept:
+            blocks = sky(rag)
+        gcm_hold_kept("all-sky ragged last block (cld_lut)", kept, widths)
+        # the staged route's kernels on both blocks of the same sweep
+        with config_override(use_megakernel=False), kept_calls(staged_sites, lambda i: True) as kept:
+            sky(rag)
+        gcm_hold_kept("all-sky staged route", kept, widths)
+        whole = gcm.gcm_sweep_allsky(rag, [lw_model], sw_pair, co["lw_lut"], co["sw_lut"],
+                                     block_size=GCM_RAGGED_NCOL, device=dev)
+        e_rag = float(np.abs(blocks["diagnostics"] - whole["diagnostics"]).max())
+        print(f"gcm ragged: {GCM_RAGGED_NCOL} columns in blocks of {GCM_BLOCK} (the last "
+              f"{GCM_RAGGED_NCOL - GCM_BLOCK}) vs one block: max {e_rag:.3e} W/m2 (tol {GCM_ATOL})")
+        require(e_rag <= GCM_ATOL, "the ragged GCM sweep differs from the one-block sweep")
+    print(f"gcm phase: {time.perf_counter() - t_phase:.1f} s (host columns and files "
+          f"{t_host:.1f} s) | {card}")
+
 
 def run() -> dict:
     import torch
@@ -1692,10 +2084,7 @@ def run() -> dict:
     up_k, dn_k = k1.lw_clearsky_mega4(*lw_args)
     torch.cuda.synchronize()
     up_p, dn_p = k1.lw_clearsky_mega4_plain(*lw_args)
-    a64 = to64(lw_args)
-    a64[0] = model64(lw_model)
-    a64[9] = PlanckTable(table.totplnk.double(), table.totplnk_diff.double(),
-                         table.temp_ref_min, table.totplnk_delta)
+    a64 = in_float64(lw_args, {})[0]
     up_64, dn_64 = k1.lw_clearsky_mega4_plain(*a64)
     require(bool(torch.isfinite(up_k).all() and torch.isfinite(dn_k).all()), "K1 output not finite")
     e1 = max(maxabs(up_k, up_p), maxabs(dn_k, dn_p))
@@ -1714,8 +2103,7 @@ def run() -> dict:
     outs_k = k2.sw_clearsky_megakernel(*sw_args)
     torch.cuda.synchronize()
     outs_p = k2.sw_clearsky_megakernel_plain(*sw_args)
-    s64 = to64(sw_args)
-    s64[0] = s64[1] = model64(sw_model)
+    s64 = in_float64(sw_args, {})[0]
     outs_64 = k2.sw_clearsky_megakernel_plain(*s64)
     names = ("up", "dn", "dn_dir")
     require(all(bool(torch.isfinite(o).all()) for o in outs_k), "K2 output not finite")
@@ -1858,8 +2246,7 @@ def run() -> dict:
           f"ms | {card}")
     # ---- 11. cloud modes of K1/K2, K8, K9 ------------------------------------
     mode_results, mode_launches, mode_timers = modes_phase(
-        dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data, lw_in, sw_in, model64,
-        a64[9])
+        dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data, lw_in, sw_in)
     results.update(mode_results)
     launches.update(mode_launches)
 
@@ -1904,6 +2291,9 @@ def run() -> dict:
     geometry, wide = kernels_wide_phase(dev, card, lw_model, sw_model, table, lw_spec)
     for k, g in geometry.items():
         results[k].update(g, ms_wide=wide[k])
+
+    # ---- 20. the GCM sweep at 1,036,800 columns -------------------------------------------
+    gcm_phase(dev, lw_model, sw_model, card)
 
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])

@@ -159,6 +159,15 @@ def resolve_use_megakernel(lw: bool = False, models=None, device=None,
     return Route("staged", why)
 
 
+def set_checks(check_extents: bool | None = None, check_values: bool | None = None):
+    """Turn the extent and value checks on or off (reference
+    rte_rrtmgp_config_checks, mo_rte_rrtmgp_config.F90:43-61)."""
+    if check_extents is not None:
+        config.check_extents = check_extents
+    if check_values is not None:
+        config.check_values = check_values
+
+
 @contextmanager
 def config_override(**kwargs):
     old = {k: getattr(config, k) for k in kwargs}

@@ -16,9 +16,10 @@
 // take kMegaRows rows per pass and softsign; the generic MLP kernel (mlp.cu)
 // sets the rows of a pass and the activation as template parameters.
 //
-// Arithmetic is IEEE float32, compiled without --use_fast_math (expf, '/'
-// and sqrtf correctly rounded), with one exception: the SW kernel's
-// two-stream coefficients are evaluated in double (sw_megakernel.cu).
+// Arithmetic is IEEE float32, compiled without --use_fast_math ('/' and
+// sqrtf correctly rounded, expf within 2 ulp), with two exceptions: the SW
+// kernel's two-stream coefficients are evaluated in double
+// (sw_megakernel.cu), and so is the LW transmittance (rte::transmittance).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -147,6 +148,12 @@ struct PlanckTab {
   int nband, ntab;
   float t_min, t_delta;
 };
+
+// The LW transmittance exp(-tl) in double, rounded once: float32 expf is
+// within 2 ulp but high by 0.095 ulp on average, a bias that the g-point
+// sums and the sweeps accumulate (ROADMAP Queue 3 F7). The twins take it
+// so too (ops/lw_solver.transmittance).
+__device__ __forceinline__ float transmittance(float tl) { return (float)exp(-(double)tl); }
 
 __device__ __forceinline__ float planck_interp(const PlanckTab& p, float t, int b) {
   const float val0 = (t - p.t_min) / p.t_delta;

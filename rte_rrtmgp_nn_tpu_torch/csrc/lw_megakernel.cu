@@ -211,7 +211,7 @@ lw_mega_kernel(const LwArgs a, const Mlp3 m, const PlanckTab p, const int layers
       } else {
         tl = y8 * s_cd[l] * a.d_secant;
       }
-      const float trans = expf(-tl);
+      const float trans = rte::transmittance(tl);
       const float fact = tl > a.tau_thresh ? (1.0f - trans) / tl - trans
                                            : tl * (0.5f - (1.0f / 3.0f) * tl);
       const float lay = __fmul_rn(pf, rte::planck_interp(p, s_tlay[l], band));

@@ -50,8 +50,8 @@
 //   the warp in one transpose reduction, the warps' partials over g-points
 //   and then over the angles (angle 0 first) in a fixed order after a
 //   barrier. No atomics: a launch on the same inputs gives the same bits.
-// Arithmetic is IEEE float32 (expf and '/' correctly rounded, no
-// --use_fast_math).
+// Arithmetic is IEEE float32 ('/' correctly rounded, no --use_fast_math),
+// but for the transmittance (rte::transmittance, in double).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -122,7 +122,7 @@ __host__ __device__ inline int noscat_smem_floats(int nlay, int gp, int nang, in
 // trans and the source factor of one layer at optical path tl, and the
 // source leaving the layer towards a level of source b_lev.
 __device__ __forceinline__ void trans_fact(float tl, float tau_thresh, float& trans, float& fact) {
-  trans = expf(-tl);
+  trans = rte::transmittance(tl);
   fact = tl > tau_thresh ? (1.0f - trans) / tl - trans : tl * (0.5f - (1.0f / 3.0f) * tl);
 }
 __device__ __forceinline__ float layer_src(float trans, float fact, float b_lay, float b_lev) {

@@ -115,7 +115,7 @@ lw_prep_kernel(const LwPrepArgs a, const Mlp3 m, const int layers_per_group,
     const int i = l * ngpt + g;
     const size_t lc = (size_t)l * ncol + col;
     const float tl = s_y8[i] * s_cd[l] * a.d_secant;
-    const float trans = expf(-tl);
+    const float trans = rte::transmittance(tl);
     const float fact = tl > a.tau_thresh ? (1.0f - trans) / tl - trans
                                          : tl * (0.5f - (1.0f / 3.0f) * tl);
     const float lay = __fmul_rn(pf, __ldg(a.b_lay + lc * nband + band));

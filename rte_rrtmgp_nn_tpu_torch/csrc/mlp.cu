@@ -40,7 +40,8 @@
 // where it does not. Ragged last tiles repeat the last row and store nothing for it.
 // Every sum runs over k ascending in one accumulator with fmaf, across the
 // slabs too (as cuBLAS rounds); IEEE float32 throughout: no TF32 or tensor
-// cores, expf and correctly rounded division (no --use_fast_math).
+// cores, expf (within 2 ulp) and correctly rounded division (no
+// --use_fast_math).
 //
 // K5's second net reads tau_abs back from out0: the thread that stores
 // (row, j) of the absorption net's last layer takes the same (row, j) of the

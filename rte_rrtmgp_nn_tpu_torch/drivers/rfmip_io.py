@@ -62,6 +62,16 @@ class RFMIPData:
     def ncol(self) -> int:
         return self.nexp * self.nsites
 
+    def block(self, start: int, n: int) -> "RFMIPData":
+        """Columns [start, start + n) as a one-experiment problem (the
+        reference's block loop)."""
+        sl = slice(start, start + n)
+        return dataclasses.replace(
+            self, play=self.play[sl], plev=self.plev[sl], tlay=self.tlay[sl],
+            tlev=self.tlev[sl], tsfc=self.tsfc[sl], sfc_emis=self.sfc_emis[sl],
+            sfc_alb=self.sfc_alb[sl], sza=self.sza[sl], tsi=self.tsi[sl],
+            gas_concs=self.gas_concs.subset(start, n), nexp=1, nsites=n)
+
 
 def rfmip_data_from_arrays(arrays: dict) -> RFMIPData:
     """RFMIPData of one experiment from a dict of (ncol, nlay[+1]) arrays:

@@ -75,6 +75,20 @@ class GasConcs:
     def get_raw(self, name: str) -> torch.Tensor:
         return self.concs[normalize_gas_name(name)]
 
+    def set_vmr(self, name: str, value) -> "GasConcs":
+        """A copy with ``name`` set to ``value``, checked to lie in [0, 1]
+        (reference set_vmr, mo_gas_concentrations.F90:130-250)."""
+        arr = torch.as_tensor(value if torch.is_tensor(value) else np.asarray(value))
+        if bool(torch.any(arr < 0.0)) or bool(torch.any(arr > 1.0)):
+            raise ValueError(f"set_vmr({name}): values outside [0,1]")
+        return GasConcs({**self.concs, normalize_gas_name(name): arr})
+
+    def subset(self, start: int, n: int) -> "GasConcs":
+        """Columns [start, start + n) (reference get_subset_range): 2-D
+        entries are sliced, scalars and per-layer profiles shared."""
+        return GasConcs({k: v[start:start + n] if v.ndim == 2 else v
+                         for k, v in self.concs.items()})
+
 
 # Reference-scenario global-mean VMRs (reference
 # rrtmgp/mo_gas_ref_concentrations.F90:46-60): present-day, pre-industrial,

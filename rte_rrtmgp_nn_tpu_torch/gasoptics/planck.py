@@ -70,6 +70,18 @@ def sw_spectral_g112() -> SpectralMapping:
     return _mapping_from_counts(SW_G112_GPT_PER_BAND, SW_BAND_LIMS_WVN)
 
 
+def sw_spectral_g224() -> SpectralMapping:
+    """Spectral mapping of the unreduced g-224 SW k-distribution (16
+    g-points in each of the 14 bands)."""
+    return _mapping_from_counts((16,) * 14, SW_BAND_LIMS_WVN)
+
+
+def lw_spectral_g256() -> SpectralMapping:
+    """Spectral mapping of the unreduced g-256 LW k-distribution (16
+    g-points in each of the 16 bands)."""
+    return _mapping_from_counts((16,) * 16, LW_BAND_LIMS_WVN)
+
+
 def gpt_weights_for(spectral: SpectralMapping) -> np.ndarray:
     """Per-g-point quadrature weights (normalized to 1 per band): canonical
     16-point weights for the unreduced distributions, calibrated weights for

@@ -100,9 +100,15 @@ class NNModel(nn.Module):
             h = ACTIVATIONS[act](h @ w + b)
         return h @ self.weights[-1] + self.biases[-1]
 
+    def apply_with_final_activation(self, x: torch.Tensor) -> torch.Tensor:
+        """Network output including the configured final activation
+        (output_sgemm_flat; the Planck-fraction kernel's final
+        bias_and_activation)."""
+        return ACTIVATIONS[self.activations[-1]](self.apply_raw(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Network output including the configured final activation."""
-        return ACTIVATIONS[self.activations[-1]](self.apply_raw(x))
+        return self.apply_with_final_activation(x)
 
 
 def nn_model_from_arrays(weights, biases, activations, input_names, input_min,
@@ -155,3 +161,40 @@ def load_model_netcdf(path: str, device, dtype=torch.float32) -> NNModel:
             out_std = f.read("nn_output_coeffs_std", np.float32)
     return nn_model_from_arrays(weights, biases, acts, names, in_min, in_max,
                                 out_mean, out_std, device=device, dtype=dtype)
+
+
+def save_model_netcdf(path: str, model: NNModel, string_len: int = 32,
+                      attrs=None) -> None:
+    """Write the reference model format (ml_load_save_preproc.py:21-171) as
+    netCDF-3 classic, which any netCDF reader opens, the reference's
+    Fortran loader included. ``attrs``: optional global attributes (every
+    loader ignores them), e.g. the metrics a training run scored."""
+    f32 = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    dims: dict[str, int] = {
+        "nn_layers": model.n_layers,
+        "nn_dim_input": model.n_inputs,
+        "string_len": string_len,
+    }
+    variables: dict[str, tuple[Sequence[str], np.ndarray]] = {
+        "nn_dimsize": (("nn_layers",), np.asarray(model.dims[1:], np.int32)),
+        "nn_activation_char": (("nn_layers", "string_len"),
+                               ncio.strings_to_chararray(list(model.activations), string_len)),
+        "nn_inputs_char": (("nn_dim_input", "string_len"),
+                           ncio.strings_to_chararray(list(model.input_names), string_len)),
+        "nn_input_coeffs_min": (("nn_dim_input",), f32(model.input_min)),
+        "nn_input_coeffs_max": (("nn_dim_input",), f32(model.input_max)),
+    }
+    dim_names = ["nn_dim_input"]
+    for i, size in enumerate(model.dims[1:-1], start=1):
+        dims[f"nn_dim_hidden{i}"] = size
+        dim_names.append(f"nn_dim_hidden{i}")
+    dims["nn_dim_outp"] = model.n_outputs
+    dim_names.append("nn_dim_outp")
+    for n in range(1, model.n_layers + 1):
+        variables[f"nn_weights_{n}"] = ((dim_names[n - 1], dim_names[n]), f32(model.weights[n - 1]))
+        variables[f"nn_bias_{n}"] = ((dim_names[n],), f32(model.biases[n - 1]))
+    for name, t in (("nn_output_coeffs_mean", model.output_mean),
+                    ("nn_output_coeffs_std", model.output_std)):
+        if t is not None:
+            variables[name] = (("nn_dim_outp",), f32(t))
+    ncio.write_nc(path, dims, variables, attrs=attrs)

@@ -34,7 +34,8 @@ from ...config import megakernel_model_ok, tau_thresh_for
 from ...extensions.cloud_optics import lut_lerp
 from ...gasoptics.planck import PlanckTable
 from ...models.network import NNModel
-from ..lw_solver import LW_DIFFUSIVITY, LW_WEIGHT, lw_broadband_sweeps, source_fact
+from ..lw_solver import (LW_DIFFUSIVITY, LW_WEIGHT, lw_broadband_sweeps, source_fact,
+                         transmittance)
 from . import build
 
 LAUNCHES = 0  # kernel launches by the wrappers here (not plain-path calls)
@@ -155,7 +156,7 @@ def _lw_plain(model, h1_pre, col_dry_d, tau_cld, tlay, tlev, tsfc,
     tl = col_dry_d(y4 * y4, tau_cld)
     pf = y[..., ngpt:] * y[..., ngpt:]
 
-    trans = torch.exp(-tl)
+    trans = transmittance(tl)
     two_fact = 2.0 * source_fact(tl, trans, tau_thresh_for(torch.float32))
     idx = gpt2band.long()
     lay = pf * planck_table.interpolate(tlay)[..., idx]

@@ -26,7 +26,7 @@ import torch
 
 from ...config import megakernel_model_ok, tau_thresh_for
 from ...models.network import NNModel
-from ..lw_solver import LW_DIFFUSIVITY, pfrac_sources
+from ..lw_solver import LW_DIFFUSIVITY, pfrac_sources, transmittance
 from . import build
 from .lw_megakernel import MAX_SMEM, LaunchPlan, _align4, _check, _smem_limit, plan_groups
 from .mlp import fused_predict_lw_both_plain
@@ -65,7 +65,7 @@ def lw_prep_plain(
     ngpt), and sfc_source (ncol, ngpt)."""
     tau, pf = fused_predict_lw_both_plain(model, x, col_dry)
     tl = tau * d_secant
-    trans = torch.exp(-tl)
+    trans = transmittance(tl)
     idx = gpt2band.long()
     src_dn, src_up = pfrac_sources(tl, trans, pf, planck_lay_band, planck_lev_band, idx,
                                    pade=False)

@@ -69,6 +69,14 @@ class LWSolution(NamedTuple):
     flux_dn_jac: Optional[torch.Tensor] = None
 
 
+def transmittance(tl: torch.Tensor) -> torch.Tensor:
+    """exp(-tl) taken in float64 and rounded once to tl's dtype, as the
+    transport kernels take it (K1, K6, K7): CUDA's float32 exp is high by
+    ~0.1 ulp on average, a bias that the g-point sums and the sweeps
+    accumulate (ROADMAP Queue 3 F7)."""
+    return torch.exp(-tl.double()).to(tl.dtype)
+
+
 def source_fact(tl: torch.Tensor, trans: torch.Tensor, tau_thresh: float) -> torch.Tensor:
     """The linear-in-tau source factor: (1-T)/tau - T above the threshold,
     the 2nd-order Taylor form below it (mo_rte_solver_kernels.F90:
@@ -179,7 +187,7 @@ def noscat_broadband_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, D
     exponential and the source form. Returns broadband (ncol, nlay+1)
     fluxes."""
     tl = tau * D[:, None, :]
-    trans = exp_fast(-tl) if fast_exp else torch.exp(-tl)
+    trans = exp_fast(-tl) if fast_exp else transmittance(tl)
     src_dn, src_up = noscat_sources(tl, trans, lay_source, lev_source[:, :-1],
                                     lev_source[:, 1:], tau_thresh_for(tau.dtype), pade=pade)
     lay_major = lambda a: a.transpose(0, 1)

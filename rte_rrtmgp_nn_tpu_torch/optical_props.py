@@ -23,6 +23,18 @@ class OpticalProps1scl:
     tau: torch.Tensor  # (ncol, nlay, ngpt)
     spectral: SpectralMapping
 
+    @property
+    def ncol(self) -> int:
+        return self.tau.shape[0]
+
+    @property
+    def nlay(self) -> int:
+        return self.tau.shape[1]
+
+    @property
+    def ngpt(self) -> int:
+        return self.tau.shape[2]
+
 
 @dataclasses.dataclass(frozen=True)
 class OpticalProps2str:
@@ -33,6 +45,18 @@ class OpticalProps2str:
     ssa: torch.Tensor
     g: torch.Tensor
     spectral: SpectralMapping
+
+    @property
+    def ncol(self) -> int:
+        return self.tau.shape[0]
+
+    @property
+    def nlay(self) -> int:
+        return self.tau.shape[1]
+
+    @property
+    def ngpt(self) -> int:
+        return self.tau.shape[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +69,22 @@ class OpticalPropsNstr:
     p: torch.Tensor
     spectral: SpectralMapping
 
+    @property
+    def ncol(self) -> int:
+        return self.tau.shape[0]
+
+    @property
+    def nlay(self) -> int:
+        return self.tau.shape[1]
+
+    @property
+    def ngpt(self) -> int:
+        return self.tau.shape[2]
+
+    @property
+    def nmom(self) -> int:
+        return self.p.shape[0]
+
 
 def zeros_1scl(ncol, nlay, spectral: SpectralMapping, dtype=torch.float32,
                device=None) -> OpticalProps1scl:
@@ -56,6 +96,13 @@ def zeros_2str(ncol, nlay, spectral: SpectralMapping, dtype=torch.float32,
                device=None) -> OpticalProps2str:
     z = torch.zeros((ncol, nlay, spectral.ngpt), dtype=dtype, device=device)
     return OpticalProps2str(z, z.clone(), z.clone(), spectral)
+
+
+def zeros_nstr(nmom, ncol, nlay, spectral: SpectralMapping, dtype=torch.float32,
+               device=None) -> OpticalPropsNstr:
+    z = torch.zeros((ncol, nlay, spectral.ngpt), dtype=dtype, device=device)
+    return OpticalPropsNstr(z, z.clone(), torch.zeros((nmom,) + tuple(z.shape), dtype=dtype,
+                                                      device=device), spectral)
 
 
 def validate(op) -> list[str]:

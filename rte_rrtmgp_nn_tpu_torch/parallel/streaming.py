@@ -1,0 +1,202 @@
+"""Host -> device block streaming for problems larger than device memory.
+
+Port of rte_rrtmgp_nn_tpu/parallel/streaming.py (the reference's OpenMP
+block loop over columns held in host memory, rrtmgp_rfmip_lw.F90:364-446).
+
+On a CUDA device each block travels through a ring of ``prefetch`` pinned
+staging buffers: the host fills a buffer, a copy stream of the device's own
+copies it into the matching device buffer without blocking, and the compute
+stream (the device's current stream, on which the kernels launch) waits for
+that copy's event before it runs the step. A pinned buffer is refilled only
+after the event of its previous copy has completed, and a device buffer's
+next copy waits for the compute stream's work queued up to then (the step
+that read the buffer and its result's copy), so block k+1's copy overlaps
+block k's step and neither side overwrites data still in use. The device
+buffers are allocated once, before the sweep, so the caching allocator
+never hands the copy stream memory that the compute stream still reads.
+Each block's results come back as a non-blocking copy into pinned host
+memory; ``stream_reduce`` synchronizes once, at the end.
+
+On the CPU it is a plain loop over blocks.
+
+The last block runs at its own size, without padding: the kernels mask
+ragged columns, so the stitched result is the result without blocks.
+With a column sharding each block is split over the mesh's devices in
+order (parallel/sharding.py), each device runs its share on its own
+streams, and the shares are joined in column order.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, Sequence
+
+import numpy as np
+import torch
+
+from .sharding import ColumnSharding, Mesh, column_sharding
+
+
+def iter_blocks(ncol: int, block_size: int) -> Iterator[tuple[int, int]]:
+    """(start, size) pairs covering [0, ncol); the reference's nblocks
+    split (block loop, rrtmgp_rfmip_lw.F90:213-215)."""
+    for start in range(0, ncol, block_size):
+        yield start, min(block_size, ncol - start)
+
+
+def _sharding(sharding, device) -> ColumnSharding:
+    if sharding is not None:
+        return sharding
+    if device is None:
+        raise ValueError("stream_blocks needs a device or a sharding")
+    return column_sharding(Mesh((torch.device(device),)), 2)
+
+
+class _CudaStager:
+    """The staging ring of one CUDA device: ``slots`` pinned host buffers
+    and device buffers per host array, each with the event of its last
+    copy; blocks are staged and run in the same order, so a counter each
+    names the slot."""
+
+    def __init__(self, device, host_arrays, rows: int, slots: int):
+        self.device = device
+        self.compute = torch.cuda.current_stream(device)
+        with torch.cuda.device(device):
+            self.copy = torch.cuda.Stream(device)
+            self.slots = [{
+                "pinned": [torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a),
+                                       pin_memory=True) for a in host_arrays],
+                "dev": [torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a), device=device)
+                        for a in host_arrays],
+                "copied": None, "n": 0} for _ in range(slots)]
+        self.staged = self.ran = 0
+
+    def stage(self, parts: Sequence[np.ndarray]) -> None:
+        """Copy ``parts`` (one row block per host array) into the next slot."""
+        slot = self.slots[self.staged % len(self.slots)]
+        self.staged += 1
+        if slot["copied"] is not None:
+            slot["copied"].synchronize()  # the pinned buffers' last copy has left them
+        n = parts[0].shape[0]
+        for p, a in zip(slot["pinned"], parts):
+            np.copyto(p[:n].numpy(), a)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.copy):
+            # the step that read the device buffers, and everything queued
+            # on the compute stream after it, was queued before this copy
+            self.copy.wait_stream(self.compute)
+            for d, p in zip(slot["dev"], slot["pinned"]):
+                d[:n].copy_(p[:n], non_blocking=True)
+            slot["copied"] = torch.cuda.Event()
+            slot["copied"].record(self.copy)
+        slot["n"] = n
+
+    def run(self, fn: Callable):
+        """fn on the oldest staged slot's device buffers, on the compute
+        stream."""
+        slot = self.slots[self.ran % len(self.slots)]
+        self.ran += 1
+        with torch.cuda.device(self.device), torch.cuda.stream(self.compute):
+            self.compute.wait_event(slot["copied"])
+            return fn(*[d[:slot["n"]] for d in slot["dev"]])
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _join(results: list):
+    """Results of a block's shares joined in column order (a tensor, or a
+    tuple / list of tensors)."""
+    if len(results) == 1:
+        return results[0]
+    if torch.is_tensor(results[0]):
+        return torch.cat([r.to(results[0].device) for r in results])
+    return type(results[0])(_join([r[i] for r in results]) for i in range(len(results[0])))
+
+
+def stream_blocks(
+    fn: Callable,
+    host_arrays: Sequence[np.ndarray],
+    block_size: int,
+    sharding=None,
+    prefetch: int = 2,
+    *,
+    device=None,
+):
+    """Run ``fn`` over column blocks with transfer/compute overlap.
+
+    fn: function of one tensor per host array (column axis leading, on one
+    device) returning a tensor or a tuple of tensors, column-leading.
+    host_arrays: column-leading numpy arrays of equal ncol. The blocks go to
+    ``device``, or are split over ``sharding``'s devices. Yields (start,
+    size, result) triples; with a sharding of several devices a result is
+    the shares' results joined in column order on the first device's."""
+    shards = _sharding(sharding, device)
+    ncol = host_arrays[0].shape[0]
+    blocks = list(iter_blocks(ncol, block_size))
+    share = shards.split(block_size)
+    stagers = {}
+    for d, _, rows in share:
+        if d.type == "cuda" and d not in stagers:
+            # up to ``prefetch`` blocks are staged ahead, each with this
+            # device's shares of it
+            n = sum(1 for e, _, _ in share if e == d)
+            stagers[d] = _CudaStager(d, host_arrays, rows, prefetch * n)
+
+    def put(k: int):
+        start, size = blocks[k]
+        staged = []
+        for d, s, n in shards.split(size):
+            parts = [a[start + s:start + s + n] for a in host_arrays]
+            if d.type == "cuda":
+                stagers[d].stage(parts)
+                staged.append((d, None))
+            else:
+                staged.append((d, [torch.from_numpy(np.ascontiguousarray(p)).to(d)
+                                   for p in parts]))
+        return staged
+
+    pending = [put(k) for k in range(min(prefetch, len(blocks)))]
+    for k, (start, size) in enumerate(blocks):
+        results = [stagers[d].run(fn) if d.type == "cuda" else fn(*args)
+                   for d, args in pending.pop(0)]
+        yield start, size, _join(results)
+        if k + prefetch < len(blocks):
+            pending.append(put(k + prefetch))
+
+
+def stream_reduce(
+    fn: Callable,
+    host_arrays: Sequence[np.ndarray],
+    block_size: int,
+    out_builder: Callable[[int], list],
+    sharding=None,
+    *,
+    device=None,
+) -> list[np.ndarray]:
+    """Stream blocks and gather the results into host output arrays.
+
+    out_builder(ncol) -> list of preallocated host outputs, one per output
+    of fn (all column-leading). On CUDA each block's results are copied
+    into pinned host memory without blocking, and the sweep synchronizes
+    once at its end; only the results are kept, so fn should return
+    per-column diagnostics, not whole profiles."""
+    ncol = host_arrays[0].shape[0]
+    outs = out_builder(ncol)
+    pinned, cuda_devices = None, set()
+    for start, size, res in stream_blocks(fn, host_arrays, block_size, sharding, device=device):
+        res = list(res) if isinstance(res, (tuple, list)) else [res]
+        if res[0].device.type == "cuda":
+            cuda_devices.add(res[0].device)
+            if pinned is None:
+                pinned = [torch.empty(o.shape, dtype=r.dtype, pin_memory=True)
+                          for o, r in zip(outs, res)]
+            for p, r in zip(pinned, res):
+                p[start:start + size].copy_(r, non_blocking=True)
+        else:
+            for o, r in zip(outs, res):
+                o[start:start + size] = r.numpy()
+    if pinned is not None:
+        for d in cuda_devices:
+            torch.cuda.synchronize(d)
+        for o, p in zip(outs, pinned):
+            o[...] = p.numpy()
+    return outs

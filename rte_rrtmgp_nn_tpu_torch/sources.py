@@ -25,8 +25,36 @@ class SourceFuncLW:
     # Saved Planck fraction for NN training data; None if unused.
     planck_frac: Optional[torch.Tensor] = None  # (ncol, nlay, ngpt)
 
+    @property
+    def ncol(self) -> int:
+        return self.lay_source.shape[0]
+
+    @property
+    def nlay(self) -> int:
+        return self.lay_source.shape[1]
+
+    @property
+    def ngpt(self) -> int:
+        return self.lay_source.shape[2]
+
+    def subset(self, start: int, n: int) -> "SourceFuncLW":
+        """Columns [start, start + n)."""
+        sl = slice(start, start + n)
+        return dataclasses.replace(
+            self, lay_source=self.lay_source[sl], lev_source=self.lev_source[sl],
+            sfc_source=self.sfc_source[sl], sfc_source_jac=self.sfc_source_jac[sl],
+            planck_frac=None if self.planck_frac is None else self.planck_frac[sl])
+
 
 @dataclasses.dataclass(frozen=True)
 class SourceFuncSW:
     toa_source: torch.Tensor  # (ncol, ngpt) TOA spectral solar flux
     spectral: SpectralMapping
+
+    @property
+    def ncol(self) -> int:
+        return self.toa_source.shape[0]
+
+    @property
+    def ngpt(self) -> int:
+        return self.toa_source.shape[1]

@@ -281,8 +281,10 @@ def float64_copy(model):
 
 def bound_excess(a, ref, rtol: float, atol: float) -> float:
     """max |a - ref| / (atol + rtol |ref|) over tensors a and ref: at most 1
-    when a is within the bound of ref."""
-    a, ref = a.double().cpu(), ref.double().cpu()
+    when a is within the bound of ref. Taken on a's device (ref is brought
+    there), so that outputs at GCM block size stay on the card."""
+    a = a.double()
+    ref = ref.double().to(a.device)
     if a.numel() == 0:
         return 0.0
     return float(((a - ref).abs() / (atol + rtol * ref.abs())).max())
@@ -412,3 +414,51 @@ def lut_reference_fluxes(directory: str, ncol: int, nlay: int, seed: int, top_at
     kd = {k: load_kdist(p, LUT_GASES, dtype=dtype, device=device) for k, p in paths.items()}
     data = synthesize_rfmip(ncol, nlay, seed, top_at_1=top_at_1)
     return lut_fluxes(kd["lw"], kd["sw"], data, device, dtype)
+
+
+# W/m2: a staged-SW column's error times its distance |k*mu0 - 1| from the
+# two-stream resonance stays below this (ROADMAP Queue 3 F1: float32
+# coefficients lose accuracy as 1/|k*mu0 - 1|; about twice the largest
+# product measured on an H100; the chip smoke's F1_LAW)
+SW_F1_LAW = 4e-3
+
+
+def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) -> np.ndarray:
+    """Per column ``idx`` of a GCM host dict (drivers.gcm.synthesize_gcm_columns),
+    the smallest |k*mu0 - 1| over layers and g-points of the all-sky SW
+    problem that gcm_sweep_allsky solves there: the gas optics of
+    ``sw_models`` with the delta-scaled clouds of the all-sky placement,
+    k the two-stream eigenvalue, mu0 clipped as the sweep clips it. In
+    float64 on the CPU."""
+    import torch
+
+    from .config import config
+    from .drivers.allsky import make_clouds
+    from .extensions.cloud_optics import cloud_optics
+    from .gas_concs import GasConcs
+    from .gasoptics.nn_gas_optics import gas_optics_sw_nn
+    from .gasoptics.planck import sw_spectral_g112, sw_spectral_g224
+    from .optical_props import OpticalProps2str, delta_scale, increment
+
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
+    play, plev, tlay = (t(host[k][idx]) for k in ("play", "plev", "tlay"))
+    ncol, nlay = play.shape
+    concs = {}
+    for k in host:
+        if k.startswith("gas:"):
+            v = t(host[k][idx])
+            concs[k[4:]] = v if v.ndim == 2 else v[:, None].expand(ncol, nlay)
+    cloud_col = t((((np.arange(host["play"].shape[0]) + 1) % 3) != 0)[idx])
+    clouds = make_clouds(play, tlay, cloud_lw.to("cpu", f64), cloud_col=cloud_col)
+    models = [float64_copy(m).to("cpu") for m in sw_models]
+    spec = sw_spectral_g112() if models[0].n_outputs == 112 else sw_spectral_g224()
+    tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs), spec,
+                                   torch.zeros(spec.ngpt, dtype=f64))
+    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
+                   delta_scale(cloud_optics(cloud_sw.to("cpu", f64), *clouds, as_2str=True)))
+    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
+    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
+    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    mu0 = np.clip(np.cos(np.deg2rad(host["sza"][idx])).astype(np.float32), 0.05, 1.0)
+    return (k * t(mu0)[:, None, None] - 1.0).abs().amin((1, 2)).numpy()

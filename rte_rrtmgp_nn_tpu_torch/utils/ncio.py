@@ -49,6 +49,14 @@ class NCFile:
         if self._nc3 is not None:
             self._nc3.close()
 
+    def variables(self) -> list[str]:
+        """The names of the file's variables (for netCDF-4, its datasets)."""
+        if self._h5 is not None:
+            import h5py
+
+            return [k for k in self._h5.keys() if isinstance(self._h5[k], h5py.Dataset)]
+        return list(self._nc3.variables.keys())
+
     def has_var(self, name: str) -> bool:
         if self._h5 is not None:
             return name in self._h5
@@ -71,6 +79,12 @@ class NCFile:
         if size is None:
             raise KeyError(f"{self.path}: no dimension {name!r}")
         return int(size)
+
+    def var_dims(self, name: str) -> tuple[str, ...]:
+        """The dimension names of a variable, outermost first."""
+        if self._h5 is not None:
+            return tuple(d.label or "" for d in self._h5[name].dims)
+        return tuple(self._nc3.variables[name].dimensions)
 
     def attr(self, var: str, name: str, default=None):
         """A variable attribute, or ``default`` when absent."""
@@ -119,6 +133,13 @@ class NCFile:
                 out.append("".join(chars).strip().strip("\x00").strip())
             return out
         raise ValueError(f"{name}: cannot decode dtype {arr.dtype} shape {arr.shape} as strings")
+
+
+def read_all(path: str, names: Sequence[str] | None = None) -> dict[str, np.ndarray]:
+    """Every variable of the file (or those ``names``) by name."""
+    with NCFile(path) as f:
+        names = names if names is not None else f.variables()
+        return {n: f.read(n) for n in names}
 
 
 def write_nc(

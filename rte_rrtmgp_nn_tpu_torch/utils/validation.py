@@ -2,7 +2,7 @@
 
 Port of rte_rrtmgp_nn_tpu/utils/validation.py (reference
 rte/mo_rte_util_array.F90:21-39: ``any_vals_less_than``,
-``any_vals_outside``, ``extents_are``). The checks read the values, so on
+``any_vals_outside``, ``extents_are``, ``zero_array``). The checks read the values, so on
 a CUDA tensor each one synchronizes with the card.
 """
 from __future__ import annotations
@@ -46,3 +46,7 @@ def any_vals_outside(array, check_min, check_max, mask=None) -> bool:
 
 def extents_are(array, *extents: int) -> bool:
     return tuple(array.shape) == tuple(extents)
+
+
+def zero_array(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)

@@ -765,3 +765,129 @@ def test_lut_gas_optics_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
             # is the yardstick (testing.FLOAT32_SPREAD)
             own = float((cpu32[name].double() - ref[name]).abs().max())
             assert float(err.max()) <= max(LW_ATOL, testing.FLOAT32_SPREAD * own), name
+
+
+# -- the GCM sweep ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nlay", [20, 60])  # 60: the GCM cell's layers
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_gcm_sweeps_on_cuda_match_float64_cpu(dev, tmp_path, top_at_1, nlay):
+    """gcm_sweep_allsky / gcm_sweep_lw on CUDA with a ragged last block: on
+    the fused route one launch of K1 and one of K2 a block (lookup-table
+    clouds), streamed equal to resident and to one block, mixed within 0.05
+    W/m2 of f32, night SW exactly 0; against the same sweeps in float64 on
+    the CPU to LW 2e-3 and SW 2e-2 W/m2 (at 20 layers too: ROADMAP Queue 3
+    F7)."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import gcm
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky import load_cloud_optics_checked
+
+    paths = _write_allsky_files(tmp_path, nlay, "lut", True)
+    cpu, f64, block = torch.device("cpu"), torch.float64, 1024
+    base = rfmip_data_from_arrays(synthesize_rfmip(64, nlay, 57))
+    host = gcm.synthesize_gcm_columns(base, 3000, seed=58)  # blocks of 1024, 1024, 952
+    if not top_at_1:
+        host = {k: (v[:, ::-1].copy() if v.ndim == 2 else v) for k, v in host.items()}
+    lw, sw = load_model_netcdf(LW_MODEL, device=dev), load_model_netcdf(SW_MODEL, device=dev)
+    co = [load_cloud_optics_checked(paths[k], device=dev) for k in ("lw", "sw")]
+    kw = dict(block_size=block, top_at_1=top_at_1, device=dev)
+    n1, n2 = k1.MODE_LAUNCHES["cld_lut"], k2.MODE_LAUNCHES["cld_lut"]
+    got = gcm.gcm_sweep_allsky(host, [lw], [sw, sw], *co, **kw)
+    torch.cuda.synchronize()
+    assert (k1.MODE_LAUNCHES["cld_lut"] - n1, k2.MODE_LAUNCHES["cld_lut"] - n2) == (3, 3)
+    diag = got["diagnostics"]
+    for other in (gcm.gcm_sweep_allsky(host, [lw], [sw, sw], *co, resident=True, **kw),
+                  gcm.gcm_sweep_allsky(host, [lw], [sw, sw], *co, **dict(kw, block_size=3000))):
+        np.testing.assert_array_equal(other["diagnostics"], diag)
+    mixed = gcm.gcm_sweep_allsky(host, [lw], [sw, sw], *co, precision="mixed", **kw)
+    assert np.abs(mixed["diagnostics"] - diag).max() <= 0.05
+    night = np.cos(np.deg2rad(host["sza"])) <= 0.0
+    assert night.any() and np.all(diag[night, 2] == 0.0)
+    assert np.all(mixed["diagnostics"][night, 2] == 0.0)
+
+    lw64 = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
+    sw64 = load_model_netcdf(SW_MODEL, device=cpu, dtype=f64)
+    co64 = [load_cloud_optics_checked(paths[k], device=cpu, dtype=f64) for k in ("lw", "sw")]
+    kw64 = dict(block_size=block, top_at_1=top_at_1, dtype=f64, device=cpu)
+    ref = gcm.gcm_sweep_allsky(host, [lw64], [sw64, sw64], *co64, **kw64)["diagnostics"]
+    assert np.abs(diag[:, :2] - ref[:, :2]).max() <= LW_ATOL
+    assert np.abs(diag[:, 2] - ref[:, 2]).max() <= SW_ATOL
+    n1 = k1.MODE_LAUNCHES["clear"]
+    got = gcm.gcm_sweep_lw(host, [lw], **kw)["diagnostics"]
+    torch.cuda.synchronize()
+    assert k1.MODE_LAUNCHES["clear"] - n1 == 3
+    ref = gcm.gcm_sweep_lw(host, [lw64], **kw64)["diagnostics"]
+    assert np.abs(got - ref).max() <= LW_ATOL
+
+
+@pytest.mark.parametrize("nlay", [20, 60])
+def test_k1_on_gcm_columns_within_lw_atol_of_float64(dev, nlay):
+    """ROADMAP Queue 3 F7: CUDA's float32 expf is high by 0.095 ulp on
+    average (scripts/probe_lw_float32_ops.py); with it as the transmittance
+    K1 and its twin on the card were 2.6-2.8e-3 W/m2 from float64 at 20
+    layers. Both now take the transmittance in double, rounded once, and are
+    held to float64 at LW_ATOL on 3000 GCM columns at 20 and 60 layers."""
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers import gcm
+
+    ncol = 3000
+    host = gcm.synthesize_gcm_columns(rfmip_data_from_arrays(synthesize_rfmip(64, nlay, 57)),
+                                      ncol, seed=58)
+    arrays = {k: host[k] for k in ("play", "plev", "tlay", "tlev", "tsfc", "sfc_emis",
+                                   "sfc_alb", "sza", "tsi")}
+    arrays["gases"] = {k[4:]: v if v.ndim == 2 else np.repeat(v[:, None], nlay, axis=1)
+                       for k, v in host.items() if k.startswith("gas:")}
+    arrays["top_at_1"] = True
+    data = rfmip_data_from_arrays(arrays)
+    spec = planck.lw_spectral_g128()
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    model = load_model_netcdf(LW_MODEL, device=dev)
+    args = rfmip.lw_mega_args([model], table, spec, *rfmip.lw_canonical_inputs(data, spec, dev))
+    got = k1.lw_clearsky_mega4(*args)
+    torch.cuda.synchronize()
+    twin = k1.lw_clearsky_mega4_plain(*args)
+    a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    a64[0] = testing.float64_copy(model)
+    a64[9] = planck.PlanckTable(table.totplnk.double(), table.totplnk_diff.double(),
+                                table.temp_ref_min, table.totplnk_delta)
+    ref = k1.lw_clearsky_mega4_plain(*a64)
+    for g, t, r in zip(got, twin, ref):
+        assert _maxabs(g, r) <= LW_ATOL
+        assert _maxabs(t, r) <= LW_ATOL
+
+
+def _cuda_meshes():
+    meshes = [("cuda:0", "cuda:0")]  # one card listed twice: two shares a block on one stager
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        meshes.append(tuple(f"cuda:{i}" for i in range(torch.cuda.device_count())))
+    return meshes
+
+
+@pytest.mark.parametrize("devices", _cuda_meshes(), ids=lambda d: "x".join(d))
+def test_cuda_mesh_streams_as_no_mesh(dev, devices):
+    """stream_reduce and gcm_sweep_lw over a CUDA mesh (a card listed twice
+    takes prefetch x 2 staging slots on one stager; several cards, one
+    stager each, the shares joined on the first) give the result with no
+    mesh: an elementwise step exactly, on ragged blocks, and the LW sweep's
+    diagnostics within float32 noise."""
+    from rte_rrtmgp_nn_tpu_torch.drivers import gcm
+    from rte_rrtmgp_nn_tpu_torch.parallel.sharding import column_sharding, make_mesh
+    from rte_rrtmgp_nn_tpu_torch.parallel.streaming import stream_reduce
+
+    mesh = make_mesh(devices=list(devices))
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((1000, 7)).astype(np.float32)
+    b = rng.standard_normal((1000,)).astype(np.float32)
+    step = lambda x, y: (x * 2.0 + y[:, None], (x * y[:, None]).sum(1))
+    builder = lambda n: [np.zeros((n, 7), np.float32), np.zeros((n,), np.float32)]
+    want = stream_reduce(step, [a, b], 96, builder, device=dev)
+    got = stream_reduce(step, [a, b], 96, builder, sharding=column_sharding(mesh, 2))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(want[0], a * 2.0 + b[:, None])
+
+    host = gcm.synthesize_gcm_columns(rfmip_data_from_arrays(synthesize_rfmip(64, 60, 57)),
+                                      3000, seed=58)
+    models = [load_model_netcdf(LW_MODEL, device=dev)]
+    one = gcm.gcm_sweep_lw(host, models, block_size=1024, device=dev)["diagnostics"]
+    split = gcm.gcm_sweep_lw(host, models, block_size=1024, mesh=mesh, device=dev)["diagnostics"]
+    np.testing.assert_allclose(split, one, rtol=0, atol=1e-4)
