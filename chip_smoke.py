@@ -122,7 +122,21 @@ non-zero and prints no result line):
      (42,400) of the 100,000-column one, K1 clear on block 0 of the LW
      sweep, K1 and K2 cld_bands on a Pade block, and K3, K7 and K5 on both
      blocks of the staged route's 100,000-column sweep.
-     "gcm ..." lines, each with the card's name and power limit.
+     "gcm ..." lines, each with the card's name and power limit;
+ 21. NN training with radiation-in-the-loop evaluation (training/*, the
+     recipe of scripts/torch_train_from_lut.py): the LUT LW gendata on a
+     synthetic 64-g-point k-distribution at 18 experiments x 100 sites x
+     60 layers on the card (K7 once), against float64 on the CPU; a fresh
+     "lw_both" net 7 -> 128 -> 128 -> 128 trained for 3 epochs of 50 steps
+     of 1024 experiment pairs (Adam, cosine decay, hybrid loss 0.85, EMA
+     0.999) by train_with_radiation_eval, each epoch's eval counted (K3
+     once, K7 once); the step time by CUDA events, the eval and gendata
+     times; after the last step K3 and K7 on the eval's inputs against
+     their twins, K1 through rfmip_clear_sky_lw on the trained net against
+     its twin and against the same weights loaded fresh (0 W/m2), the best
+     model saved and reloaded (bit-identical fluxes), five float32 steps
+     on the card against the CPU's, and K3 refusing trainable weights with
+     grad enabled. "training ..." lines.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -2020,6 +2034,308 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
           f"{t_host:.1f} s) | {card}")
 
 
+# phase 21: the training recipe of artifacts/lw-synth64-lut_both_128_128_*.nc
+# (scripts/train_from_lut.py), a few epochs of a few steps
+TRAIN_NEXP, TRAIN_NSITES = 18, 100      # RFMIP's experiments x 100 sites = 1800 columns
+TRAIN_EPOCHS, TRAIN_STEPS = 3, 50
+TRAIN_PAIRS, TRAIN_HIDDEN, TRAIN_LR = 1024, 128, 1e-3
+TRAIN_ALPHA, TRAIN_EMA = 0.85, 0.999
+# the card's five float32 steps against the CPU's: the losses within rtol
+# 1e-4 (float32 matmuls summed in other orders); the weights, 99.9% of them
+# within 1e-5, every one within 2 x 5 x lr (one Adam step moves a weight by
+# about lr at most, so two runs whose gradient components near 0 take
+# opposite signs part by at most that)
+TRAIN_LOSS_RTOL, TRAIN_W_ATOL = 1e-4, 1e-5
+
+
+def train_profile(step, evaluate, card, n_steps: int = 20) -> None:
+    """``n_steps`` training steps (each with its batch gather) and one eval
+    under torch.profiler: each window on the host clock, the device's
+    kernel time and launches in it, the idle share, and the kernels that
+    take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    for tag, fn, n in (("step", step, n_steps), ("eval", evaluate, 1)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.no_grad() if tag == "eval" else contextlib.nullcontext():
+                for _ in range(n):
+                    fn()
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3 / n
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+        require(events, f"the profiler's trace of the training {tag} holds no device time")
+        busy = sum(dev_us(e) for e in events) / 1e3 / n
+        launches = sum(e.count for e in events) / n
+        top = sorted(events, key=dev_us, reverse=True)[:4]
+        print(f"training profile, one {tag}: window {window:.4f} ms, device busy {busy:.4f} ms "
+              f"({launches:.1f} kernels and copies), idle share {1 - busy / window:.4f}; most "
+              "time: " + ", ".join(f"{e.key[:40]!r} {dev_us(e) / 1e3 / n:.4f} ms"
+                                   for e in top) + f" | {card}")
+
+
+def training_phase(dev, card) -> None:
+    """Phase 21: NN training with radiation-in-the-loop evaluation on the
+    card (training/*, scripts/torch_train_from_lut.py's recipe): the LUT LW
+    gendata at 18 experiments x 100 sites x 60 layers on a synthetic
+    64-g-point k-distribution (K7 once) against float64 on the CPU; a fresh
+    "lw_both" net 7 -> 128 -> 128 -> 128 trained for TRAIN_EPOCHS epochs of
+    TRAIN_STEPS steps (Adam with cosine decay, hybrid loss, EMA) through
+    train_with_radiation_eval, each eval counted (K3 once, K7 once); after
+    the last step K3 and K7 on the eval's own inputs against their twins,
+    K1 through rfmip_clear_sky_lw on the trained net against its twin and
+    against the same weights loaded fresh (0 W/m2: the kept first-layer
+    split and the kernel's net follow the weights the steps changed in
+    place); the best model saved and reloaded (bit-identical fluxes); five
+    steps on the card against the same five on the CPU; K3 refusing a
+    weight that requires grad. The features' scaling is numpy on the host,
+    as in the JAX script; the CPU runs only the stated references."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import compute_planck_source_nn
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.synthetic import generate_kdist_nc
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf, save_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.training import lut_recipe as R
+    from rte_rrtmgp_nn_tpu_torch.training.eval_loop import train_with_radiation_eval
+    from rte_rrtmgp_nn_tpu_torch.training.gendata import generate_lw_training_data
+    from rte_rrtmgp_nn_tpu_torch.training.train import (
+        TrainState, cosine_decay_schedule, init_model, make_train_step, scheduled)
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the training matmuls")
+    data = rfmip_data_from_arrays(testing.synthesize_rfmip_experiments(
+        TRAIN_NEXP, TRAIN_NSITES, NLAY, SEED))
+    ncol = data.ncol
+    with tempfile.TemporaryDirectory() as tmp:
+        kpath = os.path.join(tmp, "kdist-synthetic-lw-g4.nc")
+        generate_kdist_nc(kpath, kind="lw", gpts_per_band=4, nband=16)
+        kd = load_kdist(kpath, R.GASES, device=dev)
+        ngpt = kd.ngpt
+        require(ngpt == 64 and kd.kmajor.is_cuda, "the recipe's k-distribution is not 64 g-points "
+                                                  "on the card")
+
+        # -- gendata on the card, against float64 on the CPU ------------------
+        train_nc = os.path.join(tmp, "lw_train_data.nc")
+        reset_counts()
+        t0 = time.perf_counter()
+        gen = generate_lw_training_data(train_nc, kd, data, gas_order=R.GASES)
+        t_first = time.perf_counter() - t0
+        counts = read_counts()
+        require(counts == {"k7": 1, "k7_angles": 1}, f"gendata launched {counts}, not K7 once")
+        t0 = time.perf_counter()
+        generate_lw_training_data(os.path.join(tmp, "again.nc"), kd, data, gas_order=R.GASES)
+        t_gendata = time.perf_counter() - t0
+        ref = {}
+        for tag, dtype in (("f64", f64), ("f32", torch.float32)):
+            kd_cpu = load_kdist(kpath, R.GASES, dtype=dtype, device=cpu)
+            ref[tag] = generate_lw_training_data(os.path.join(tmp, f"{tag}.nc"), kd_cpu, data,
+                                                 gas_order=R.GASES)
+        for n in ("rsu", "rsd"):
+            e = float(np.abs(gen[n].astype(np.float64) - ref["f64"][n]).max())
+            e_own = float(np.abs(ref["f32"][n].astype(np.float64) - ref["f64"][n]).max())
+            print(f"training gendata {n}: card vs float64 on the CPU {e:.3e} W/m2, the CPU's "
+                  f"float32 {e_own:.3e} (tol max({LW_ATOL}, {testing.FLOAT32_SPREAD} x the "
+                  "CPU's float32))")
+            require(np.isfinite(gen[n]).all() and e <= max(LW_ATOL, testing.FLOAT32_SPREAD * e_own),
+                    f"training gendata {n} is {e:.3e} W/m2 from float64")
+        print(f"training gendata {TRAIN_NEXP}x{TRAIN_NSITES}x{NLAY}, {ngpt} g-points: "
+              f"{t_gendata * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms, launches {counts}), "
+              f"file written and read back | {card}")
+
+        # -- training through train_with_radiation_eval -------------------------
+        ts = R.lw_training_set(train_nc, ngpt)
+        fresh_net = lambda device: init_model(
+            [ts.xs.shape[-1], TRAIN_HIDDEN, TRAIN_HIDDEN, 2 * ngpt],
+            torch.Generator().manual_seed(SEED), input_names=("tlay", "play") + R.GASES,
+            input_min=ts.xmin, input_max=ts.xmax, output_mean=ts.out_mean,
+            output_std=ts.out_std, device=device)
+        model = fresh_net(dev)
+        ev = R.LWFluxEval(kd, data, ts, gen["rsu"].reshape(ncol, -1),
+                          gen["rsd"].reshape(ncol, -1), dev)
+        lw_driver = lambda m: rfmip.rfmip_clear_sky_lw(data, [m], spectral=kd.spectral,
+                                                       planck_table=kd.planck, device=dev)
+        with torch.no_grad():  # the caches the steps must not leave stale
+            lw_driver(model)
+            ev.fluxes(model)
+        total = TRAIN_EPOCHS * TRAIN_STEPS
+        schedule = cosine_decay_schedule(TRAIN_LR, total, alpha=1e-2)
+        make_state = lambda m: (lambda o: TrainState(m, o, scheduler=scheduled(o, schedule)))(
+            torch.optim.Adam(m.parameters(), lr=TRAIN_LR, eps=1e-8))
+        state = make_state(model)
+        inner = make_train_step(alpha=TRAIN_ALPHA)
+        pairs = R.pair_index(TRAIN_PAIRS, dev)
+        xs = torch.as_tensor(ts.xs, dtype=torch.float32, device=dev)
+        ys = torch.as_tensor(ts.ys, dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(SEED)
+        step_events, eval_ms, eval_counts = [], [], []
+
+        def data_iter():
+            idx = R.sample_pair_rows(rng, TRAIN_NEXP, TRAIN_NSITES, NLAY, TRAIN_PAIRS)
+            idx = torch.as_tensor(idx, device=dev)
+            return xs[idx], ys[idx]
+
+        def train_step(st, x, y):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = inner(st, x, y, pairs)
+            ev1.record()
+            step_events.append((ev0, ev1))
+            return out
+
+        def eval_fn(m):
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = ev.metrics(m)
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+            eval_counts.append(read_counts())
+            return metrics
+
+        t0 = time.perf_counter()
+        result = train_with_radiation_eval(
+            state, train_step, data_iter, eval_fn, R.REF_SCORES, n_epochs=TRAIN_EPOCHS,
+            steps_per_epoch=TRAIN_STEPS, patience=TRAIN_EPOCHS, verbose=False,
+            ema_decay=TRAIN_EMA, save_path=os.path.join(
+                tmp, f"lw-synth{ngpt}-lut_both_{TRAIN_HIDDEN}_{TRAIN_HIDDEN}_HR_{{hr}}_FRC_{{frc}}.nc"))
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in step_events]
+        med = statistics.median(step_ms)
+        hist = result.history
+        print(f"training: {len(hist)} epochs x {TRAIN_STEPS} steps of {2 * TRAIN_PAIRS} rows "
+              f"(net {model.dims}, Adam lr {TRAIN_LR} cosine, hybrid alpha {TRAIN_ALPHA}, EMA "
+              f"{TRAIN_EMA}): losses {[round(h['loss'], 5) for h in hist]}, radiation scores "
+              f"{[round(h['score'], 3) for h in hist]}, best epoch {result.best_epoch}")
+        print(f"training step: median {med:.4f} ms by CUDA events (min {min(step_ms):.4f}, max "
+              f"{max(step_ms):.4f}), {1e3 / med:.1f} steps/s, {2 * TRAIN_PAIRS * 1e3 / med:.0f} "
+              f"rows/s | {card}")
+        print(f"training eval: {statistics.median(eval_ms):.3f} ms per epoch (median of "
+              f"{len(eval_ms)}: {[round(v, 3) for v in eval_ms]}), launches per eval "
+              f"{eval_counts} | {card}")
+        print(f"training loop: {t_loop:.2f} s for {total} steps and {len(hist)} evals | {card}")
+        train_profile(lambda: inner(state, *data_iter(), pairs), lambda: ev.metrics(
+            result.best_model), card)
+        require(len(hist) == TRAIN_EPOCHS and all(np.isfinite(h["score"]) for h in hist),
+                "a training epoch gave no finite radiation score")
+        require(all(c == {"fused_predict_lw_both": 1, "k7": 1, "k7_angles": 1}
+                    for c in eval_counts), f"an eval did not launch K3 once and K7 once: "
+                                           f"{eval_counts}")
+
+        # -- save and reload: bit-identical fluxes --------------------------------
+        (saved,) = glob.glob(os.path.join(tmp, f"lw-synth{ngpt}-lut_both_*_HR_*.nc"))
+        again = load_model_netcdf(saved, device=dev)
+        with torch.no_grad():
+            same = all(torch.equal(a, b) for a, b in zip(ev.fluxes(result.best_model),
+                                                         ev.fluxes(again)))
+        print(f"training save/reload: {os.path.basename(saved)} loads back with bit-identical "
+              f"fluxes: {same}")
+        require(same, "the saved best model does not give the same fluxes back")
+
+        # -- K3 and K7 against their twins after the steps -----------------------
+        live = state.model
+        with torch.no_grad():
+            for tag, m in (("trained net", live), ("best (EMA) net", result.best_model)):
+                got = mlp.fused_predict_lw_both(m, ev.x, ev.col_dry)
+                twin = mlp.fused_predict_lw_both_plain(m, ev.x, ev.col_dry)
+                twin64 = mlp.fused_predict_lw_both_plain(
+                    testing.float64_copy(m), ev.x.double(), ev.col_dry.double())
+                for n, g, r, r64, a in zip(("tau", "pfrac"), got, twin, twin64, (1e-8, 1e-9)):
+                    hold(f"training K3 {tag} {n}", g, r, r64, MLP_RTOL, a)
+            tau, pfrac = mlp.fused_predict_lw_both(live, ev.x, ev.col_dry)
+            lay, lev, sfc, _ = compute_planck_source_nn(pfrac, ev.tlay, ev.tlev, ev.tsfc,
+                                                        kd.spectral, kd.planck)
+            emis = kd.spectral.expand(ev.emis).contiguous()
+            one = ([plw.LW_DIFFUSIVITY], [plw.LW_WEIGHT])
+            got = k7.lw_noscat_broadband_angles(tau, lay, lev, emis, sfc, *one)
+            twin = k7.lw_noscat_broadband_angles_plain(tau, lay, lev, emis, sfc, *one)
+            e7 = max(maxabs(a, b) for a, b in zip(got, twin))
+            print(f"training K7 on the trained net's eval inputs: max|kernel-twin| {e7:.3e} W/m2 "
+                  f"(tol {LW_ATOL})")
+            require(e7 <= LW_ATOL, f"training K7 differs from its twin by {e7:.3e} W/m2")
+
+            # -- K1 through the driver on the trained net: twin and a fresh load --
+            reset_counts()
+            fl = lw_driver(live)
+            counts = read_counts()
+            require(counts == {"k1": 1}, f"rfmip_clear_sky_lw on the trained net launched {counts}")
+            args = rfmip.lw_mega_args([live], kd.planck, kd.spectral,
+                                      *rfmip.lw_canonical_inputs(data, kd.spectral, dev))
+            up_p, dn_p = k1.lw_clearsky_mega4_plain(*args)
+            e1 = max(maxabs(fl.flux_up, up_p), maxabs(fl.flux_dn, dn_p))
+            adjudicate_lazy("training K1", e1, LW_ATOL, (fl.flux_up, fl.flux_dn), (up_p, dn_p),
+                            lambda: k1.lw_clearsky_mega4_plain(*in_float64(args, {})[0]))
+            save_model_netcdf(os.path.join(tmp, "trained.nc"), live)
+            fresh = load_model_netcdf(os.path.join(tmp, "trained.nc"), device=dev)
+            ff = lw_driver(fresh)
+            e_fresh = max(maxabs(fl.flux_up, ff.flux_up), maxabs(fl.flux_dn, ff.flux_dn))
+            print(f"training K1 (rfmip_clear_sky_lw, {ngpt} g-points) on the trained net: "
+                  f"launches {counts}, max|kernel-twin| {e1:.3e} W/m2 (tol {LW_ATOL}); against "
+                  f"the same weights loaded fresh {e_fresh:.3e} W/m2 (0 expected); mean dn "
+                  f"{float(fl.flux_dn.mean()):.4f}")
+            require(e_fresh == 0.0, f"K1 on the trained net is {e_fresh:.3e} W/m2 from the same "
+                                    "weights loaded fresh: a kept copy went stale")
+
+        # -- a weight that requires grad, with grad enabled: K3 refuses --------
+        n0 = mlp.LAUNCHES["fused_predict_lw_both"]
+        try:
+            with torch.enable_grad():
+                mlp.fused_predict_lw_both(live, ev.x, ev.col_dry)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        print(f"training K3 with grad enabled and trainable weights: refused: {refused!r}")
+        require(refused.startswith("fused_predict_lw_both: ")
+                and mlp.LAUNCHES["fused_predict_lw_both"] == n0,
+                "K3 ran with grad enabled on weights that require grad")
+
+    # -- five float32 steps on the card against the same five on the CPU ------
+    rng = np.random.default_rng(SEED + 1)
+    rows = [R.sample_pair_rows(rng, TRAIN_NEXP, TRAIN_NSITES, NLAY, TRAIN_PAIRS) for _ in range(5)]
+    runs = {}
+    for device in (dev, cpu):
+        st = make_state(fresh_net(device))
+        X, Y = torch.as_tensor(ts.xs, device=device), torch.as_tensor(ts.ys, device=device)
+        P = R.pair_index(TRAIN_PAIRS, device)
+        losses = []
+        for r in rows:
+            i = torch.as_tensor(r, device=device)
+            losses.append(float(inner(st, X[i], Y[i], P)[1]))
+        runs[device.type] = (np.array(losses), torch.cat([p.detach().cpu().reshape(-1)
+                                                          for p in st.model.parameters()]))
+    (lc, wc), (lp, wp) = runs["cuda"], runs["cpu"]
+    gap = (wc - wp).abs()
+    loss_rel = float(np.abs(lc / lp - 1).max())
+    share = float((gap <= TRAIN_W_ATOL).double().mean())
+    print(f"training card vs CPU, 5 float32 steps from the same init on the same rows: losses "
+          f"{lc.round(6).tolist()} vs {lp.round(6).tolist()} (max rel {loss_rel:.3e}, tol "
+          f"{TRAIN_LOSS_RTOL}); weights max |gap| {float(gap.max()):.3e}, 99.9th percentile "
+          f"{float(gap.quantile(0.999)):.3e}, share within {TRAIN_W_ATOL} {share:.6f}")
+    require(loss_rel <= TRAIN_LOSS_RTOL and share >= 0.999
+            and float(gap.max()) <= 2 * 5 * TRAIN_LR,
+            "the card's training steps part from the CPU's beyond the stated tolerance")
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def run() -> dict:
     import torch
 
@@ -2294,6 +2610,9 @@ def run() -> dict:
 
     # ---- 20. the GCM sweep at 1,036,800 columns -------------------------------------------
     gcm_phase(dev, lw_model, sw_model, card)
+
+    # ---- 21. NN training with radiation-in-the-loop evaluation --------------------------------
+    training_phase(dev, card)
 
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])

@@ -102,6 +102,40 @@ def cuda_dtype_refusal(device, dtype: torch.dtype) -> str:
     return ""
 
 
+def grad_refusal(name: str, *values) -> str:
+    """Why a call of the CUDA kernel ``name`` cannot serve autograd, or "":
+    no kernel has a backward (the JAX package has no backward kernel either),
+    so with grad enabled an input or weight that requires grad would get
+    outputs that no gradient reaches. ``values``: tensors, modules (their
+    parameters), lists or tuples of these; anything else is ignored. Run
+    the call under ``torch.no_grad()``, or on the CPU, whose plain twins
+    differentiate."""
+    if not torch.is_grad_enabled():
+        return ""
+
+    def wants(v) -> bool:
+        if torch.is_tensor(v):
+            return v.requires_grad
+        if isinstance(v, torch.nn.Module):
+            return any(p.requires_grad for p in v.parameters())
+        if isinstance(v, (list, tuple)):
+            return any(wants(u) for u in v)
+        return False
+
+    if any(wants(v) for v in values):
+        return (f"{name}: an input or weight requires grad and grad is enabled, but the "
+                "kernel has no backward; call it under torch.no_grad(), or on the CPU, "
+                "whose plain twin differentiates")
+    return ""
+
+
+def refuse_grad(name: str, *values) -> None:
+    """ValueError with grad_refusal's words, if it has any."""
+    why = grad_refusal(name, *values)
+    if why:
+        raise ValueError(why)
+
+
 class Route(NamedTuple):
     """How a driver serves a request: ``kind`` is "megakernel" (the fused
     clear-sky kernels), "staged" (NN gas optics then the RTE solvers; on

@@ -74,15 +74,18 @@ class RFMIPData:
 
 
 def rfmip_data_from_arrays(arrays: dict) -> RFMIPData:
-    """RFMIPData of one experiment from a dict of (ncol, nlay[+1]) arrays:
-    play, plev, tlay, tlev, tsfc, sfc_emis, sfc_alb, sza, tsi, ``gases``
-    (name -> VMR) and ``top_at_1`` (the layout of testing.synthesize_rfmip)."""
+    """RFMIPData from a dict of (ncol, nlay[+1]) arrays: play, plev, tlay,
+    tlev, tsfc, sfc_emis, sfc_alb, sza, tsi, ``gases`` (name -> VMR),
+    ``top_at_1`` and optionally ``nexp`` (default 1; the columns are then
+    experiment-major) -- the layout of testing.synthesize_rfmip and
+    synthesize_rfmip_experiments."""
     ncol, nlay = np.shape(arrays["play"])
+    nexp = int(arrays.get("nexp", 1))
     return RFMIPData(
         play=arrays["play"], plev=arrays["plev"], tlay=arrays["tlay"],
         tlev=arrays["tlev"], tsfc=arrays["tsfc"], sfc_emis=arrays["sfc_emis"],
         sfc_alb=arrays["sfc_alb"], sza=arrays["sza"], tsi=arrays["tsi"],
-        gas_concs=GasConcs.create(arrays["gases"]), nexp=1, nsites=ncol,
+        gas_concs=GasConcs.create(arrays["gases"]), nexp=nexp, nsites=ncol // nexp,
         nlay=nlay, top_at_1=bool(arrays["top_at_1"]))
 
 

@@ -185,22 +185,44 @@ def compute_nn_inputs_split(
 def split_first_layer(model: NNModel, perm: Sequence[int], n2d: int):
     """First-layer weight rows for the lanes (w1a) and for the const block
     (w1c, one zero row when there is no const feature), made at the first
-    call for a (perm, n2d) and kept with the model (NNModel drops them when
-    its tensors move): a fused-kernel call then copies no index from the
-    host, which would make it wait for the card to drain, and gathers
-    nothing."""
+    call for a (perm, n2d) and kept with the model: a fused-kernel call then
+    copies no index from the host, which would make it wait for the card to
+    drain, and gathers nothing.
+
+    The kept splits are copies, so they follow the weight they were cut
+    from: when ``model.weights[0]`` is another tensor (its data pointer) or
+    was changed in place (its version counter: an optimizer step,
+    ``load_state_dict``, an EMA update, any in-place op) every kept split is
+    dropped and cut again. The alias kept in ``first_layer_source`` holds the
+    old tensor's memory, so a new tensor cannot take its address. A change
+    through ``weights[0].data``, which bypasses the version counter, is not
+    seen: change the parameter itself. NNModel drops the splits when its
+    tensors move (to(), double(), copies). With grad enabled and a weight
+    that requires grad the split is cut anew and not kept."""
+    w1 = model.weights[0]
+    if torch.is_grad_enabled() and w1.requires_grad:
+        # a split for autograd (the plain twins on the CPU): cut at every
+        # call, so that each backward reaches the weight; never kept
+        return _cut_first_layer(w1, perm, n2d)
+    src = model.first_layer_source
+    if src is None or src[0].data_ptr() != w1.data_ptr() or src[1] != w1._version:
+        model.first_layer_splits.clear()
+        model.first_layer_source = (w1.detach(), w1._version)
     key = (tuple(perm), n2d)
     split = model.first_layer_splits.get(key)
     if split is None:
-        w1 = model.weights[0]
-        idx = torch.as_tensor(key[0], dtype=torch.long, device=w1.device)
-        w1a = w1[idx[:n2d]]
-        if len(perm) > n2d:
-            w1c = w1[idx[n2d:]]
-        else:
-            w1c = torch.zeros((1, w1.shape[1]), dtype=w1.dtype, device=w1.device)
-        split = model.first_layer_splits[key] = (w1a.contiguous(), w1c.contiguous())
+        split = model.first_layer_splits[key] = _cut_first_layer(w1, key[0], n2d)
     return split
+
+
+def _cut_first_layer(w1: torch.Tensor, perm: Sequence[int], n2d: int):
+    idx = torch.as_tensor(tuple(perm), dtype=torch.long, device=w1.device)
+    w1a = w1[idx[:n2d]]
+    if len(perm) > n2d:
+        w1c = w1[idx[n2d:]]
+    else:
+        w1c = torch.zeros((1, w1.shape[1]), dtype=w1.dtype, device=w1.device)
+    return w1a.contiguous(), w1c.contiguous()
 
 
 def predict_tau(model: NNModel, nn_inputs: torch.Tensor, col_dry: torch.Tensor) -> torch.Tensor:

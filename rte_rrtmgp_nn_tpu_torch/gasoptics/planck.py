@@ -171,6 +171,9 @@ class PlanckTable:
     @staticmethod
     def from_table(totplnk: torch.Tensor, temp_ref_min: float,
                    totplnk_delta: float) -> "PlanckTable":
+        # contiguous, as the kernels read it (a k-distribution file's table
+        # arrives transposed)
+        totplnk = totplnk.contiguous()
         return PlanckTable(totplnk, totplnk[1:] - totplnk[:-1],
                            float(temp_ref_min), float(totplnk_delta))
 

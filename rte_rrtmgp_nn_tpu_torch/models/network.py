@@ -58,8 +58,11 @@ class NNModel(nn.Module):
         self.register_buffer("output_mean", output_mean)
         self.register_buffer("output_std", output_std)
         # {(perm, n2d): (w1a, w1c)}: the first layer's rows as the fused
-        # kernels take them (gasoptics.nn_gas_optics.split_first_layer)
+        # kernels take them (gasoptics.nn_gas_optics.split_first_layer), cut
+        # from the weight that first_layer_source names: (an alias of it,
+        # its version counter then)
         self.first_layer_splits: dict = {}
+        self.first_layer_source = None
         # the net as the generic MLP kernel reads it (ops/cuda/mlp.kernel_net)
         self.kernel_net = None
 
@@ -67,13 +70,24 @@ class NNModel(nn.Module):
         # to(), float(), double(), cuda(): the kept splits and the kernel's
         # view are of the old tensors
         self.first_layer_splits.clear()
+        self.first_layer_source = None
         self.kernel_net = None
         return super()._apply(fn, *args, **kwargs)
 
     def __getstate__(self):
         # a copy (deepcopy, pickle) has tensors of its own: the kernel's view
-        # is of this model's
-        return {**super().__getstate__(), "kernel_net": None}
+        # and the splits are of this model's
+        return {**super().__getstate__(), "kernel_net": None, "first_layer_splits": {},
+                "first_layer_source": None}
+
+    def tensor_key(self) -> tuple:
+        """(data pointer, dtype, shape) of each weight, bias, output mean and
+        std (None where absent): what a view of the model's tensors by
+        address must still match (ops/cuda/mlp.kernel_net). Read from the
+        module's dicts, as it is taken at every kernel call."""
+        ts = (*self.weights._parameters.values(), *self.biases._parameters.values(),
+              self._buffers["output_mean"], self._buffers["output_std"])
+        return tuple(None if t is None else (t.data_ptr(), t.dtype, t.shape) for t in ts)
 
     @property
     def n_inputs(self) -> int:

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from ...config import megakernel_model_ok, tau_thresh_for
+from ...config import megakernel_model_ok, refuse_grad, tau_thresh_for
 from ...extensions.cloud_optics import lut_lerp
 from ...gasoptics.planck import PlanckTable
 from ...models.network import NNModel
@@ -287,6 +287,8 @@ def _launch(mode, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc,
     mode (the kernel reads the lanes)."""
     global LAUNCHES
     what = f"lw_clearsky_mega4[{mode}]"
+    refuse_grad(what, model, x2d, const_feats, w1a, w1c, col_dry, tlay, tlev, tsfc, sfc_emis,
+                d_secant, cld_fields, cld_tau_band, lanes, scale_rows)
     dev = (lanes[0] if mode == "lanes" else x2d).device
     index, stream = build.launch_target(what, dev)
     if not megakernel_model_ok([model]):

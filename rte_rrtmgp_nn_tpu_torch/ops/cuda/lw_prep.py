@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ...config import megakernel_model_ok, tau_thresh_for
+from ...config import megakernel_model_ok, refuse_grad, tau_thresh_for
 from ...models.network import NNModel
 from ..lw_solver import LW_DIFFUSIVITY, pfrac_sources, transmittance
 from . import build
@@ -77,6 +77,8 @@ def _launch(model, x, col_dry, planck_lay_band, planck_lev_band, planck_sfc_band
     """Check every tensor, launch the kernel on the current stream and count
     the launch."""
     global LAUNCHES
+    refuse_grad("lw_prep", model, x, col_dry, planck_lay_band, planck_lev_band,
+                planck_sfc_band, d_secant)
     dev = x.device
     if not megakernel_model_ok([model]) or model.n_outputs % 2:
         raise NotImplementedError(

@@ -31,7 +31,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ...config import tau_thresh_for
+from ...config import refuse_grad, tau_thresh_for
 from ..lw_solver import (LW_DIFFUSIVITY, LW_WEIGHT, LWSolution, lw_broadband_sweeps,
                          noscat_broadband_1angle)
 from . import build
@@ -244,10 +244,13 @@ def _strided(name, t, shape, lay_dim, dev) -> tuple[int, int]:
     return t.stride(1 - lay_dim), t.stride(lay_dim)
 
 
-def _run(mode, dev, fields, lay_dim, sfc_emis, sfc_source, nang, fill):
+def _run(mode, dev, fields, lay_dim, sfc_emis, sfc_source, nang, fill, extra=()):
     """Check the arguments common to both modes, launch and count; ``fill``
-    sets the mode's fields of the NoscatArgs. Returns (flux_up, flux_dn)."""
+    sets the mode's fields of the NoscatArgs; ``extra``: the mode's other
+    tensors, for the gradient refusal. Returns (flux_up, flux_dn)."""
     global LAUNCHES
+    refuse_grad(f"lw_noscat_broadband[{mode}]", [t for _, t in fields], sfc_emis, sfc_source,
+                extra)
     index, stream = build.launch_target("lw_noscat_broadband", dev)
     f32 = torch.float32
     f0 = fields[0][1]
@@ -305,7 +308,8 @@ def _launch(tau, lay_source, lev_source, sfc_emis, sfc_source, secants, weights,
             args.inc = inc.data_ptr()
 
     fields = (("tau", tau), ("lay_source", lay_source), ("lev_source", lev_source))
-    return _run("angles", dev, fields, 1, sfc_emis, sfc_source, nang, fill)
+    return _run("angles", dev, fields, 1, sfc_emis, sfc_source, nang, fill,
+                (secants if per_g else None, inc))
 
 
 def _launch_fields(trans, src_dn, src_up, sfc_emis, sfc_source):

@@ -32,7 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from ...config import MLP_KERNEL_MAX_LAYERS, MLP_KERNEL_MAX_WIDTH, mlp_kernel_refusal
+from ...config import (MLP_KERNEL_MAX_LAYERS, MLP_KERNEL_MAX_WIDTH, mlp_kernel_refusal,
+                       refuse_grad)
 from ...models.network import ACTIVATIONS, NNModel
 from . import build
 from .lw_megakernel import MAX_SLAB_FLOATS, MAX_SMEM, MIN_SLAB_ROWS, ROW_PAD, _check, _smem_limit
@@ -172,10 +173,14 @@ def kernel_net(name: str, m: NNModel, dev) -> build.MlpNet:
     layer's weight and bias, the output mean and std, the widths and the
     activation codes), after checking each tensor. Made once and kept with
     the model (``NNModel.kernel_net``, dropped when to() / double() replace
-    its tensors), so a call packs nothing."""
+    its tensors), so a call packs nothing. The kept net holds the tensors'
+    data pointers, so an in-place change (an optimizer step) is read by the
+    next launch; it is made again when a tensor was swapped for another
+    (``p.data = t``, a new Parameter): ``NNModel.tensor_key`` differs."""
+    key = m.tensor_key()
     kept = m.kernel_net
-    if kept is not None and kept[0] == dev:
-        return kept[1]
+    if kept is not None and kept[0] == dev and kept[1] == key:
+        return kept[2]
     why = mlp_kernel_refusal([m])
     if why:
         raise ValueError(f"{name}: {why}")
@@ -194,13 +199,14 @@ def kernel_net(name: str, m: NNModel, dev) -> build.MlpNet:
         net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
     net.dims[:m.n_layers + 1] = m.dims
     net.act[:m.n_layers] = [ACT_CODES[a] for a in m.activations]
-    m.kernel_net = (dev, net)
+    m.kernel_net = (dev, key, net)
     return net
 
 
 def _launch(name: str, nets, x, col_dry, ngpt: int, n_out: int):
     """Check the inputs, launch the kernel with ``name``'s epilogue, and
     return its n_out (rows, ngpt) outputs reshaped to x's leading shape."""
+    refuse_grad(name, *nets, x, col_dry)
     dev = x.device
     index, stream = build.launch_target(name, dev)
     lead = tuple(x.shape[:-1])

@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ...config import config, megakernel_model_ok
+from ...config import config, megakernel_model_ok, refuse_grad
 from ...gasoptics.nn_gas_optics import split_first_layer
 from ...models.network import NNModel
 from ..sw_solver import sw_adding_broadband, sw_two_stream_coeffs
@@ -157,6 +157,8 @@ def _launch(mode, abs_model, ray_model, x2d, const_feats, perm, col_dry, mu0,
     feature lanes."""
     global LAUNCHES
     what = f"sw_clearsky_megakernel[{mode}]"
+    refuse_grad(what, abs_model, ray_model, x2d, const_feats, col_dry, mu0, inc_flux_dir,
+                sfc_alb_dir, sfc_alb_dif, inc_flux_dif, cld_bands, cld_fields)
     lanes = list(x2d) if mode == "lanes" else None
     dev = (lanes[0] if lanes else x2d).device
     index, stream = build.launch_target(what, dev)

@@ -72,6 +72,56 @@ def synthesize_rfmip(ncol: int, nlay: int, seed: int, top_at_1: bool = True) -> 
     return out
 
 
+# RFMIP's 18 experiments (0-based), by the (co2, ch4, n2o) they take here:
+# "pd" present-day, "pi" pre-industrial, "fut" future (the reference global
+# means of gas_concs.get_ref_vmr, scenarios 1, 2, 3), a number a multiple of
+# the pre-industrial CO2 with present-day CH4 and N2O, and "lgm" the Last
+# Glacial Maximum (180 ppm, 350 ppb, 200 ppb).
+RFMIP_EXPERIMENTS = (
+    "pd", "pi", 4.0, "fut", 0.5, 2.0, 3.0, 8.0, "pi_co2", "pi_ch4", "pi_n2o",
+    "pd", "pd", "pd", "pd", "pi", "fut", "lgm")
+
+
+def rfmip_experiment_gases(scenario) -> tuple[float, float, float]:
+    """(co2, ch4, n2o) VMRs of one RFMIP_EXPERIMENTS entry."""
+    from .gas_concs import get_ref_vmr
+
+    ref = lambda i: tuple(get_ref_vmr(i, g) for g in ("co2", "ch4", "n2o"))
+    pd, pi = ref(1), ref(2)
+    if isinstance(scenario, float):
+        return (scenario * pi[0], pd[1], pd[2])
+    return {"pd": pd, "pi": pi, "fut": ref(3), "pi_co2": (pi[0], pd[1], pd[2]),
+            "pi_ch4": (pd[0], pi[1], pd[2]), "pi_n2o": (pd[0], pd[1], pi[2]),
+            "lgm": (180e-6, 350e-9, 200e-9)}[scenario]
+
+
+def synthesize_rfmip_experiments(nexp: int, nsites: int, nlay: int, seed: int,
+                                 top_at_1: bool = True) -> dict:
+    """An RFMIP-like problem of ``nexp`` experiments over the same
+    ``nsites`` sites: synthesize_rfmip(nsites, nlay, seed), repeated for
+    each experiment (columns experiment-major, as RFMIPData has them), with
+    CO2, CH4 and N2O set per experiment by RFMIP_EXPERIMENTS (2-D, constant
+    in height and over the sites). So the forcing pairs of the eval metrics
+    (parallel/shard_ops RF_PAIRS_*) measure real forcings on the same
+    atmospheres, each the scenario training/eval_loop.METRIC_NAMES names:
+    experiment 0 present-day, 1 pre-industrial, 3 future, 9 present-day
+    with pre-industrial CH4, 10 with pre-industrial N2O. Returns the
+    synthesize_rfmip dict (ncol = nexp * nsites) with ``nexp``."""
+    if not 1 <= nexp <= len(RFMIP_EXPERIMENTS):
+        raise ValueError(f"nexp {nexp}: 1 to {len(RFMIP_EXPERIMENTS)} experiments")
+    site = synthesize_rfmip(nsites, nlay, seed, top_at_1=top_at_1)
+    out = {k: np.ascontiguousarray(np.concatenate([v] * nexp, axis=0))
+           for k, v in site.items() if isinstance(v, np.ndarray)}
+    gases = {k: (np.concatenate([v] * nexp, axis=0) if v.ndim == 2 else v)
+             for k, v in site["gases"].items()}
+    for name, k in (("co2", 0), ("ch4", 1), ("n2o", 2)):
+        vmr = np.repeat([rfmip_experiment_gases(s)[k] for s in RFMIP_EXPERIMENTS[:nexp]], nsites)
+        gases[name] = np.ascontiguousarray(
+            np.broadcast_to(vmr[:, None], (nexp * nsites, nlay)), dtype=np.float32)
+    out.update(gases=gases, top_at_1=site["top_at_1"], nexp=nexp)
+    return out
+
+
 def synthesize_garand(nlay: int, seed: int, top_at_1: bool = True) -> dict:
     """Two atmospheric profiles in the layout of the all-sky example's
     Garand file, from ``seed``: float64 numpy arrays ``p_lay``/``t_lay``

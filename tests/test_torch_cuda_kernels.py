@@ -891,3 +891,63 @@ def test_cuda_mesh_streams_as_no_mesh(dev, devices):
     one = gcm.gcm_sweep_lw(host, models, block_size=1024, device=dev)["diagnostics"]
     split = gcm.gcm_sweep_lw(host, models, block_size=1024, mesh=mesh, device=dev)["diagnostics"]
     np.testing.assert_allclose(split, one, rtol=0, atol=1e-4)
+
+
+def _routes(dev):
+    """The card's routes that keep a copy or a pointer of the weights:
+    K1 (split), K2 (split), K3 (kernel net), as callables of the nets."""
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+
+    data = rfmip_data_from_arrays(synthesize_rfmip(37, 13, 4))
+
+    def general(m):
+        with config_override(use_megakernel=False):
+            return rfmip.rfmip_clear_sky_lw(data, [m], device=dev)
+
+    return {
+        "k1": (LW_MODEL, lambda m: rfmip.rfmip_clear_sky_lw(data, [m], device=dev)),
+        "k2": (SW_MODEL, lambda m: rfmip.rfmip_clear_sky_sw(data, [m, m], device=dev)),
+        "k3": (LW_MODEL, general),
+    }
+
+
+@pytest.mark.parametrize("route", ["k1", "k2", "k3"])
+@pytest.mark.parametrize("change", ["in_place", "load_state_dict", "swap"])
+def test_kernel_routes_follow_changed_weights(dev, route, change):
+    """ROADMAP Queue 3 F8 on the card: after the weights change in place,
+    by load_state_dict or by a swapped tensor, a route's fluxes equal those
+    of the same weights loaded fresh, bit for bit, and differ from the first
+    call's."""
+    path, run = _routes(dev)[route]
+    m = load_model_netcdf(path, device=dev)
+    first = run(m)
+    other = load_model_netcdf(path, device=dev)
+    with torch.no_grad():
+        other.weights[0].mul_(1.05)
+        other.biases[1].add_(0.01)
+    if change == "in_place":
+        with torch.no_grad():
+            m.weights[0].mul_(1.05)
+            m.biases[1].add_(0.01)
+    elif change == "load_state_dict":
+        m.load_state_dict(other.state_dict())
+    else:
+        m.weights[0].data = other.weights[0].detach().clone()
+        m.biases[1].data = other.biases[1].detach().clone()
+    got, fresh = run(m), run(other)
+    for name in ("flux_up", "flux_dn"):
+        assert torch.equal(getattr(got, name), getattr(fresh, name)), name
+    assert _maxabs(got.flux_dn, first.flux_dn) > 1e-3
+
+
+def test_kernels_refuse_weights_that_require_grad(dev):
+    """No kernel has a backward: with grad enabled and trainable weights the
+    card's routes refuse in words; under torch.no_grad() they run."""
+    for route, (path, run) in _routes(dev).items():
+        m = load_model_netcdf(path, device=dev)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        with pytest.raises(ValueError, match="has no backward"):
+            run(m)
+        with torch.no_grad():
+            assert torch.isfinite(run(m).flux_dn).all(), route

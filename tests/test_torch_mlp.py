@@ -361,7 +361,7 @@ def test_kernel_net_is_made_once_kept_with_the_model_and_dropped_when_it_moves()
 
     _, m = model_pair(LW_MODEL)
     net = mlp.kernel_net("test", m, CPU)
-    assert mlp.kernel_net("test", m, CPU) is net and m.kernel_net == (CPU, net)
+    assert mlp.kernel_net("test", m, CPU) is net and m.kernel_net == (CPU, m.tensor_key(), net)
     assert net.nlayers == 3 and list(net.dims[:4]) == [18, 128, 128, 256]
     assert list(net.act[:3]) == [mlp.ACT_CODES["softsign"]] * 2 + [mlp.ACT_CODES["linear"]]
     assert [net.w[i] for i in range(3)] == [w.data_ptr() for w in m.weights]

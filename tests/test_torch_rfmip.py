@@ -161,14 +161,14 @@ def test_read_rfmip_classic_netcdf(tmp_path):
 
 def test_port_imports_neither_jax_nor_triton():
     """Every module of the port imports in a fresh interpreter without
-    pulling in jax, triton or the JAX package."""
+    pulling in jax, optax, triton or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rte_rrtmgp_nn_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'triton', 'rte_rrtmgp_nn_tpu'))\n"
+        "             ('jax', 'jaxlib', 'optax', 'triton', 'rte_rrtmgp_nn_tpu'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad or len(names) < 15 else 0)\n"
     )
