@@ -136,7 +136,29 @@ non-zero and prints no result line):
      its twin and against the same weights loaded fresh (0 W/m2), the best
      model saved and reloaded (bit-identical fluxes), five float32 steps
      on the card against the CPU's, and K3 refusing trainable weights with
-     grad enabled. "training ..." lines.
+     grad enabled. "training ..." lines;
+ 22. the column split over ranks (parallel/distributed.py): (a) a process
+     group of one on NCCL in this process, lw_mega_core_sharded and
+     sw_mega_core_sharded on the main path's inputs against the unsharded
+     fused cores (0 W/m2: the launch plans do not depend on the columns),
+     K1 and K2 counted once a call, both timed; (b) two ranks spawned on
+     the one card (gloo: NCCL takes one rank a card), each rank's block and
+     the gathered fluxes against (a), K1 and K2 once a rank a call; (c) the
+     dry run's three stages on the same two ranks
+     (scripts/torch_dryrun_multichip.py: the training step with the
+     gradients averaged by all_reduce, the g-point-split staged forward,
+     K3 + K7 a rank, held against the fused core over 'col', K1);
+     (d) scripts/torch_bench_multichip.py at one card, --core mega (with
+     --profile: device busy and idle share) and --core staged, 1824
+     columns a card (its JSON lines). "sharded ...",
+     "dryrun ..." lines;
+ 23. SW training from the lookup table (scripts/torch_train_from_lut_sw.py
+     on training/lut_recipe, cut as phase 21): the LUT SW gendata on a
+     synthetic 56-g-point k-distribution on the card, fresh absorption and
+     Rayleigh nets 7 -> 128 -> 128 -> 56 trained jointly for 3 epochs of 50
+     steps, each day-masked eval counted (K5 once), the step, eval and
+     gendata times, K5 against its twin after the steps, both best nets
+     saved and loaded back (bit-identical fluxes). "training-sw ..." lines.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -170,6 +192,8 @@ import time
 import traceback
 
 import numpy as np
+
+T_IMPORT = time.perf_counter()
 
 NCOL, NLAY, SEED = 1800, 60, 0
 LW_ATOL, SW_ATOL = 2e-3, 2e-2  # W/m2: the JAX package's kernel-vs-staged bounds
@@ -2336,6 +2360,321 @@ def training_phase(dev, card) -> None:
     print(f"training phase: {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+# phase 22: the column split over ranks (parallel/distributed.py, the sharded
+# fused cores, the dry run and the multichip bench), at the main path's size
+SCRIPTS = os.path.join(HERE, "scripts")
+BENCH_COLS = 1824  # columns a card, bench_multichip.py's default
+
+
+def sharded_rank(arrays):
+    """What each of phase 22's two ranks sharing the card runs (gloo): the
+    sharded fused cores on the main path's inputs, this rank's block and
+    the gathered whole, with K1 and K2 counted; then the dry run's three
+    stages (scripts/torch_dryrun_multichip.py), with every kernel counted."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SCRIPTS)
+    import torch_dryrun_multichip as D
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        PlanckTable, lw_spectral_g128, sw_spectral_g112)
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.parallel.distributed import global_mesh
+    from rte_rrtmgp_nn_tpu_torch.parallel.sharding import column_sharding
+
+    mesh = global_mesh()
+    dev = mesh.devices[0]
+    data = rfmip_data_from_arrays(arrays)
+    ((_, c0, nc),) = column_sharding(mesh, 2).split(data.ncol)
+    block = data.block(c0, nc)
+    lw = load_model_netcdf(LW_MODEL, device=dev)
+    sw = load_model_netcdf(SW_MODEL, device=dev)
+    spec, sspec = lw_spectral_g128(), sw_spectral_g112()
+    table = PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
+    lw_fn = rfmip.lw_mega_core_sharded(mesh, [lw], table, spec, data.top_at_1)
+    sw_fn = rfmip.sw_mega_core_sharded(mesh, [sw, sw], sspec, solar, data.top_at_1)
+    li, si = rfmip.lw_canonical_inputs(block, spec, dev), rfmip.sw_canonical_inputs(block, dev)
+    out = {"rank": dist.get_rank(), "device": str(dev), "mesh": mesh.shape,
+           "ready_s": time.perf_counter() - T_IMPORT}
+    with torch.no_grad():
+        lw_fn(*li), sw_fn(*si)  # the first calls load the kernels
+        reset_counts()
+        out["lw"] = [t.cpu().numpy() for t in lw_fn(*li)]
+        out["sw"] = [t.cpu().numpy() for t in sw_fn(*si)]
+        out["counts"] = read_counts()
+        out["lw_all"] = [t.cpu().numpy() for t in lw_fn(*li, gather=True)]
+        out["sw_all"] = [t.cpu().numpy() for t in sw_fn(*si, gather=True)]
+    out["sharded_s"] = time.perf_counter() - T_IMPORT - out["ready_s"]
+    dist.barrier()
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401  (the first optimizer step of a process imports it)
+    out["dynamo_import_s"] = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    out["dryrun"] = D.rank_main(NCOL, NLAY)
+    out["dryrun_counts"] = read_counts()
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar, lw_in,
+                  sw_in) -> dict:
+    """Phase 22: (a) a process group of one (NCCL, this process):
+    lw_mega_core_sharded / sw_mega_core_sharded on the main path's inputs
+    against the unsharded fused cores (0 W/m2 expected: K1's and K2's
+    launch plans do not depend on the columns), one K1 and one K2 launch a
+    call, both timed; (b) two ranks spawned on the one card (gloo, which
+    stages its CUDA collectives through the host): each rank's block and the
+    gathered fluxes against (a), K1 and K2 once a rank a call; (c) the dry
+    run's three stages on the same two ranks (the training step, the
+    g-point-split staged forward: K3 + K7 a rank, the fused core: K1);
+    (d) scripts/torch_bench_multichip.py at one card, --core mega (with
+    its profiler window) and --core staged, BENCH_COLS columns a card."""
+    import torch
+    import torch.distributed as dist
+
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
+    from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
+
+    sys.path.insert(0, SCRIPTS)
+    import torch_bench_multichip as B
+    import torch_dryrun_multichip as D
+
+    t_phase = time.perf_counter()
+    times = {}
+    # ---- (a) world size 1 ----
+    fl = rfmip._lw_core_mega4_canon([lw_model], table, lw_spec, *lw_in, top_at_1=True)
+    fs = rfmip._sw_core_mega_canon([sw_model, sw_model], solar, *sw_in, top_at_1=True)
+    want = {"lw": (fl.flux_up, fl.flux_dn), "sw": (fs.flux_up, fs.flux_dn, fs.flux_dn_dir)}
+    pdist.initialize(f"127.0.0.1:{pdist.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = pdist.global_mesh()
+        require(mesh.ranks is not None and dist.get_backend() == "nccl",
+                "phase 22 (a): not a process-group mesh on NCCL")
+        lw_fn = rfmip.lw_mega_core_sharded(mesh, [lw_model], table, lw_spec, True)
+        sw_fn = rfmip.sw_mega_core_sharded(mesh, [sw_model, sw_model], sw_spec, solar, True)
+        reset_counts()
+        got = {"lw": lw_fn(*lw_in), "sw": sw_fn(*sw_in)}
+        counts = read_counts()
+        err = {k: max(maxabs(a, b) for a, b in zip(got[k], want[k])) for k in got}
+        print(f"sharded world size 1 (NCCL, {mesh.shape}): lw_mega_core_sharded, "
+              f"sw_mega_core_sharded at {NCOL}x{NLAY}: launches {counts}; max|sharded - "
+              f"unsharded| LW {err['lw']:.3e}, SW {err['sw']:.3e} W/m2 (0 expected)")
+        require(counts == {"k1": 1, "k2": 1}, f"the sharded cores launched {counts}, not K1 and "
+                                              "K2 once")
+        require(err["lw"] == 0.0 and err["sw"] == 0.0,
+                "the sharded cores differ from the unsharded ones at world size 1")
+        with torch.no_grad():
+            times = {"lw_sharded": cuda_ms(lambda: lw_fn(*lw_in)),
+                     "sw_sharded": cuda_ms(lambda: sw_fn(*sw_in)),
+                     "lw_unsharded": cuda_ms(lambda: rfmip._lw_core_mega4_canon(
+                         [lw_model], table, lw_spec, *lw_in, top_at_1=True)),
+                     "sw_unsharded": cuda_ms(lambda: rfmip._sw_core_mega_canon(
+                         [sw_model, sw_model], solar, *sw_in, top_at_1=True))}
+        print("sharded timing at world size 1: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items()) + f" | {card}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) + (c): two ranks sharing the card ----
+    t0 = time.perf_counter()
+    ranks = pdist.launch(sharded_rank, 2, synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=True),
+                         timeout_s=600)
+    t_ranks = time.perf_counter() - t0
+    half = NCOL // 2
+    for r, out in enumerate(ranks):
+        errs = {}
+        for k in ("lw", "sw"):
+            w = [t.cpu().numpy() for t in want[k]]
+            errs[k] = max(max(float(np.abs(a - b[half * r:half * (r + 1)]).max())
+                              for a, b in zip(out[k], w)),
+                          max(float(np.abs(a - b).max()) for a, b in zip(out[k + "_all"], w)))
+        print(f"sharded rank {r} of 2 ({out['device']}, gloo, {out['mesh']}): launches a call "
+              f"{out['counts']}; block and gathered against (a): LW {errs['lw']:.3e}, SW "
+              f"{errs['sw']:.3e} W/m2")
+        require(out["device"] == "cuda:0" and out["counts"] == {"k1": 1, "k2": 1},
+                f"rank {r} launched {out['counts']} on {out['device']}, not K1 and K2 once")
+        require(errs["lw"] == 0.0 and errs["sw"] == 0.0,
+                f"rank {r}'s sharded fluxes differ from the unsharded cores'")
+        dr = out["dryrun"]
+        print(f"dryrun rank {r}: mesh {dr['mesh']}, columns {dr['cols']}, g-points {dr['gpts']}, "
+              f"train loss {dr['loss']:.6f} (every rank {dr['losses']}), launches "
+              f"{out['dryrun_counts']}, max|fused over 'col' - g-point-split staged| "
+              f"{dr['mega_err']:.3e} W/m2 (tol {LW_ATOL}); the rank ready {out['ready_s']:.2f} s "
+              f"after its start, the sharded cores {out['sharded_s']:.2f} s, torch._dynamo's "
+              f"import {out['dynamo_import_s']:.2f} s, the dry run {out['dryrun_s']:.2f} s "
+              f"(stage 1 {dr['stage_s'][0]:.2f}, stages 2 and 3 {dr['stage_s'][1]:.2f})")
+        require(out["dryrun_counts"] == {"fused_predict_lw_both": 1, "k7": 1, "k7_angles": 1,
+                                         "k1": 1},
+                f"rank {r}'s dry run launched {out['dryrun_counts']}")
+    print(D.report([o["dryrun"] for o in ranks]) + f" | {card}")
+    print(f"sharded two ranks: {t_ranks:.1f} s (their start, both parts) | {card}")
+
+    # ---- (d) the multichip bench at one card ----
+    rows = {}
+    for core in ("mega", "staged"):
+        rows[core] = B.main(["--device-counts", "1", "--core", core,
+                             "--cols-per-device", str(BENCH_COLS)]
+                            + (["--profile"] if core == "mega" else []))
+        require(rows[core][-1]["value"] > 0, f"the {core} bench gave no throughput")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+    return times
+
+
+# phase 23: the SW training recipe of artifacts/sw-synth56-lut_*
+# (scripts/train_from_lut_sw.py), cut as phase 21 cuts the LW one
+TRAIN_SW_ALPHA = 0.6
+
+
+def training_sw_phase(dev, card) -> None:
+    """Phase 23: the SW training recipe on the card
+    (scripts/torch_train_from_lut_sw.py on training/lut_recipe): the LUT SW
+    gendata at 18 experiments x 100 sites x 60 layers on a synthetic
+    56-g-point k-distribution (no kernel: LUT gas optics and rte_sw); fresh
+    absorption and Rayleigh nets 7 -> 128 -> 128 -> 56 trained jointly for
+    TRAIN_EPOCHS epochs of TRAIN_STEPS steps (an Adam with cosine decay
+    each, hybrid loss, EMA) through train_with_radiation_eval, each
+    day-masked eval counted (K5 once); after the last step K5 on the eval's
+    inputs against its twin; both best nets saved with the score in their
+    names and loaded back (bit-identical fluxes)."""
+    import glob
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, SCRIPTS)
+    import torch_train_from_lut_sw as S
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.synthetic import generate_kdist_nc
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf, save_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.training import lut_recipe as R
+    from rte_rrtmgp_nn_tpu_torch.training.eval_loop import (
+        provenance_attrs, train_with_radiation_eval)
+    from rte_rrtmgp_nn_tpu_torch.training.gendata import generate_sw_training_data
+    from rte_rrtmgp_nn_tpu_torch.training.train import make_train_step
+
+    t_phase = time.perf_counter()
+    data = rfmip_data_from_arrays(testing.synthesize_rfmip_experiments(
+        TRAIN_NEXP, TRAIN_NSITES, NLAY, SEED))
+    ncol = data.ncol
+    with tempfile.TemporaryDirectory() as tmp:
+        kpath = os.path.join(tmp, "kdist-synthetic-sw-g4.nc")
+        generate_kdist_nc(kpath, kind="sw", gpts_per_band=4, nband=14)
+        kd = load_kdist(kpath, R.GASES, device=dev)
+        ngpt = kd.ngpt
+        require(ngpt == 56 and kd.kmajor.is_cuda, "the SW recipe's k-distribution is not 56 "
+                                                  "g-points on the card")
+        train_nc = os.path.join(tmp, "sw_train_data.nc")
+        reset_counts()
+        t0 = time.perf_counter()
+        gen = generate_sw_training_data(train_nc, kd, data, gas_order=R.GASES)
+        t_first = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        generate_sw_training_data(os.path.join(tmp, "again.nc"), kd, data, gas_order=R.GASES)
+        t_gendata = time.perf_counter() - t0
+        require(all(np.isfinite(gen[n]).all() for n in ("rsu", "rsd", "rsd_dir")),
+                "the SW gendata fluxes are not finite")
+        print(f"training-sw gendata {TRAIN_NEXP}x{TRAIN_NSITES}x{NLAY}, {ngpt} g-points: "
+              f"{t_gendata * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms, launches "
+              f"{counts or 'none'}: LUT gas optics and rte_sw) | {card}")
+
+        ts = R.sw_training_set(train_nc)
+        total = TRAIN_EPOCHS * TRAIN_STEPS
+        state = S.fresh_pair(ts, ngpt, TRAIN_HIDDEN, TRAIN_LR, total, SEED, dev)
+        pairs = R.pair_index(TRAIN_PAIRS, dev)
+        inner = R.pair_train_step(make_train_step(alpha=TRAIN_SW_ALPHA),
+                                  make_train_step(alpha=TRAIN_SW_ALPHA), pairs)
+        xs = torch.as_tensor(ts.xs, dtype=torch.float32, device=dev)
+        ya = torch.as_tensor(ts.ys_abs, dtype=torch.float32, device=dev)
+        yr = torch.as_tensor(ts.ys_ray, dtype=torch.float32, device=dev)
+        ev = R.SWFluxEval(kd, data, ts, gen["rsu"].reshape(ncol, -1),
+                          gen["rsd"].reshape(ncol, -1), dev)
+        rng = np.random.default_rng(SEED)
+        step_events, eval_ms, eval_counts = [], [], []
+
+        def data_iter():
+            idx = torch.as_tensor(R.sample_pair_rows(rng, TRAIN_NEXP, TRAIN_NSITES, NLAY,
+                                                     TRAIN_PAIRS), device=dev)
+            return xs[idx], (ya[idx], yr[idx])
+
+        def train_step(st, x, y):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(st, x, y)
+            e1.record()
+            step_events.append((e0, e1))
+            return out
+
+        def eval_fn(models):
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = ev.metrics(models)
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+            eval_counts.append(read_counts())
+            return metrics
+
+        t0 = time.perf_counter()
+        result = train_with_radiation_eval(
+            state, train_step, data_iter, eval_fn, R.REF_SCORES, n_epochs=TRAIN_EPOCHS,
+            steps_per_epoch=TRAIN_STEPS, patience=TRAIN_EPOCHS, verbose=False,
+            ema_decay=TRAIN_EMA)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in step_events]
+        med = statistics.median(step_ms)
+        hist = result.history
+        print(f"training-sw: {len(hist)} epochs x {TRAIN_STEPS} steps of {2 * TRAIN_PAIRS} rows, "
+              f"both nets {state.abs_state.model.dims} (Adam lr {TRAIN_LR} cosine each, hybrid "
+              f"alpha {TRAIN_SW_ALPHA}, EMA {TRAIN_EMA}): losses "
+              f"{[round(h['loss'], 5) for h in hist]}, radiation scores "
+              f"{[round(h['score'], 3) for h in hist]}, best epoch {result.best_epoch}")
+        print(f"training-sw step (both nets): median {med:.4f} ms by CUDA events (min "
+              f"{min(step_ms):.4f}, max {max(step_ms):.4f}), {1e3 / med:.1f} steps/s | {card}")
+        print(f"training-sw eval: {statistics.median(eval_ms):.3f} ms per epoch (median of "
+              f"{len(eval_ms)}: {[round(v, 3) for v in eval_ms]}), launches per eval "
+              f"{eval_counts} | {card}")
+        print(f"training-sw loop: {t_loop:.2f} s for {total} steps and {len(hist)} evals | {card}")
+        require(len(hist) == TRAIN_EPOCHS and all(np.isfinite(h["score"]) for h in hist),
+                "a SW training epoch gave no finite radiation score")
+        require(all(c == {"fused_predict_sw": 1} for c in eval_counts),
+                f"a SW eval did not launch K5 once: {eval_counts}")
+
+        # -- K5 against its twin after the steps, on the eval's own inputs --
+        with torch.no_grad():
+            for tag, (a, r) in (("trained nets", state.model), ("best (EMA) nets",
+                                                                result.best_model)):
+                got = mlp.fused_predict_sw(a, r, ev.x, ev.col_dry)
+                twin = mlp.fused_predict_sw_plain(a, r, ev.x, ev.col_dry)
+                twin64 = mlp.fused_predict_sw_plain(testing.float64_copy(a),
+                                                    testing.float64_copy(r), ev.x.double(),
+                                                    ev.col_dry.double())
+                hold(f"training-sw K5 {tag} tau", got[0], twin[0], twin64[0], MLP_RTOL, 1e-8)
+                hold(f"training-sw K5 {tag} ssa", got[1], twin[1], twin64[1], 0.0, SSA_ATOL)
+
+        # -- both best nets saved and loaded back: bit-identical fluxes --
+        attrs = provenance_attrs(result, R.REF_SCORES)
+        for tag, m in zip(("absorption", "rayleigh"), result.best_model):
+            save_model_netcdf(os.path.join(
+                tmp, f"sw-synth{ngpt}-lut_{tag}_{TRAIN_HIDDEN}_{TRAIN_HIDDEN}_HR_x.nc"), m,
+                attrs=attrs)
+        again = [load_model_netcdf(glob.glob(os.path.join(tmp, f"sw-synth{ngpt}-lut_{t}_*.nc"))[0],
+                                   device=dev) for t in ("absorption", "rayleigh")]
+        with torch.no_grad():
+            same = all(torch.equal(a, b) for a, b in zip(ev.fluxes(result.best_model),
+                                                         ev.fluxes(again)))
+        print(f"training-sw save/reload: both nets load back with bit-identical fluxes: {same}")
+        require(same, "the saved SW nets do not give the same fluxes back")
+    print(f"training-sw phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def run() -> dict:
     import torch
 
@@ -2368,6 +2707,11 @@ def run() -> dict:
     print(f"env: tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32} (both off)")
     print(f"card: {card}")
+    # phase 22 forks its ranks from this server: started now, its imports
+    # (torch, torch._dynamo) overlap the build and the phases before it
+    from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
+
+    pdist.start_rank_server()
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2614,6 +2958,12 @@ def run() -> dict:
     # ---- 21. NN training with radiation-in-the-loop evaluation --------------------------------
     training_phase(dev, card)
 
+    # ---- 22. the column split over ranks: sharded cores, dry run, multichip bench -------------
+    sharded_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar, lw_in, sw_in)
+
+    # ---- 23. SW training from the lookup table through K5 --------------------------------------
+    training_sw_phase(dev, card)
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -2640,15 +2990,18 @@ def main() -> int:
         {"name": "lw_clearsky_mega4", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:558", **r["k1"],
-         "counted_around": "rfmip_clear_sky_lw, both orientations"},
+         "counted_around": "rfmip_clear_sky_lw, both orientations; lw_mega_core_sharded, once "
+                           "a rank a call at world size 1 and on two ranks (phase 22)"},
         {"name": "sw_clearsky_megakernel", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"],
-         "counted_around": "rfmip_clear_sky_sw, both orientations"},
+         "counted_around": "rfmip_clear_sky_sw, both orientations; sw_mega_core_sharded, once "
+                           "a rank a call at world size 1 and on two ranks (phase 22)"},
         {"name": "fused_predict_lw_both", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
-         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations"},
+         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations; the dry "
+                           "run's g-point-split forward, once a rank (phase 22)"},
         {"name": "fused_predict_tau", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"],
@@ -2656,7 +3009,8 @@ def main() -> int:
         {"name": "fused_predict_sw", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"],
-         "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations"},
+         "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations; the "
+                           "SW training eval, once an epoch (phase 23)"},
         {"name": "lw_prep", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
@@ -2666,7 +3020,8 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],
          "counted_around": "rfmip_clear_sky_lw(use_megakernel=False), one and two models: "
-                           "one angle"},
+                           "one angle; the dry run's g-point-split forward, once a rank "
+                           "(phase 22)"},
         {"name": "lw_noscat_broadband[angles]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_angles"],

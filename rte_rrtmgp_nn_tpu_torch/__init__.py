@@ -16,7 +16,7 @@ Layers (bottom-up):
                         and their plain twins
   rte                   the RTE interface: rte_lw, rte_sw
   extensions/           cloud optics, McICA sampling, heating rates, BCs
-  parallel/             column splitting over devices, host -> device streaming
+  parallel/             column splitting over devices and processes, host -> device streaming
   drivers/              RFMIP clear-sky, all-sky and GCM-sweep entry points
 
 The package exports what the JAX package's ``__init__`` exports. Importing

@@ -318,6 +318,9 @@ def _mesh_for(mesh, device) -> Mesh:
     device = torch.device(device)
     if mesh is None:
         return Mesh((device,))
+    if mesh.ranks is not None:
+        raise ValueError("a process-group mesh: each rank sweeps its own columns "
+                         "(parallel.distributed.local_column_slice) with mesh=None")
     if any(d.type != device.type for d in mesh.devices):
         raise ValueError(f"the mesh's devices {list(mesh.devices)} are not all of the "
                          f"sweep's device type {device.type!r}")

@@ -171,6 +171,109 @@ def _lw_core_mega4_canon(
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
+def _conc_shard_spec(concs_t) -> dict:
+    """How each gas of a canonical (layer-major) gas dict is split over
+    'col': 2-D profiles on axis 1 (their column axis), scalars replicated
+    (None)."""
+    return {k: (1 if getattr(v, "ndim", 0) == 2 else None) for k, v in concs_t.items()}
+
+
+def _sharded_core(mesh, run, col_axes, on_device):
+    """``run(placed, *args)`` (a fused core on canonical inputs, ``placed``
+    the models and tables on the share's device) on each share of the
+    columns. On a process-group mesh a rank passes its own block (the
+    canonical inputs of its columns, e.g. of ``data.block(start, n)`` for
+    its share under ``column_sharding(mesh, 2).split(ncol)``), nothing
+    else: it returns that block's result, or the whole range in rank order
+    by ``all_gather`` with ``gather=True``. On a one-process mesh the whole
+    inputs are split on their column axes ``col_axes`` (1 for the
+    layer-major fields, 0 for the per-column ones, the gas dict last), the
+    shares run one per device and are joined on the first, as
+    ``shard_ops.columnwise_shard_map``."""
+    from ..parallel.sharding import column_sharding, gather_columns, replicated
+
+    placed = replicated(mesh).put(on_device)
+
+    def on(x, dev):
+        return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(dev)
+
+    def wrapped(*args, gather: bool = False):
+        *fields, concs_t = args
+        if mesh.ranks is not None:
+            dev = mesh.devices[0]
+            out = run(placed[dev], *(on(x, dev) for x in fields),
+                      {k: on(v, dev) for k, v in concs_t.items()})
+            return out if not gather else tuple(gather_columns(mesh, o) for o in out)
+        spec = _conc_shard_spec(concs_t)
+        ncol = fields[0].shape[col_axes[0]]
+        parts = mesh.shape["col"]
+        if -(-ncol // parts) * (parts - 1) >= ncol:  # shares of ceil(ncol / parts): one empty
+            raise ValueError(f"{ncol} columns leave a share of a {parts}-way 'col' split empty; "
+                             "pad them (parallel.sharding.pad_to_multiple)")
+
+        def take(x, axis, dev, s, n):
+            x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+            return on(x if axis is None else x.narrow(axis, s, n), dev).contiguous()
+
+        outs = []
+        for dev, s, n in column_sharding(mesh, 2).split(ncol):
+            local = [take(x, a, dev, s, n) for x, a in zip(fields, col_axes)]
+            gases = {k: take(v, spec[k], dev, s, n) for k, v in concs_t.items()}
+            outs.append(run(placed[dev], *local, gases))
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[i].to(mesh.devices[0]) for o in outs])
+                     for i in range(len(outs[0])))
+
+    return wrapped
+
+
+def lw_mega_core_sharded(mesh, models, planck_table, spectral, top_at_1):
+    """``_lw_core_mega4_canon`` split over the mesh's 'col' axis: each rank
+    (or each device of a one-process mesh) runs the fused LW core, one K1
+    launch a call, on its own columns; columns are halo-free, so nothing
+    crosses ranks on the hot path. The fused kernel's launch plan does not
+    depend on the column count, so a rank's columns come out as the same
+    columns of the unsharded core.
+
+    Returns ``fn(play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t,
+    gather=False) -> (flux_up, flux_dn)`` on canonical layer-major inputs
+    (``lw_canonical_inputs``). The JAX function takes global arrays whose
+    shards sit on their devices; here, on a process-group mesh, a rank
+    passes the inputs of its own columns only (its shard) and gets their
+    (ncol_rank, nlay+1) fluxes; with ``gather=True`` it gets the whole
+    (ncol, nlay+1) range on every rank, the global array of the JAX
+    function's ``out_specs``. On a one-process mesh the inputs are the
+    whole range, split as ``_conc_shard_spec`` says for the gases, and the
+    result is the whole range on the mesh's first device."""
+
+    def run(on, *args):
+        m, table = on
+        fb = _lw_core_mega4_canon(m, table, spectral, *args, top_at_1=top_at_1)
+        return fb.flux_up, fb.flux_dn
+
+    return _sharded_core(mesh, run, (1, 1, 1, 1, 0, 0), (list(models), planck_table))
+
+
+def sw_mega_core_sharded(mesh, models, spectral, solar_source, top_at_1):
+    """``_sw_core_mega_canon`` split over 'col' (see lw_mega_core_sharded):
+    one K2 launch a call on each rank's columns. Returns ``fn(play_t,
+    plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t, gather=False) ->
+    (flux_up, flux_dn, flux_dn_dir)``; night columns come back zero.
+    ``solar_source`` is per g-point of ``spectral``."""
+    solar_source = torch.as_tensor(solar_source)
+    if solar_source.shape != (spectral.ngpt,):
+        raise ValueError(f"sw_mega_core_sharded: solar_source {tuple(solar_source.shape)} for "
+                         f"{spectral.ngpt} g-points")
+
+    def run(on, *args):
+        m, solar = on
+        fb = _sw_core_mega_canon(m, solar, *args, top_at_1=top_at_1)
+        return fb.flux_up, fb.flux_dn, fb.flux_dn_dir
+
+    return _sharded_core(mesh, run, (1, 1, 1, 0, 0, 0, 0), (list(models), solar_source))
+
+
 def lw_mega5_args(
     models: Sequence[NNModel],
     planck_table: PlanckTable,

@@ -34,7 +34,7 @@ import torch
 
 from ..config import config, tau_thresh_for
 from .adding import adding
-from .expfast import exp_fast, exp_maybe_fast
+from .expfast import exp_fast, exp_maybe_fast, exp_rational_f64
 from .scan import affine_scan, affine_scan_reverse
 
 # Gauss quadrature secants and weights, Clough et al. 1992 Table 2
@@ -73,7 +73,13 @@ def transmittance(tl: torch.Tensor) -> torch.Tensor:
     """exp(-tl) taken in float64 and rounded once to tl's dtype, as the
     transport kernels take it (K1, K6, K7): CUDA's float32 exp is high by
     ~0.1 ulp on average, a bias that the g-point sums and the sweeps
-    accumulate (ROADMAP Queue 3 F7)."""
+    accumulate (ROADMAP Queue 3 F7). A float64 tl on the CPU takes the
+    exponential as the JAX package's float64 chain rounds it there
+    (``exp_rational_f64``): the source factor's cancellation makes one ulp
+    of it ~1e-8 of the down flux near the top of the atmosphere. On the
+    card a float64 twin is a reference, and the card's exp serves."""
+    if tl.dtype == torch.float64 and tl.device.type == "cpu":
+        return exp_rational_f64(-tl)
     return torch.exp(-tl.double()).to(tl.dtype)
 
 

@@ -1,2 +1,2 @@
-"""Column splitting over devices and host -> device block streaming (the
-single-process part of rte_rrtmgp_nn_tpu/parallel)."""
+"""Column and g-point splitting over devices and over the ranks of a
+process group, and host -> device block streaming (rte_rrtmgp_nn_tpu/parallel)."""

@@ -15,14 +15,17 @@ the JAX package:
     summaries (rrtmgp_rfmip_lw.F90 mean-flux prints, the eval driver's 8
     metrics) as partial sums per device, never gathering the flux fields.
 
-One process holds every device of the mesh; the multi-process form of the
-same reductions (``torch.distributed``) comes with parallel/distributed.
+On a process-group mesh (parallel/distributed) each rank holds its own
+block of columns (or sites), reduces it to the same float32 partial sums,
+and ``all_reduce`` over the ranks of its 'col' axis combines them: every
+rank gets the result.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..constants import constants
 from .sharding import Mesh, column_sharding
@@ -86,14 +89,36 @@ def _psum(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
     return total
 
 
+def _all_reduce(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` combined over the ranks of this rank's 'col' axis (in place)."""
+    dist.all_reduce(t, op=op, group=mesh.ranks.col_group)
+    return t
+
+
+def _extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
+    """max or min of ``x``; -inf / +inf for a rank with no columns."""
+    if x.numel() == 0:
+        return torch.tensor(-float("inf") if largest else float("inf"), dtype=x.dtype,
+                            device=x.device)
+    return x.max() if largest else x.min()
+
+
 def flux_stats(mesh: Mesh, flux):
     """Global (mean, min, max) of a column-sharded flux array without
     gathering it: each device reduces its share (float32 sum, size, min,
     max) and the partial results meet on the mesh's first device. Returns
-    0-d tensors there.
+    0-d tensors there. On a process-group mesh ``flux`` is this rank's
+    block of columns and every rank gets the global values.
 
     The equivalent of the reference's host-side summary statistics (e.g.
     the mean-flux prints, rrtmgp_rfmip_lw.F90:479-487) at pod scale."""
+    if mesh.ranks is not None:
+        x = torch.as_tensor(flux)
+        sc = _all_reduce(torch.stack([torch.sum(x, dtype=torch.float32),
+                                      torch.tensor(float(x.numel()), device=x.device)]), mesh)
+        lo = _all_reduce(_extreme(x, False), mesh, dist.ReduceOp.MIN)
+        hi = _all_reduce(_extreme(x, True), mesh, dist.ReduceOp.MAX)
+        return sc[0] / sc[1], lo, hi
     home = mesh.devices[0]
     shares = _shares(mesh, flux)
     total = _psum([torch.sum(x, dtype=torch.float32) for x in shares], home)
@@ -192,7 +217,15 @@ def rfmip_eval_metrics_sharded(mesh: Mesh, flux_up, flux_dn, ref_up, ref_dn, ple
     partial sums, which are added on the mesh's first device and combined
     there. Numerically rfmip_eval_metrics_core's result (the same partial
     sums, added per device first). Arrays may be given whole or as lists
-    of their site shares, one per device."""
+    of their site shares, one per device. On a process-group mesh they are
+    this rank's site block, and ``all_reduce`` adds the partial sums."""
+    if mesh.ranks is not None:
+        sums, per_exp, counts = _metric_partials(flux_up, flux_dn, ref_up, ref_dn, plev,
+                                                 top_at_1)
+        ns, ne = sums.numel(), per_exp.numel()
+        flat = _all_reduce(torch.cat([sums, per_exp.flatten(), counts]), mesh)
+        return _metrics_from_partials(flat[:ns], flat[ns:ns + ne].view(per_exp.shape),
+                                      flat[ns + ne:])
     home = mesh.devices[0]
     shares = [_shares(mesh, a, axis=1) for a in (flux_up, flux_dn, ref_up, ref_dn, plev)]
     parts = [_metric_partials(*block, top_at_1) for block in zip(*shares)]
@@ -205,7 +238,14 @@ def weighted_error_stats(mesh: Mesh, flux, ref):
     reference flux field, both column-sharded: float32 partial sums of
     |d| and d*d and the local max |d| per device, met on the mesh's first
     device. The distributed form of the eval-loop accuracy metrics
-    (training/eval_loop.METRIC_NAMES)."""
+    (training/eval_loop.METRIC_NAMES). On a process-group mesh ``flux`` and
+    ``ref`` are this rank's blocks and every rank gets the global values."""
+    if mesh.ranks is not None:
+        d = (torch.as_tensor(flux) - torch.as_tensor(ref)).to(torch.float32)
+        n, sae, sse = _all_reduce(torch.stack([torch.tensor(float(d.numel()), device=d.device),
+                                               torch.sum(torch.abs(d)), torch.sum(d * d)]), mesh)
+        mx = _all_reduce(_extreme(torch.abs(d), True), mesh, dist.ReduceOp.MAX)
+        return sae / n, torch.sqrt(sse / n), mx
     home = mesh.devices[0]
     ds = [(x - r).to(torch.float32) for x, r in zip(_shares(mesh, flux), _shares(mesh, ref))]
     n, sae, sse = _psum([torch.stack([torch.tensor(float(d.numel()), device=d.device),

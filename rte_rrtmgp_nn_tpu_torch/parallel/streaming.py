@@ -44,6 +44,9 @@ def iter_blocks(ncol: int, block_size: int) -> Iterator[tuple[int, int]]:
 
 def _sharding(sharding, device) -> ColumnSharding:
     if sharding is not None:
+        if sharding.mesh.ranks is not None:
+            raise ValueError("stream_blocks: a process-group mesh; each rank streams its own "
+                             "columns (parallel.distributed.local_column_slice) on one device")
         return sharding
     if device is None:
         raise ValueError("stream_blocks needs a device or a sharding")

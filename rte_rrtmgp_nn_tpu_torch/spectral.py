@@ -61,6 +61,16 @@ class SpectralMapping:
         blg = np.stack([np.arange(nband), np.arange(nband) + 1], axis=1)
         return SpectralMapping.create(blg, band_lims_wvn)
 
+    def gpt_subset(self, start: int, stop: int) -> "SpectralMapping":
+        """The mapping of g-points [start, stop) alone (a rank's block under
+        a split of the g-points): every band is kept, its g-point range
+        clipped to the block and numbered from 0, so per-band values index
+        as before and a band outside the block has no g-point."""
+        n = stop - start
+        blg = [(min(max(s - start, 0), n), min(max(e - start, 0), n))
+               for s, e in self.band_lims_gpt]
+        return SpectralMapping(tuple(blg), self.band_lims_wvn)
+
     @property
     def nband(self) -> int:
         return len(self.band_lims_gpt)

@@ -9,7 +9,9 @@ the JAX package's rtol 2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2; K6
 the CUDA drivers, RFMIP and all-sky, fused and general (multi-angle LW,
 staged SW, parallel scans), the prep LW core and the lookup-table gas
 optics with the solvers behind it, against the same paths in float64 on
-the CPU.
+the CPU. The sharded fused cores (drivers.rfmip lw_mega_core_sharded /
+sw_mega_core_sharded) at world size 1 on NCCL and on two gloo ranks
+sharing the card, against the unsharded cores bit for bit.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; elsewhere they
 skip. The file imports neither JAX nor the JAX package, so on a GPU host
@@ -951,3 +953,68 @@ def test_kernels_refuse_weights_that_require_grad(dev):
             run(m)
         with torch.no_grad():
             assert torch.isfinite(run(m).flux_dn).all(), route
+
+
+@pytest.mark.parametrize("ncol,nlay", [(37, 13), (1800, 60)])
+def test_sharded_cores_at_world_size_one_are_the_unsharded_cores(dev, ncol, nlay):
+    """lw_mega_core_sharded / sw_mega_core_sharded on a process group of one
+    (NCCL, in this process): bit for bit the unsharded fused cores, one K1
+    and one K2 launch a call (the launch plan does not depend on the
+    columns)."""
+    import torch.distributed as dist
+
+    from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
+
+    data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, 9))
+    spec, sspec = planck.lw_spectral_g128(), planck.sw_spectral_g112()
+    lw = load_model_netcdf(LW_MODEL, device=dev)
+    sw = load_model_netcdf(SW_MODEL, device=dev)
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
+    li, si = rfmip.lw_canonical_inputs(data, spec, dev), rfmip.sw_canonical_inputs(data, dev)
+    fl = rfmip._lw_core_mega4_canon([lw], table, spec, *li, top_at_1=True)
+    fs = rfmip._sw_core_mega_canon([sw, sw], solar, *si, top_at_1=True)
+    pdist.initialize(f"127.0.0.1:{pdist.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = pdist.global_mesh()
+        assert mesh.ranks is not None and mesh.shape == {"col": 1, "gpt": 1}
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        up, dn = rfmip.lw_mega_core_sharded(mesh, [lw], table, spec, True)(*li, gather=True)
+        s = rfmip.sw_mega_core_sharded(mesh, [sw, sw], sspec, solar, True)(*si)
+        torch.cuda.synchronize()
+        assert (k1.LAUNCHES, k2.LAUNCHES) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(up, fl.flux_up) and torch.equal(dn, fl.flux_dn)
+    for got, want in zip(s, (fs.flux_up, fs.flux_dn, fs.flux_dn_dir)):
+        assert torch.equal(got, want)
+
+
+def test_sharded_cores_on_two_gloo_ranks_sharing_the_card(dev):
+    """Two ranks on the one card (gloo; NCCL takes one rank a card): each
+    rank's K1 and K2 launched once a call on its columns, the gathered
+    fluxes bit for bit the unsharded cores'."""
+    import _torch_rank_workers as W
+
+    from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
+
+    arrays = synthesize_rfmip(100, 60, 10)
+    ranks = pdist.launch(W.sharded_cores, 2, arrays, LW_MODEL, SW_MODEL)
+    data = rfmip_data_from_arrays(arrays)
+    spec, sspec = planck.lw_spectral_g128(), planck.sw_spectral_g112()
+    lw = load_model_netcdf(LW_MODEL, device=dev)
+    sw = load_model_netcdf(SW_MODEL, device=dev)
+    table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
+    solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
+    fl = rfmip._lw_core_mega4_canon([lw], table, spec,
+                                    *rfmip.lw_canonical_inputs(data, spec, dev), top_at_1=True)
+    fs = rfmip._sw_core_mega_canon([sw, sw], solar, *rfmip.sw_canonical_inputs(data, dev),
+                                   top_at_1=True)
+    want = {"lw": (fl.flux_up, fl.flux_dn), "sw": (fs.flux_up, fs.flux_dn, fs.flux_dn_dir)}
+    for r, out in enumerate(ranks):
+        assert out["device"] == "cuda:0" and (out["k1"], out["k2"]) == (2, 2)
+        for k, ref in want.items():
+            for block, whole, w in zip(out[k], out[k + "_all"], ref):
+                w = w.cpu().numpy()
+                np.testing.assert_array_equal(whole, w)
+                np.testing.assert_array_equal(block, w[50 * r:50 * (r + 1)])
