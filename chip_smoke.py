@@ -158,12 +158,27 @@ non-zero and prints no result line):
      Rayleigh nets 7 -> 128 -> 128 -> 56 trained jointly for 3 epochs of 50
      steps, each day-masked eval counted (K5 once), the step, eval and
      gendata times, K5 against its twin after the steps, both best nets
-     saved and loaded back (bit-identical fluxes). "training-sw ..." lines.
+     saved and loaded back (bit-identical fluxes). "training-sw ..." lines;
+ 24. the command-line entry points (scripts/torch_run_rfmip.py,
+     torch_run_allsky.py, torch_eval_rfmip.py, torch_run_regression.py)
+     through their main() on the card and with --device cpu, on an RFMIP
+     file of 18 experiments x 100 sites x 60 layers (testing.write_rfmip_file),
+     phase 12's all-sky files at 1800 columns and the stand-in nets under
+     the reference's BEST names: the card's output files against the CPU
+     run's (LW 2e-3, SW 2e-2 W/m2, float64 deciding beyond; the CPU's
+     staged SW by the F1 law; the regression's SW on both), the eval's
+     metric block, every regression check at --fail-tol 1e-5 on the card
+     and the regression's 28 fields; the launches around each run
+     (K1 1 and K2 1; K1 and K2 cld_lut once a loop; K1 1; K7 once a LUT LW
+     solve) and its host seconds; then lw_solver_noscat_lay_major's K7
+     route (per-(column, g-point) secants, an incident flux) against its
+     PyTorch path on the card, both timed. "cli ..." lines.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
 path, or for K8 and K9 a core or the wrapper, since no driver reaches
-them), its error against the twin, its time, the twin's, and the
+them; then the calls of later phases that launch it too, not counted),
+its error against the twin, its time, the twin's, and the
 least time the card could take (``bound_ms``: bytes moved once over 3.35
 TB/s, or operations over 67 TFLOP/s float32, whichever is larger); the
 entries of the fused kernels and of K3-K7 also have ``threads``,
@@ -202,6 +217,7 @@ LW_MODEL = os.path.join(HERE, "artifacts", "lw-g128-demo_both_128_128_HR_8.62e-0
 SW_MODEL = os.path.join(HERE, "artifacts", "sw-g112-demo_absorption_48_48_HR_3.64e-02_FRC_2.14e+00.nc")
 SW_PAIR = [os.path.join(HERE, "artifacts", f"sw-synth56-lut_{k}_128_128_HR_4.22e-02_FRC_1.44e-01.nc")
            for k in ("absorption", "rayleigh")]
+CLI_METRIC_ATOL = 2e-3  # the eval metrics card vs CPU: the LW flux bound, which they inherit
 MLP_RTOL, SSA_ATOL = 2e-5, 2e-5  # the JAX package's MLP kernel bounds (tests/test_pallas_mlp.py)
 N_ANGLES = 3  # Gauss angles of the general LW path
 # K6's outputs: the transmittance by the MLP kernel's relative bound, plus an
@@ -555,7 +571,7 @@ def k7_bound(bytes_moved: float, cells: int, angles: int) -> dict:
     return bound(bytes_moved, per_cell * cells)
 
 
-def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
+def hold_sw_f1(got, ref, dist, mu0, name="staged SW", show=12) -> tuple[float, int, float]:
     """The F1 rule (ROADMAP Queue 3) for SW fluxes through the staged path
     (float32 two-stream coefficients) against the same path in float64.
     Near k*mu0 = 1 (k the two-stream eigenvalue) the float32 coefficients'
@@ -563,12 +579,12 @@ def hold_sw_f1(got, ref, data, sw64) -> tuple[float, int, float]:
     |k*mu0 - 1| was at most 1.83e-3 W/m2 over the 52 columns beyond
     SW_ATOL at 1800 x 60 and 64 x 60 (0.51 W/m2 at 6.5e-4 from the
     resonance, 0.028 at 6.5e-2). Each column is held within max(SW_ATOL, F1_LAW / d), d its
-    smallest |k*mu0 - 1| over layers and g-points, with k from this run's
-    ssa (the float64 gas optics of the nets ``sw64``); each column beyond
-    SW_ATOL is printed. Returns (max error, columns beyond SW_ATOL, max
-    error of the other columns)."""
-    dist, mu0 = rfmip_sw_resonance_distance(data, sw64)
-    return f1_law("staged SW", sw_col_err(got, ref), dist, mu0)
+    smallest |k*mu0 - 1| over layers and g-points (``dist``, with k from
+    this run's float64 optical properties, e.g. rfmip_sw_resonance_distance);
+    each column beyond SW_ATOL is printed (the first ``show``). ``got`` and
+    ``ref`` are flux objects or dicts of named fields (sw_col_err). Returns
+    (max error, columns beyond SW_ATOL, max error of the other columns)."""
+    return f1_law(name, sw_col_err(got, ref), dist, mu0, show=show)
 
 
 def rfmip_sw_resonance_distance(data, sw64):
@@ -594,12 +610,16 @@ def rfmip_sw_resonance_distance(data, sw64):
 
 
 def sw_col_err(got, ref):
-    """Per column, the largest |got - ref| over levels and the three SW
-    fluxes, in float64 on the CPU."""
+    """Per column, the largest |got - ref| over levels and the SW fluxes
+    (the three of a flux object, or every entry of a dict of named (ncol,
+    nlev) tensors), in float64 on the CPU."""
     import torch
 
-    col_err = torch.stack([(getattr(got, n).double().cpu() - getattr(ref, n).double().cpu())
-                           .abs().amax(1) for n in ("flux_up", "flux_dn", "flux_dn_dir")])
+    if isinstance(got, dict):
+        pairs = [(got[n], ref[n]) for n in got]
+    else:
+        pairs = [(getattr(got, n), getattr(ref, n)) for n in ("flux_up", "flux_dn", "flux_dn_dir")]
+    col_err = torch.stack([(a.double().cpu() - b.double().cpu()).abs().amax(1) for a, b in pairs])
     return col_err.amax(0).numpy()
 
 
@@ -712,7 +732,8 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     flip = max(maxabs(staged[True].flux_up, staged[False].flux_up.flip(1)),
                maxabs(staged[True].flux_dn, staged[False].flux_dn.flip(1)))
     require(flip <= 1e-6, "staged SW: the two vertical orientations disagree")
-    err, over, rest = hold_sw_f1(staged[True], ref, d1, [sw64, sw64])
+    err, over, rest = hold_sw_f1(staged[True], ref,
+                                 *rfmip_sw_resonance_distance(d1, [sw64, sw64]))
     e_fused = max(maxabs(staged[True].flux_up, sw1.flux_up), maxabs(staged[True].flux_dn, sw1.flux_dn))
     print(f"staged SW (K5): fused_predict_sw launches {launches['k5']}; vs float64 on the CPU "
           f"{err:.3e} W/m2 (tol {SW_ATOL}), {over} resonance columns beyond it; the other "
@@ -2675,6 +2696,330 @@ def training_sw_phase(dev, card) -> None:
     print(f"training-sw phase: {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+CLI_NEXP, CLI_NSITES = 18, 100  # the RFMIP file's experiments x sites: 1800 columns
+CLI_NLOOPS = 2  # torch_run_allsky --nloops: K1 and K2 once each a loop
+# the regression harness's LUT LW solves but the Jacobian's: K7 once each
+CLI_LUT_LW_SOLVES = 9
+CLI_REGRESSION_SIZE = (8, 20)  # torch_run_regression's default --ncol, --nlay
+LW64_MODEL = os.path.join(HERE, "artifacts", "lw-g128-demo_both_64_64_HR_2.62e-01_FRC_2.07e+01.nc")
+
+
+def load_script(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"cli_{name}",
+                                                  os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_script(name, args) -> tuple[str, float, dict]:
+    """main(args) of scripts/<name>.py in this process, its standard output
+    captured: (the output, host seconds, the kernels launched: read_counts
+    with K1's and K2's modes as k1_<mode> / k2_<mode>), the counts set to 0
+    just before and read just after. Requires exit status 0."""
+    import io
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    mod = load_script(name)
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(list(args))
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    for tag, modes in (("k1", k1.MODE_LAUNCHES), ("k2", k2.MODE_LAUNCHES)):
+        counts.update({f"{tag}_{k}": v for k, v in modes.items() if v})
+    require(rc == 0, f"{name} {' '.join(args)} exited {rc}:\n{out.getvalue()}")
+    return out.getvalue(), seconds, counts
+
+
+def read_fields(path, names=None) -> dict:
+    """Variables of a flux file (all of them by default) as float64 tensors
+    on the CPU, each (columns, levels): an RFMIP file's (expt, site, level)
+    flattened to expt x site columns."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.utils import ncio
+
+    with ncio.NCFile(path) as f:
+        arrays = {n: f.read(n, np.float64) for n in (names or f.variables())}
+    return {n: torch.from_numpy(v.reshape(-1, v.shape[-1])) for n, v in arrays.items()}
+
+
+def regression_float64(script) -> tuple[dict, np.ndarray]:
+    """scripts/torch_run_regression.py's fields at its defaults in float64
+    on the CPU (its own load_kdists and regression_fields), and per column
+    the smallest |k*mu0 - 1| over layers and g-points of its SW problem (k
+    the PIFM eigenvalue of the float64 LUT optical properties)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.config import config
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import gas_optics_sw_lut
+    from rte_rrtmgp_nn_tpu_torch.testing import make_atmosphere
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    with contextlib.redirect_stdout(None):
+        kd_lw, kd_sw = script.load_kdists(None, None, f64, device=cpu)
+    ncol, nlay = CLI_REGRESSION_SIZE
+    fields = script.regression_fields(kd_lw, kd_sw, ncol, nlay, f64, device=cpu)
+    play, plev, tlay, _, _, vmr = make_atmosphere(ncol, nlay)
+    t = lambda a: torch.from_numpy(a)
+    props, _ = gas_optics_sw_lut(kd_sw, t(play), t(plev), t(tlay),
+                                 GasConcs.create({g: np.asarray(v, np.float64)
+                                                  for g, v in vmr.items()}))
+    g1 = (8.0 - props.ssa * (5.0 + 3.0 * props.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
+    g2 = 3.0 * (props.ssa * (1.0 - props.g)) * 0.25
+    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    return ({n: t(v) for n, v in fields.items()},
+            (k * script.MU0 - 1.0).abs().amin((1, 2)).numpy())
+
+
+def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
+    """Phase 24: the command-line entry points (scripts/torch_run_rfmip.py,
+    torch_run_allsky.py, torch_eval_rfmip.py, torch_run_regression.py), each
+    run through its main() on the card and with --device cpu on files
+    written to a temporary directory: the RFMIP file at 18 x 100 x 60
+    (testing.write_rfmip_file, seed 0), the all-sky files of phase 12 and a
+    models dir holding the in-repo stand-ins under the reference's BEST
+    names. The card's output files against the CPU run's: LW within LW_ATOL,
+    beyond it float64 decides (adjudicate); SW within SW_ATOL, beyond it the
+    card against float64 within SW_ATOL and the CPU's staged SW by the F1
+    law; the eval's 8 metrics within 2e-3 of the CPU run's; every regression
+    check under --fail-tol 1e-5 on the card, and its 28 fields card against
+    CPU as above (its SW is PyTorch's float32 PIFM on both, so beyond SW_ATOL
+    the F1 law holds both against float64). The launches counted around
+    each main on the card (and none on the CPU), each run's host seconds.
+    Then lw_solver_noscat_lay_major's K7 route on the layer-major fields of
+    the main path's gas optics, with per-(column, g-point) secants and an
+    incident flux, against its PyTorch path on the card (one launch;
+    beyond LW_ATOL float64 decides), both timed. Returns the times."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import read_rfmip
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
+    from rte_rrtmgp_nn_tpu_torch.utils import cli
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    t_phase = time.perf_counter()
+    secs = {}
+    sw64 = [load_model_netcdf(SW_MODEL, device=cpu, dtype=f64)] * 2
+    lw64 = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
+
+    def both(name, args, outs):
+        """The script on the card and on the CPU; ``outs(tag)`` the
+        arguments naming its outputs. Returns {tag: (stdout, counts)}."""
+        runs = {}
+        for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+            out, sec, counts = run_script(name, [*args, *outs(tag), "--device", device])
+            secs[f"{name}_{tag}"] = sec
+            print(f"cli {name} on the {tag}: {sec:.2f} s, launches {counts} | {card}")
+            for line in out.splitlines():
+                if "mean" in line or "FAIL" in line or line.startswith(("LW:", "SW:", "ncol")):
+                    print(f"cli {name} [{tag}] {line.strip()}")
+            runs[tag] = (out, counts)
+        require(runs["cpu"][1] == {}, f"{name} --device cpu launched kernels: {runs['cpu'][1]}")
+        return runs
+
+    def hold_lw(name, got, ref, make_ref64):
+        e = max(maxabs(got[n], ref[n]) for n in got)
+        print(f"cli {name}: max|card - cpu| {e:.3e} W/m2 (tol {LW_ATOL})")
+        adjudicate_lazy(f"cli {name}", e, LW_ATOL, tuple(got.values()), tuple(ref.values()),
+                        lambda: tuple(make_ref64()[n] for n in got))
+        return e
+
+    def hold_sw(name, got, ref, make_ref64, make_dist, mu0, card_staged=False):
+        """Beyond SW_ATOL float64 decides: the CPU's staged SW (and the
+        card's, where ``card_staged``) under the F1 law, else the card
+        within SW_ATOL."""
+        e = max(maxabs(got[n], ref[n]) for n in got)
+        line = f"cli {name}: max|card - cpu| {e:.3e} W/m2 (tol {SW_ATOL})"
+        if e > SW_ATOL:
+            ref64, dist = make_ref64(), make_dist()
+            ref64 = {n: ref64[n] for n in got}
+            if card_staged:
+                e64, over, _ = hold_sw_f1(got, ref64, dist, mu0, f"cli {name} card", show=3)
+                line += f"; float64 decides: card {e64:.3e} ({over} columns beyond {SW_ATOL})"
+            else:
+                e64 = max(maxabs(got[n], ref64[n]) for n in got)
+                require(e64 <= SW_ATOL, f"cli {name}: the card is {e64:.3e} W/m2 from float64")
+                line += f"; float64 decides: card {e64:.3e}"
+            e_cpu, over, rest = hold_sw_f1(ref, ref64, dist, mu0, f"cli {name} CPU", show=3)
+            line += (f", CPU {e_cpu:.3e} with {over} resonance columns beyond {SW_ATOL}, "
+                     f"the others {rest:.3e}")
+        print(line)
+        return e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)
+        rfmip_file = j("rfmip.nc")
+        testing.write_rfmip_file(rfmip_file, CLI_NEXP, CLI_NSITES, NLAY, SEED)
+        paths = write_allsky_files(tmp)
+        for sub, lw in (("models", LW_MODEL), ("models64", LW64_MODEL)):
+            os.makedirs(j(sub))
+            shutil.copy(lw, j(sub, cli.LW_MODEL_FILE))
+        for f in cli.SW_MODEL_FILES:
+            shutil.copy(SW_MODEL, j("models", f))
+        fdata = read_rfmip(rfmip_file)
+
+        # torch_run_rfmip: K1 once, K2 once
+        runs = both("torch_run_rfmip", ["--input", rfmip_file, "--models-dir", j("models"),
+                                        "--what", "lw,sw", "--tag", "t"],
+                    lambda tag: ["--output-dir", j(tag)])
+        require(runs["card"][1] == {"k1": 1, "k1_clear": 1, "k2": 1, "k2_clear": 1},
+                f"torch_run_rfmip did not launch K1 once and K2 once: {runs['card'][1]}")
+        fl = {tag: {n: read_fields(j(tag, f"{n}_t.nc"), [n])[n] for n in ("rlu", "rld")}
+              for tag in ("card", "cpu")}
+        fs = {tag: {n: read_fields(j(tag, f"{n}_t.nc"), [n])[n] for n in ("rsu", "rsd")}
+              for tag in ("card", "cpu")}
+        mu0 = np.cos(np.deg2rad(fdata.sza.astype(np.float64)))
+
+        def rfmip_sw64():
+            fb = rfmip.rfmip_clear_sky_sw(fdata, sw64, device=cpu, dtype=f64)
+            return {"rsu": fb.flux_up, "rsd": fb.flux_dn}
+
+        def rfmip_lw64():
+            fb = rfmip.rfmip_clear_sky_lw(fdata, [lw64], device=cpu, dtype=f64)
+            return {"rlu": fb.flux_up, "rld": fb.flux_dn}
+
+        hold_lw("torch_run_rfmip LW", fl["card"], fl["cpu"], rfmip_lw64)
+        hold_sw("torch_run_rfmip SW", fs["card"], fs["cpu"], rfmip_sw64,
+                lambda: rfmip_sw_resonance_distance(fdata, sw64)[0], mu0)
+
+        # torch_run_allsky: K1 and K2 in the cld_lut mode, once each a loop
+        names = ("lw_flux_up", "lw_flux_dn", "sw_flux_up", "sw_flux_dn")
+        runs = both("torch_run_allsky", ["--input", paths["garand"], "--lw-cloud-coeffs",
+                                         paths["lw_lut"], "--sw-cloud-coeffs", paths["sw_lut"],
+                                         "--models-dir", j("models"), "--ncol", str(NCOL),
+                                         "--nloops", str(CLI_NLOOPS)],
+                    lambda tag: ["--output", j(f"allsky-{tag}.nc")])
+        n = CLI_NLOOPS
+        require(runs["card"][1] == {"k1": n, "k1_cld_lut": n, "k2": n, "k2_cld_lut": n},
+                f"torch_run_allsky did not launch K1 and K2 cld_lut once a loop: "
+                f"{runs['card'][1]}")
+        fa = {tag: read_fields(j(f"allsky-{tag}.nc"), names) for tag in ("card", "cpu")}
+        tile = torch.arange(NCOL) % 6  # the file's 2 profiles x the 3-column cloud pattern
+
+        def allsky64(band):
+            if band == "lw":
+                fb = allsky.allsky_lw(paths["garand"], paths["lw_lut"], [lw64], ncol=6,
+                                      device=cpu, dtype=f64)
+            else:
+                fb = allsky.allsky_sw(paths["garand"], paths["sw_lut"], sw64, ncol=6,
+                                      device=cpu, dtype=f64)
+            return {f"{band}_flux_up": fb.flux_up[tile], f"{band}_flux_dn": fb.flux_dn[tile]}
+
+        sub = lambda d, band: {n: v for n, v in d.items() if n.startswith(band)}
+        hold_lw("torch_run_allsky LW", sub(fa["card"], "lw"), sub(fa["cpu"], "lw"),
+                lambda: allsky64("lw"))
+        hold_sw("torch_run_allsky SW", sub(fa["card"], "sw"), sub(fa["cpu"], "sw"),
+                lambda: allsky64("sw"),
+                lambda: allsky_sw_resonance_distance(paths, "lut", sw64, 6)[tile.numpy()],
+                np.full(NCOL, ALLSKY_MU0))
+
+        # torch_eval_rfmip: K1 once; the reference fluxes from the 64-wide net
+        ref = j("ref64.nc")
+        run_script("torch_eval_rfmip", [j("models64", cli.LW_MODEL_FILE), "--rfmip", rfmip_file,
+                                        "--save-fluxes", ref, "--device", "cuda"])
+        runs = both("torch_eval_rfmip", [j("models", cli.LW_MODEL_FILE), "--rfmip", rfmip_file,
+                                         "--ref-fluxes", ref],
+                    lambda tag: ["--save-fluxes", j(f"eval-{tag}.nc")])
+        require(runs["card"][1] == {"k1": 1, "k1_clear": 1},
+                f"torch_eval_rfmip did not launch K1 once: {runs['card'][1]}")
+        blocks = {}
+        for tag, (out, _) in runs.items():
+            lines = out.splitlines()
+            i = lines.index("--------")
+            blocks[tag] = (lines[i + 1], np.array([float(v) for v in lines[i + 3].split(",")]))
+            print(f"cli torch_eval_rfmip [{tag}] {lines[i + 3]}")
+        de = float(np.abs(blocks["card"][1] - blocks["cpu"][1]).max())
+        print(f"cli torch_eval_rfmip: metrics card vs cpu max {de:.3e} (tol {CLI_METRIC_ATOL}); "
+              f"header {blocks['card'][0] == blocks['cpu'][0]}")
+        require(blocks["card"][0] == blocks["cpu"][0] and len(blocks["card"][1]) == 8
+                and de <= CLI_METRIC_ATOL and bool((blocks["card"][1] != 0).all()),
+                "torch_eval_rfmip's metric block on the card differs from the CPU run's")
+        fe = {tag: read_fields(j(f"eval-{tag}.nc"), ("rlu", "rld")) for tag in ("card", "cpu")}
+        hold_lw("torch_eval_rfmip fluxes", fe["card"], fe["cpu"], rfmip_lw64)
+
+        # torch_run_regression at its defaults: K7 once a LUT LW solve
+        runs = both("torch_run_regression", ["--fail-tol", "1e-5"],
+                    lambda tag: ["--output", j(f"regression-{tag}.nc")])
+        require(runs["card"][1] == {"k7": CLI_LUT_LW_SOLVES, "k7_angles": CLI_LUT_LW_SOLVES},
+                f"torch_run_regression did not launch K7 once a LUT LW solve: {runs['card'][1]}")
+        for tag, (out, _) in runs.items():
+            for line in out.splitlines():
+                if "max rel diff" in line:
+                    print(f"cli torch_run_regression [{tag}] {line.strip()}")
+            require("all verification checks passed" in out,
+                    f"torch_run_regression on the {tag}: a check failed")
+        # its fields, card against CPU: every LW field (the nine K7 solves,
+        # the Jacobian's PyTorch solve) and every SW field (PyTorch's PIFM in
+        # float32 on both, so the F1 law on both beyond SW_ATOL)
+        fr = {tag: read_fields(j(f"regression-{tag}.nc")) for tag in ("card", "cpu")}
+        require(sorted(fr["card"]) == sorted(fr["cpu"]) and len(fr["card"]) == 28,
+                f"torch_run_regression wrote other fields: {sorted(fr['card'])}")
+        script = load_script("torch_run_regression")
+        reg64 = {}
+
+        def regression64(key):
+            if not reg64:
+                reg64["fields"], reg64["dist"] = regression_float64(script)
+            return reg64[key]
+
+        hold_lw("torch_run_regression LW", sub(fr["card"], "lw"), sub(fr["cpu"], "lw"),
+                lambda: regression64("fields"))
+        hold_sw("torch_run_regression SW", sub(fr["card"], "sw"), sub(fr["cpu"], "sw"),
+                lambda: regression64("fields"), lambda: regression64("dist"),
+                np.full(CLI_REGRESSION_SIZE[0], script.MU0), card_staged=True)
+
+    # lw_solver_noscat_lay_major on the card: one launch of K7's angles mode
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    play, plev, tlay, tlev, tsfc, emis_band, concs = rfmip.lw_staged_inputs(data, lw_spec, dev)
+    tau, src = go.gas_optics_lw_nn([lw_model], play, plev, tlay, tsfc, GasConcs(concs),
+                                   lw_spec, table, tlev=tlev)
+    lay = lambda a: a.transpose(0, 1).contiguous()
+    args = (lay(tau), lay(src.lay_source), lay(src.lev_source),
+            lw_spec.expand(emis_band).contiguous(), src.sfc_source)
+    ngpt = tau.shape[-1]
+    rng = np.random.default_rng(SEED)
+    kw = {"inc_flux": t(rng.uniform(0.0, 2.0, (NCOL, ngpt))),
+          "lw_ds": t(rng.uniform(1.5, 2.0, (NCOL, ngpt)))}
+    reset_counts()
+    got = plw.lw_solver_noscat_lay_major(*args, **kw)
+    counts = read_counts()
+    plain = plw.lw_solver_noscat_lay_major_plain(*args, **kw)
+    require(counts == {"k7": 1, "k7_angles": 1},
+            f"lw_solver_noscat_lay_major did not launch K7's angles mode once: {counts}")
+    e = max(maxabs(got.flux_up, plain.flux_up), maxabs(got.flux_dn, plain.flux_dn))
+    adjudicate_lazy("lay-major K7 route", e, LW_ATOL, got[:2], plain[:2], lambda: tuple(
+        plw.lw_solver_noscat_lay_major_plain(*(a.double() for a in args),
+                                             **{k: v.double() for k, v in kw.items()})[:2]))
+    timed = {"lay_major_k7": cuda_ms(lambda: plw.lw_solver_noscat_lay_major(*args, **kw)),
+             "lay_major_plain": cuda_ms(lambda: plw.lw_solver_noscat_lay_major_plain(*args, **kw),
+                                        reps=9)}
+    print(f"cli lay-major K7 route {NLAY}x{NCOL}x{ngpt}, per-(column, g-point) secants in "
+          f"[1.5, 2], incident flux: launches {counts}, max|K7 - plain| {e:.3e} W/m2 (tol "
+          f"{LW_ATOL}); {timed['lay_major_k7']:.4f} ms, plain {timed['lay_major_plain']:.4f} ms "
+          f"| {card}")
+    secs["phase"] = time.perf_counter() - t_phase
+    print("cli seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" | {card}")
+    return timed
+
+
 def run() -> dict:
     import torch
 
@@ -2879,7 +3224,8 @@ def run() -> dict:
         got_sw = rfmip.rfmip_clear_sky_sw(small, [sw_model, sw_model], device=dev)
     el = max(maxabs(got_lw.flux_up.cpu(), ref_lw.flux_up), maxabs(got_lw.flux_dn.cpu(), ref_lw.flux_dn))
     require(el <= LW_ATOL, "CUDA general LW path disagrees with the CPU reference")
-    es, over, rest = hold_sw_f1(got_sw, ref_sw, small, [sw_cpu, sw_cpu])
+    es, over, rest = hold_sw_f1(got_sw, ref_sw,
+                                *rfmip_sw_resonance_distance(small, [sw_cpu, sw_cpu]))
     print(f"reference 64x{NLAY}: CUDA general path vs float64 on the CPU: LW {N_ANGLES} angles "
           f"{el:.3e} (tol {LW_ATOL}), staged SW {es:.3e} with {over} resonance columns beyond "
           f"{SW_ATOL}, the other columns {rest:.3e} W/m2")
@@ -2964,6 +3310,9 @@ def run() -> dict:
     # ---- 23. SW training from the lookup table through K5 --------------------------------------
     training_sw_phase(dev, card)
 
+    # ---- 24. the command-line entry points, and the lay-major K7 route -------------------------
+    timed.update(cli_phase(dev, card, lw_model, table, lw_spec, data))
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -2990,18 +3339,23 @@ def main() -> int:
         {"name": "lw_clearsky_mega4", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:558", **r["k1"],
-         "counted_around": "rfmip_clear_sky_lw, both orientations; lw_mega_core_sharded, once "
-                           "a rank a call at world size 1 and on two ranks (phase 22)"},
+         "counted_around": "rfmip_clear_sky_lw, both orientations; also launched, not counted "
+                           "here: lw_mega_core_sharded, once a rank a call at world size 1 and "
+                           "on two ranks (phase 22); scripts/torch_run_rfmip.py and "
+                           "torch_eval_rfmip.py, once a run (phase 24)"},
         {"name": "sw_clearsky_megakernel", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"],
-         "counted_around": "rfmip_clear_sky_sw, both orientations; sw_mega_core_sharded, once "
-                           "a rank a call at world size 1 and on two ranks (phase 22)"},
+         "counted_around": "rfmip_clear_sky_sw, both orientations; also launched, not counted "
+                           "here: sw_mega_core_sharded, once a rank a call at world size 1 and "
+                           "on two ranks (phase 22); scripts/torch_run_rfmip.py, once a run "
+                           "(phase 24)"},
         {"name": "fused_predict_lw_both", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
-         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations; the dry "
-                           "run's g-point-split forward, once a rank (phase 22)"},
+         "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations; also "
+                           "launched, not counted here: the dry run's g-point-split forward, "
+                           "once a rank (phase 22)"},
         {"name": "fused_predict_tau", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"],
@@ -3009,8 +3363,9 @@ def main() -> int:
         {"name": "fused_predict_sw", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"],
-         "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations; the "
-                           "SW training eval, once an epoch (phase 23)"},
+         "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations; also "
+                           "launched, not counted here: the SW training eval, once an epoch "
+                           "(phase 23)"},
         {"name": "lw_prep", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
@@ -3020,13 +3375,17 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],
          "counted_around": "rfmip_clear_sky_lw(use_megakernel=False), one and two models: "
-                           "one angle; the dry run's g-point-split forward, once a rank "
-                           "(phase 22)"},
+                           "one angle; also launched, not counted here: the dry run's "
+                           "g-point-split forward, once a rank (phase 22)"},
         {"name": "lw_noscat_broadband[angles]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_angles"],
          "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations: all "
-                           "three angles in one launch"},
+                           "three angles in one launch; also launched, not counted here: "
+                           "scripts/torch_run_regression.py, once each of its nine broadband "
+                           "LUT LW solves (one angle, three angles, per-(column, g-point) "
+                           "optimal angles, the vertical reverse), and "
+                           "lw_solver_noscat_lay_major, once a call (phase 24)"},
         {"name": "lw_noscat_broadband[fields]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_fields"],
@@ -3035,7 +3394,8 @@ def main() -> int:
         {"name": "lw_clearsky_mega4[cld_lut]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:431", **r["k1_cld_lut"],
-         "counted_around": "allsky_lw, lookup-table cloud optics"},
+         "counted_around": "allsky_lw, lookup-table cloud optics; also launched, not counted "
+                           "here: scripts/torch_run_allsky.py, once a loop (phase 24)"},
         {"name": "lw_clearsky_mega4[cld_bands]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:448", **r["k1_cld_bands"],
@@ -3043,7 +3403,8 @@ def main() -> int:
         {"name": "sw_clearsky_megakernel[cld_lut]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:303", **r["k2_cld_lut"],
-         "counted_around": "allsky_sw, lookup-table cloud optics"},
+         "counted_around": "allsky_sw, lookup-table cloud optics; also launched, not counted "
+                           "here: scripts/torch_run_allsky.py, once a loop (phase 24)"},
         {"name": "sw_clearsky_megakernel[cld_bands]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:321", **r["k2_cld_bands"],

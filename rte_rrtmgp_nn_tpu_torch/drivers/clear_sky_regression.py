@@ -9,8 +9,10 @@ variants default, notlev, 3ang, optang, jaco, subset, vr, inc1scl/inc2str,
 
 Every variant runs on ``device`` (a required keyword, as in every driver
 of the port); the inputs are moved there, the k-distribution must be there.
-The solves are spectral, reduced to broadband afterwards, as in the JAX
-harness: plain PyTorch on any device, no kernel.
+The LW solves but the Jacobian's ask ``rte_lw`` for broadband fluxes: on
+CUDA each is one launch of the transport kernel (K7). The Jacobian and the
+SW variants are spectral, reduced to broadband afterwards, as in the JAX
+harness (which reduces every solve afterwards).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..fluxes import reduce_broadband
+from ..fluxes import FluxesBroadband, reduce_broadband
 from ..gas_concs import GasConcs
 from ..gasoptics.kdist import KDist
 from ..gasoptics.lut_gas_optics import (
@@ -56,30 +58,29 @@ def run_lw_variants(kd: KDist, play, plev, tlay, tlev, tsfc, gas_desc, sfc_emis_
     gas_desc = _gases_on(gas_desc, device, play.dtype)
     ncol, nlay = play.shape
 
-    def solve(props, sources, **kw):
-        sol = rte_lw(props, kw.pop("top_at_1", top_at_1), sources, sfc_emis_band, **kw)
-        fb = reduce_broadband(sol.flux_up, sol.flux_dn)
-        return fb, sol
+    def solve(props, sources, emis=sfc_emis_band, top=top_at_1, **kw):
+        sol = rte_lw(props, top, sources, emis, broadband=True, **kw)
+        return FluxesBroadband(sol.flux_up, sol.flux_dn)
 
     props, sources = gas_optics_lw_lut(kd, play, plev, tlay, tsfc, gas_desc, tlev=tlev,
                                        top_at_1=top_at_1)
-    fb, _ = solve(props, sources)
+    fb = solve(props, sources)
     out["lw_flux_up"], out["lw_flux_dn"] = fb.flux_up, fb.flux_dn
 
     # no-tlev: level temperatures interpolated internally
     props2, sources2 = gas_optics_lw_lut(kd, play, plev, tlay, tsfc, gas_desc,
                                          top_at_1=top_at_1)
-    fb, _ = solve(props2, sources2)
+    fb = solve(props2, sources2)
     out["lw_flux_up_notlev"], out["lw_flux_dn_notlev"] = fb.flux_up, fb.flux_dn
 
     # 3-angle Gaussian quadrature
-    fb, _ = solve(props, sources, n_gauss_angles=3)
+    fb = solve(props, sources, n_gauss_angles=3)
     out["lw_flux_up_3ang"], out["lw_flux_dn_3ang"] = fb.flux_up, fb.flux_dn
 
     # optimal angles
     if kd.optimal_angle_fit is not None:
         lw_ds = compute_optimal_angles(kd, props.tau)
-        fb, _ = solve(props, sources, lw_ds=lw_ds)
+        fb = solve(props, sources, lw_ds=lw_ds)
         out["lw_flux_up_optang"], out["lw_flux_dn_optang"] = fb.flux_up, fb.flux_dn
 
     # Jacobian
@@ -90,7 +91,7 @@ def run_lw_variants(kd: KDist, play, plev, tlay, tlev, tsfc, gas_desc, sfc_emis_
     # perturbed-surface run for the Jacobian consistency check
     _, sources_p = gas_optics_lw_lut(kd, play, plev, tlay, tsfc + 1.0, gas_desc, tlev=tlev,
                                      top_at_1=top_at_1)
-    fb, _ = solve(props, sources_p)
+    fb = solve(props, sources_p)
     out["lw_flux_up_stp1"], out["lw_flux_dn_stp1"] = fb.flux_up, fb.flux_dn
 
     # column subset (first half)
@@ -99,8 +100,7 @@ def run_lw_variants(kd: KDist, play, plev, tlay, tlev, tsfc, gas_desc, sfc_emis_
         kd, play[:nsub], plev[:nsub], tlay[:nsub], tsfc[:nsub], gas_desc.subset(0, nsub),
         tlev=tlev[:nsub], top_at_1=top_at_1,
     )
-    sol = rte_lw(props_s, top_at_1, sources_s, sfc_emis_band[:nsub])
-    fb = reduce_broadband(sol.flux_up, sol.flux_dn)
+    fb = solve(props_s, sources_s, sfc_emis_band[:nsub])
     out["lw_flux_up_subset"], out["lw_flux_dn_subset"] = fb.flux_up, fb.flux_dn
 
     # vertical reverse
@@ -108,8 +108,7 @@ def run_lw_variants(kd: KDist, play, plev, tlay, tlev, tsfc, gas_desc, sfc_emis_
         kd, play.flip(1), plev.flip(1), tlay.flip(1), tsfc,
         _flip_gc(gas_desc), tlev=tlev.flip(1), top_at_1=not top_at_1,
     )
-    sol = rte_lw(props_v, not top_at_1, sources_v, sfc_emis_band)
-    fb = reduce_broadband(sol.flux_up, sol.flux_dn)
+    fb = solve(props_v, sources_v, top=not top_at_1)
     out["lw_flux_up_vr"] = fb.flux_up.flip(1)
     out["lw_flux_dn_vr"] = fb.flux_dn.flip(1)
 
@@ -119,7 +118,7 @@ def run_lw_variants(kd: KDist, play, plev, tlay, tlev, tsfc, gas_desc, sfc_emis_
         ("inc1scl", zeros_1scl(ncol, nlay, kd.spectral, play.dtype, device=device)),
         ("inc2str", zeros_2str(ncol, nlay, band_sm, play.dtype, device=device)),
     ):
-        fb, _ = solve(increment(props, zero), sources)
+        fb = solve(increment(props, zero), sources)
         out[f"lw_flux_up_{tag}"], out[f"lw_flux_dn_{tag}"] = fb.flux_up, fb.flux_dn
 
     return {k: v.detach().cpu().numpy() for k, v in out.items()}

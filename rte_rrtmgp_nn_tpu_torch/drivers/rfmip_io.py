@@ -16,6 +16,27 @@ import numpy as np
 from ..gas_concs import GasConcs
 from ..utils import ncio
 
+# forcing_index -> (k-distribution names, file names); reference
+# determine_gas_names (mo_rfmip_io.F90:317-416). read_rfmip reads the first
+# list, as the JAX package does (ROADMAP Queue 3 F12).
+GAS_SETS = {
+    1: None,  # all gases known to the k-distribution (here: the NN LW default set)
+    2: (
+        ["no2", "h2o", "o3", "co2", "ch4", "n2o", "o2", "cfc12", "cfc11"],
+        ["no2", "water_vapor", "ozone", "carbon_dioxide", "methane",
+         "nitrous_oxide", "oxygen", "cfc12", "cfc11"],
+    ),
+    3: (
+        ["co2", "ch4", "n2o", "o2", "cfc12", "hfc134a"],
+        ["carbon_dioxide", "methane", "nitrous_oxide", "oxygen", "cfc12eq", "hfc134aeq"],
+    ),
+    4: (
+        ["h2o", "co2", "o3", "n2o", "ch4", "o2", "n2", "cfc11", "cfc12"],
+        ["water_vapor", "carbon_dioxide", "ozone", "nitrous_oxide", "methane",
+         "oxygen", "nitrogen", "cfc11", "cfc12"],
+    ),
+}
+
 # chemical formula -> RFMIP file variable name (reference chem_name/conc_name)
 CHEM_TO_FILE = {
     "co": "carbon_monoxide",
@@ -101,12 +122,22 @@ def _units_scale(f: ncio.NCFile, var: str) -> float:
         return 1.0
 
 
-def read_rfmip(path: str, gases: list[str] | None = None, dtype=np.float32) -> RFMIPData:
+def read_rfmip(path: str, gases: list[str] | None = None, dtype=np.float32,
+               forcing_index: int | None = None) -> RFMIPData:
     """Read the RFMIP file, flattening (exp, site) -> columns.
 
     gases: kdist-style names to load (default: the NN LW gas set). Gases
     missing from the file are skipped; the NN input packing substitutes
-    zero or scenario values for them."""
+    zero or scenario values for them.
+
+    forcing_index: 2, 3 or 4 select the reference's reduced gas sets
+    (GAS_SETS) in place of ``gases``; 1 (all k-distribution gases) keeps
+    the default set. Another value raises ValueError."""
+    if forcing_index is not None:
+        if forcing_index not in GAS_SETS:
+            raise ValueError(f"forcing_index must be in {sorted(GAS_SETS)}")
+        if GAS_SETS[forcing_index] is not None:
+            gases = GAS_SETS[forcing_index][0]
     gases = gases if gases is not None else NN_LW_GASES
     with ncio.NCFile(path) as f:
         nexp = f.read("temp_layer").shape[0]

@@ -6,9 +6,10 @@ incident flux, surface-temperature Jacobian, Tang-2018 rescaling for
 scattering optical properties, both orientations, spectral or broadband
 output), which every staged LW driver call takes; the layer-major
 single-angle broadband solver (``lw_solver_noscat_lay_major``, the
-"presrc" variant) of the CPU all-sky core; the two-stream solver with
-scattering (``lw_solver_2stream``); and the broadband solve straight from
-the Planck fraction (``lw_noscat_broadband_from_pfrac``). Reference parity:
+"presrc" variant of the CPU all-sky core; K7 on CUDA); the two-stream
+solver with scattering (``lw_solver_2stream``); and the broadband solve
+straight from the Planck fraction (``lw_noscat_broadband_from_pfrac``).
+Reference parity:
 rte/kernels/mo_rte_solver_kernels.F90 ``lw_solver_noscat`` (:119-330),
 ``lw_solver_noscat_GaussQuad`` (:332-415), ``lw_solver_2stream``
 (:426-486), ``lw_source_noscat`` (:742-776; Clough 1992 Eq 13 with the
@@ -32,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import config, tau_thresh_for
+from ..config import config, cuda_dtype_refusal, tau_thresh_for
 from .adding import adding
 from .expfast import exp_fast, exp_maybe_fast, exp_rational_f64
 from .scan import affine_scan, affine_scan_reverse
@@ -123,15 +124,25 @@ def pfrac_sources(tl, trans, pfrac, planck_lay_band, planck_lev_band, gpt_band,
         pade=pade)
 
 
-def lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source,
-                        weight=LW_WEIGHT, inc_rad=None, sfc_source_jac=None) -> LWSolution:
+def lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source, inc_flux=None,
+                        weight=LW_WEIGHT, sfc_source_jac=None) -> LWSolution:
     """The two broadband layer sweeps from precomputed (nlay, ncol, ngpt)
-    transmittance and sources (any strides): down from the incident
-    radiance ``inc_rad`` (ncol, ngpt; None = 0), surface reflection and
-    emission, then up; the spectral sum is taken at every level (reference
-    transport loops, mo_rte_solver_kernels.F90:264-330). With
-    ``sfc_source_jac`` the Jacobian rides the up sweep's transmittances.
-    Returns broadband (ncol, nlay+1) fluxes."""
+    transmittance and sources (any strides): down from the incident flux
+    ``inc_flux`` (ncol, ngpt; None = 0), which starts the sweep as the
+    radiance inc_flux / (2 pi weight), surface reflection and emission, then
+    up; the spectral sum is taken at every level (reference transport loops,
+    mo_rte_solver_kernels.F90:264-330). With ``sfc_source_jac`` the Jacobian
+    rides the up sweep's transmittances. Returns broadband (ncol, nlay+1)
+    fluxes. The JAX package's signature and meaning."""
+    inc_rad = None if inc_flux is None else inc_flux / (2.0 * np.pi * weight)
+    return _sweeps_from_radiance(trans, src_dn, src_up, sfc_emis, sfc_source, weight, inc_rad,
+                                 sfc_source_jac)
+
+
+def _sweeps_from_radiance(trans, src_dn, src_up, sfc_emis, sfc_source, weight, inc_rad,
+                          sfc_source_jac) -> LWSolution:
+    """lw_broadband_sweeps from the incident radiance ``inc_rad`` (ncol,
+    ngpt; None = 0), for the callers that hold a radiance."""
     nlay = trans.shape[0]
     two_pi_w = 2.0 * np.pi * weight
     rad = torch.zeros_like(trans[0]) if inc_rad is None else inc_rad
@@ -161,18 +172,55 @@ def lw_solver_noscat_lay_major(
     lev_source: torch.Tensor,
     sfc_emis: torch.Tensor,
     sfc_source: torch.Tensor,
+    inc_flux: Optional[torch.Tensor] = None,
+    lw_ds: Optional[torch.Tensor] = None,
+    sfc_source_jac: Optional[torch.Tensor] = None,
 ) -> LWSolution:
-    """Layer-major broadband no-scattering solve (single angle, zero
-    incident flux, canonical top-at-0): tau/lay_source (nlay, ncol, ngpt),
-    lev_source (nlay+1, ncol, ngpt), surface arrays (ncol, ngpt). The
-    transmittance and both sources are computed once over the whole field,
-    then the two sweeps run. Returns broadband (ncol, nlay+1) fluxes."""
-    tau_thresh = tau_thresh_for(tau.dtype)
-    tl = tau * LW_DIFFUSIVITY
+    """Layer-major broadband no-scattering solve (single angle, canonical
+    top-at-0): tau/lay_source (nlay, ncol, ngpt), lev_source (nlay+1, ncol,
+    ngpt), surface arrays (ncol, ngpt), the incident flux ``inc_flux``
+    (ncol, ngpt; None = 0), per-(column, g-point) secants ``lw_ds`` (ncol,
+    ngpt; None = the diffusivity secant 1.66) and the surface source's
+    temperature derivative ``sfc_source_jac`` (ncol, ngpt), which adds
+    flux_up_jac. Returns broadband (ncol, nlay+1) fluxes.
+
+    CPU tensors take the PyTorch path (``lw_solver_noscat_lay_major_plain``).
+    On CUDA a float32 solve under the transport kernel's conditions (exact
+    exponential, linear-in-tau source, no Jacobian) is one launch of K7's
+    angles mode, which reads the layer-major fields through their strides;
+    with the Jacobian, ``fast_exponential`` or the Pade source it takes the
+    PyTorch path, as ``rte_lw`` does. Any other dtype on CUDA raises."""
+    refusal = cuda_dtype_refusal(tau.device, tau.dtype)
+    if refusal:
+        raise NotImplementedError(f"lw_solver_noscat_lay_major: {refusal}")
+    if (tau.device.type == "cpu" or sfc_source_jac is not None or config.fast_exponential
+            or config.use_pade_source):
+        return lw_solver_noscat_lay_major_plain(tau, lay_source, lev_source, sfc_emis,
+                                                sfc_source, inc_flux, lw_ds, sfc_source_jac)
+    from .cuda.lw_solver import lw_noscat_broadband_angles
+
+    col_major = lambda a: a.transpose(0, 1)
+    contig = lambda a: None if a is None else a.contiguous()
+    secants = [LW_DIFFUSIVITY] if lw_ds is None else contig(lw_ds.to(tau.dtype))
+    flux_up, flux_dn = lw_noscat_broadband_angles(
+        col_major(tau), col_major(lay_source), col_major(lev_source), contig(sfc_emis),
+        contig(sfc_source), secants, [LW_WEIGHT], contig(inc_flux))
+    return LWSolution(flux_up, flux_dn)
+
+
+def lw_solver_noscat_lay_major_plain(tau, lay_source, lev_source, sfc_emis, sfc_source,
+                                     inc_flux=None, lw_ds=None,
+                                     sfc_source_jac=None) -> LWSolution:
+    """lw_solver_noscat_lay_major in PyTorch operations on any device, with
+    the configured numerics (JAX ops/lw_solver.py ``_lw_noscat_broadband_presrc``):
+    the transmittance and both sources computed once over the whole field,
+    then the two sweeps."""
+    tl = tau * (LW_DIFFUSIVITY if lw_ds is None else lw_ds.to(tau.dtype)[None])
     trans = exp_maybe_fast(-tl)
     src_dn, src_up = noscat_sources(
-        tl, trans, lay_source, lev_source[:-1], lev_source[1:], tau_thresh)
-    return lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source)
+        tl, trans, lay_source, lev_source[:-1], lev_source[1:], tau_thresh_for(tau.dtype))
+    return lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source, inc_flux,
+                               LW_WEIGHT, sfc_source_jac)
 
 
 def lw_source_noscat(tau_loc, trans, lay_source, lev_source):
@@ -197,8 +245,8 @@ def noscat_broadband_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, D
     src_dn, src_up = noscat_sources(tl, trans, lay_source, lev_source[:, :-1],
                                     lev_source[:, 1:], tau_thresh_for(tau.dtype), pade=pade)
     lay_major = lambda a: a.transpose(0, 1)
-    return lw_broadband_sweeps(lay_major(trans), lay_major(src_dn), lay_major(src_up),
-                               sfc_emis, sfc_source, weight, inc_rad, sfc_source_jac)
+    return _sweeps_from_radiance(lay_major(trans), lay_major(src_dn), lay_major(src_up),
+                                 sfc_emis, sfc_source, weight, inc_rad, sfc_source_jac)
 
 
 def _lw_noscat_broadband_fused(tau, lay_source, lev_source, sfc_emis, sfc_source, inc_flux,
@@ -241,8 +289,8 @@ def _lw_solver_noscat_1angle(tau, lay_source, lev_source, sfc_emis, sfc_source, 
     rad_top = inc_flux / two_pi_w
     if broadband and not do_rescaling:
         return lw_broadband_sweeps(trans.transpose(0, 1), source_dn.transpose(0, 1),
-                                   source_up.transpose(0, 1), sfc_emis, sfc_source, weight,
-                                   rad_top, sfc_source_jac)
+                                   source_up.transpose(0, 1), sfc_emis, sfc_source, inc_flux,
+                                   weight, sfc_source_jac)
 
     rad_dn = affine_scan(trans, source_dn, rad_top, axis=1, mode=scan_mode)
     rad_sfc = rad_dn[:, -1] * (1.0 - sfc_emis) + sfc_emis * sfc_source  # reference :269
@@ -371,8 +419,7 @@ def lw_noscat_broadband_from_pfrac(tau, pfrac, planck_lay, planck_lev, planck_sf
     pf_sfc = pfrac[:, -1]
     sfc_source = pf_sfc * planck_sfc[..., idx]
     jac = pf_sfc * (planck_sfc_jac - planck_sfc)[..., idx] if compute_jac else None
-    inc_rad = None if inc_flux is None else inc_flux / (2.0 * np.pi * weight)
-    out = lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source, weight, inc_rad, jac)
+    out = lw_broadband_sweeps(trans, src_dn, src_up, sfc_emis, sfc_source, inc_flux, weight, jac)
     if not top_at_1:
         out = LWSolution(out.flux_up.flip(1), out.flux_dn.flip(1),
                          None if out.flux_up_jac is None else out.flux_up_jac.flip(1))

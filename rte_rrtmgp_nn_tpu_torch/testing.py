@@ -122,6 +122,68 @@ def synthesize_rfmip_experiments(nexp: int, nsites: int, nlay: int, seed: int,
     return out
 
 
+# The RFMIP file's per-experiment global means that synthesize_rfmip does not
+# make, by file variable, with their units attribute: (value in those units,
+# units). cfc12eq and hfc134aeq differ from cfc12 and hfc134a, so a reader that
+# takes one for the other shows it (ROADMAP Queue 3 F12).
+RFMIP_FILE_GM_EXTRA = {
+    "no2_GM": (5.0e-2, "1.e-9"),
+    "oxygen_GM": (0.209, "1"),
+    "nitrogen_GM": (0.781, "1"),
+    "cfc12eq_GM": (1100.0, "1.e-12"),
+    "hfc134a_GM": (80.0, "1.e-12"),
+    "hfc134aeq_GM": (950.0, "1.e-12"),
+}
+
+
+def write_rfmip_file(path: str, nexp: int, nsites: int, nlay: int, seed: int) -> None:
+    """Write synthesize_rfmip_experiments(nexp, nsites, nlay, seed) in the
+    RFMIP input file's layout (netCDF-3, scipy's writer, which both
+    packages' ncio read): dimensions expt, site, layer, level; pressures
+    and the surface's emissivity, albedo, solar zenith angle and TSI per
+    site; temperatures per experiment and site; water_vapor and ozone per
+    experiment, site and layer; CO2, CH4, N2O, CFC-11 and CFC-12 and the
+    gases of RFMIP_FILE_GM_EXTRA as ``<name>_GM`` per experiment, each
+    with a ``units`` scale factor."""
+    from scipy.io import netcdf_file
+
+    a = synthesize_rfmip_experiments(nexp, nsites, nlay, seed)
+    by_exp = lambda v: np.asarray(v).reshape(nexp, nsites, *np.shape(v)[1:])
+    per_exp = lambda v: by_exp(v)[:, 0, 0]  # constant over the sites and layers
+    g = a["gases"]
+    gm = {
+        "carbon_dioxide_GM": (per_exp(g["co2"]) / 1e-6, "1.e-6"),
+        "methane_GM": (per_exp(g["ch4"]) / 1e-9, "1.e-9"),
+        "nitrous_oxide_GM": (per_exp(g["n2o"]) / 1e-9, "1.e-9"),
+        "cfc11_GM": (np.full(nexp, float(g["cfc11"]) / 1e-12), "1.e-12"),
+        "cfc12_GM": (np.full(nexp, float(g["cfc12"]) / 1e-12), "1.e-12"),
+        **{k: (np.full(nexp, v), u) for k, (v, u) in RFMIP_FILE_GM_EXTRA.items()},
+    }
+    with netcdf_file(path, "w") as f:
+        for name, size in (("expt", nexp), ("site", nsites), ("layer", nlay),
+                           ("level", nlay + 1)):
+            f.createDimension(name, size)
+
+        def var(name, dims, data, units=None):
+            v = f.createVariable(name, "f4", dims)
+            v[...] = np.asarray(data, np.float32)
+            if units is not None:
+                v.units = units
+
+        var("pres_layer", ("site", "layer"), by_exp(a["play"])[0])
+        var("pres_level", ("site", "level"), by_exp(a["plev"])[0])
+        var("temp_layer", ("expt", "site", "layer"), by_exp(a["tlay"]))
+        var("temp_level", ("expt", "site", "level"), by_exp(a["tlev"]))
+        var("surface_temperature", ("expt", "site"), by_exp(a["tsfc"]))
+        for name, key in (("surface_emissivity", "sfc_emis"), ("surface_albedo", "sfc_alb"),
+                          ("solar_zenith_angle", "sza"), ("total_solar_irradiance", "tsi")):
+            var(name, ("site",), by_exp(a[key])[0])
+        var("water_vapor", ("expt", "site", "layer"), by_exp(g["h2o"]), units="1")
+        var("ozone", ("expt", "site", "layer"), by_exp(g["o3"]), units="1")
+        for name, (v, units) in gm.items():
+            var(name, ("expt",), v, units=units)
+
+
 def synthesize_garand(nlay: int, seed: int, top_at_1: bool = True) -> dict:
     """Two atmospheric profiles in the layout of the all-sky example's
     Garand file, from ``seed``: float64 numpy arrays ``p_lay``/``t_lay``
@@ -367,6 +429,37 @@ def hold_kernel(kernel, twin, twin64, rtol: float, atol: float) -> dict:
 
 LUT_GASES = ("h2o", "co2", "o3", "n2o", "ch4")  # the synthetic k-distributions' gases
 LUT_CLOUD_LAYERS = (0.55, 0.7)  # a cloud between these fractions of the layer axis, top-at-0
+
+# The clear-sky regression's gases: the synthetic k-distributions' own (the
+# JAX suite's tests/test_lut_gas_optics.py GASES).
+REGRESSION_GASES = LUT_GASES
+
+
+def make_atmosphere(ncol: int = 4, nlay: int = 20, t_iso=None, rng=None) -> tuple:
+    """The clear-sky regression's atmosphere (the JAX suite's
+    tests/test_lut_gas_optics.py make_atmosphere, the same profile and
+    default generator ``np.random.default_rng(1)``): pressure levels from 40
+    Pa to 101325 Pa, log-spaced; temperatures 220 + 70 (p/pmax)^0.3 K with
+    +-5 K of noise (isothermal at ``t_iso`` when given); h2o decreasing
+    upwards, the other REGRESSION_GASES constant. Returns float64 numpy
+    (play, plev, tlay, tlev, tsfc, gases): the caller picks the dtype;
+    ``gases`` maps a name to an (ncol, nlay) array or a scalar VMR."""
+    rng = rng or np.random.default_rng(1)
+    plev = np.exp(np.linspace(np.log(40.0), np.log(101325.0), nlay + 1))
+    plev = np.broadcast_to(plev, (ncol, nlay + 1)).copy()
+    play = 0.5 * (plev[:, 1:] + plev[:, :-1])
+    if t_iso is not None:
+        tlay = np.full((ncol, nlay), t_iso)
+        tlev = np.full((ncol, nlay + 1), t_iso)
+        tsfc = np.full((ncol,), t_iso)
+    else:
+        prof = 220 + 70 * (play / play.max()) ** 0.3
+        tlay = prof + rng.uniform(-5, 5, (ncol, nlay))
+        tlev = np.concatenate([tlay[:, :1], 0.5 * (tlay[:, 1:] + tlay[:, :-1]), tlay[:, -1:]], 1)
+        tsfc = tlev[:, -1] + rng.uniform(0, 5, ncol)
+    gases = {"h2o": 3e-3 * (play / play.max()) ** 1.5 + 1e-6, "co2": 4e-4, "o3": 5e-7,
+             "n2o": 3.2e-7, "ch4": 1.8e-6}
+    return play, plev, tlay, tlev, tsfc, gases
 
 
 def write_lut_files(directory: str, gpts_per_band: int, seed: int = 0) -> dict:
