@@ -172,7 +172,22 @@ non-zero and prints no result line):
      (K1 1 and K2 1; K1 and K2 cld_lut once a loop; K1 1; K7 once a LUT LW
      solve) and its host seconds; then lw_solver_noscat_lay_major's K7
      route (per-(column, g-point) secants, an incident flux) against its
-     PyTorch path on the card, both timed. "cli ..." lines.
+     PyTorch path on the card, both timed. "cli ..." lines;
+ 25. the last scripts of the JAX package (scripts/torch_train_demo.py,
+     torch_train_demo_sw.py, torch_calibrate_sw_g112.py,
+     torch_calibrate_sw_solar.py) through their run() / main() on the card
+     and with --device cpu, on phase 24's RFMIP file, the stand-in teachers,
+     a 224-output SW net made from the seed as the g-224 net and phase 12's
+     Garand and SW lookup-table cloud files: the demos at their default
+     widths, cut to 3 epochs of 50 steps, card and CPU from one saved
+     student (each epoch's metrics within LW 2e-3 / SW 2e-2, the best epoch,
+     the saved file's name), the g-112 weights within 1e-4, the solar
+     fractions within 1e-4 at targets positive fractions reach; the
+     launches around each (K1 1, K3 and K7 once an eval; K5 once an eval
+     and once; K4 2; K2 cld_lut 14) and its host seconds; K4 on the 112-
+     and 224-output nets and K2 cld_lut on each single-band source against
+     their twins, K2 on a zero source exactly 0 and linear in its source.
+     "demos ..." lines.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -1823,14 +1838,14 @@ def in_float64(args, kw) -> tuple[list, dict]:
     return [up(a) for a in args], {k: (v if k == "cld_lut" else up(v)) for k, v in kw.items()}
 
 
-def gcm_hold_kept(what: str, kept: dict, blocks) -> None:
-    """Each kept call of the GCM path launched again through its wrapper on
-    the card and held against its plain twin on the same tensors, at the
-    block's own column count (the one of ``blocks``, the sweep's block
-    widths, that its arguments carry): K1, K2 and K7 by the rule of phases
-    3, 4 and 8 (LW_ATOL, SW_ATOL, float64 decides beyond), K3 and K5 by
-    phase 7's (testing.hold_kernel; K5's ssa where tau is not an underflow
-    residue)."""
+def gcm_hold_kept(what: str, kept: dict, blocks, phase: str = "gcm") -> None:
+    """Each kept call of the GCM path (or of ``phase``'s path) launched
+    again through its wrapper on the card and held against its plain twin
+    on the same tensors, at the block's own column count (the one of
+    ``blocks``, the sweep's block widths, that its arguments carry): K1, K2
+    and K7 by the rule of phases 3, 4 and 8 (LW_ATOL, SW_ATOL, float64
+    decides beyond), K3 and K5 by phase 7's (testing.hold_kernel; K5's ssa
+    where tau is not an underflow residue)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
@@ -1842,13 +1857,13 @@ def gcm_hold_kept(what: str, kept: dict, blocks) -> None:
     kernels = {"k1": (k1, "lw_clearsky_mega4", LW_ATOL), "k2": (k2, "sw_clearsky_megakernel", SW_ATOL),
                "k7": (k7, "lw_noscat_broadband_angles", LW_ATOL),
                "k3": (mlp, "fused_predict_lw_both", None), "k5": (mlp, "fused_predict_sw", None)}
-    require(any(kept.values()), f"gcm {what}: no kernel call was kept")
+    require(any(kept.values()), f"{phase} {what}: no kernel call was kept")
     for tag, calls in kept.items():
         module, name, tol = kernels[tag.split(":")[0]]
         kernel, twin = getattr(module, name), getattr(module, name + "_plain")
         for args, kw in calls:
             ncol = next(n for a in args if torch.is_tensor(a) for n in a.shape if n in blocks)
-            label = f"gcm {what} {tag} ({name}) on a block of {ncol} columns"
+            label = f"{phase} {what} {tag} ({name}) on a block of {ncol} columns"
             got = tuple(kernel(*args, **kw))
             torch.cuda.synchronize()
             require(all(bool(torch.isfinite(o).all()) for o in got), f"{label}: not finite")
@@ -2715,28 +2730,38 @@ def load_script(name):
     return mod
 
 
-def run_script(name, args) -> tuple[str, float, dict]:
-    """main(args) of scripts/<name>.py in this process, its standard output
-    captured: (the output, host seconds, the kernels launched: read_counts
-    with K1's and K2's modes as k1_<mode> / k2_<mode>), the counts set to 0
-    just before and read just after. Requires exit status 0."""
+def call_script(name, entry, args, consts=None) -> tuple:
+    """``entry``(args) of scripts/<name>.py in this process (its module
+    constants set to ``consts`` first), its standard output captured:
+    (what it returned, the output, host seconds, the kernels launched:
+    read_counts with K1's and K2's modes as k1_<mode> / k2_<mode>), the
+    counts set to 0 just before and read just after."""
     import io
 
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
 
     mod = load_script(name)
+    for k, v in (consts or {}).items():
+        setattr(mod, k, v)
     out = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = mod.main(list(args))
+        value = getattr(mod, entry)(list(args))
     counts = read_counts()
     seconds = time.perf_counter() - t0
     for tag, modes in (("k1", k1.MODE_LAUNCHES), ("k2", k2.MODE_LAUNCHES)):
         counts.update({f"{tag}_{k}": v for k, v in modes.items() if v})
-    require(rc == 0, f"{name} {' '.join(args)} exited {rc}:\n{out.getvalue()}")
-    return out.getvalue(), seconds, counts
+    return value, out.getvalue(), seconds, counts
+
+
+def run_script(name, args) -> tuple[str, float, dict]:
+    """call_script of main(args): (the output, host seconds, the kernels
+    launched). Requires exit status 0."""
+    rc, out, seconds, counts = call_script(name, "main", args)
+    require(rc == 0, f"{name} {' '.join(args)} exited {rc}:\n{out}")
+    return out, seconds, counts
 
 
 def read_fields(path, names=None) -> dict:
@@ -3018,6 +3043,242 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
     secs["phase"] = time.perf_counter() - t_phase
     print("cli seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" | {card}")
     return timed
+
+
+# phase 25: the last scripts of the JAX package (scripts/torch_train_demo.py,
+# torch_train_demo_sw.py, torch_calibrate_sw_g112.py, torch_calibrate_sw_solar.py)
+DEMO_EPOCHS, DEMO_STEPS = 3, 50  # cut as phase 21 cuts training (the demos' own: 60 x 400)
+# the card against the CPU: the g-112 weights within 1e-4 (each band's
+# weights sum to 1; the card's optical depths are K4's, within rtol 2e-5 of
+# the twin's, and NNLS moves a small weight relatively more than the taus
+# move); the solar fractions within 1e-4 (a fraction moves its band's TOA
+# source by TSI times its change: 0.14 W/m2 at 1e-4)
+DEMO_G112_ATOL, DEMO_SOLAR_ATOL = 1e-4, 1e-4
+SOLAR_NBAND = 14  # torch_calibrate_sw_solar: one all-sky SW run a band
+
+
+def script_numbers(pattern: str, out: str) -> np.ndarray:
+    """Every match of ``pattern``'s groups in a script's output, as floats."""
+    import re
+
+    return np.array([[float(v) for v in (m if isinstance(m, tuple) else (m,))]
+                     for m in re.findall(pattern, out)])
+
+
+def solar_fractions(out: str) -> np.ndarray:
+    """The fractions torch_calibrate_sw_solar prints (np.array2string)."""
+    text = out.split("planck.SW_SOLAR_BAND_FRAC_CAL):")[1].split("]")[0]
+    return np.array([float(v) for v in text.strip(" [\n").split(",")])
+
+
+def hold_single_band_k2(calls: list, ncol: int, card: str) -> None:
+    """K2's kept calls (args, kwargs), one a single-band source: the
+    kernel on the sources summed within SW_ATOL of its outputs summed, on a
+    zero source exactly 0, and each call against its twin
+    (gcm_hold_kept)."""
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    args, kw = calls[0]
+    summed = list(args)
+    summed[7] = sum(a[7] for a, _ in calls)  # inc_flux_dir: the full source
+    whole = k2.sw_clearsky_megakernel(*summed, **kw)
+    parts = [k2.sw_clearsky_megakernel(*a, **k) for a, k in calls]
+    e_lin = max(maxabs(w, sum(p[i] for p in parts)) for i, w in enumerate(whole))
+    summed[7] = torch.zeros_like(summed[7])
+    zero = k2.sw_clearsky_megakernel(*summed, **kw)
+    torch.cuda.synchronize()
+    print(f"demos K2 cld_lut: the {len(calls)} single-band sources summed against their "
+          f"outputs summed {e_lin:.3e} W/m2 (tol {SW_ATOL}); a zero source gives "
+          f"{max(float(o.abs().max()) for o in zero)} | {card}")
+    require(e_lin <= SW_ATOL and all(bool((o == 0).all()) for o in zero),
+            "K2 cld_lut is not linear in its source, or a zero source gives nonzero flux")
+    gcm_hold_kept("calibrate_sw_solar", {f"k2:band {i}": [c] for i, c in enumerate(calls)},
+                  (ncol,), phase="demos")
+
+
+def demos_phase(dev, card) -> None:
+    """Phase 25: the distillation demos and the SW calibrations
+    (scripts/torch_train_demo.py, torch_train_demo_sw.py,
+    torch_calibrate_sw_g112.py, torch_calibrate_sw_solar.py), each through
+    its run() / main() on the card and with --device cpu, the launches
+    counted around each, on files written to a temporary directory: the
+    RFMIP file of phase 24 (18 x 100 x 60), the stand-in teachers (the
+    128-wide LW demo net; the SW demo net as both SW nets, under the
+    reference's names) and a 224-output SW net (testing.sw_g224_net_arrays
+    from the seed) as the g-224 net, phase 12's Garand and SW lookup-table
+    cloud files. The demos at their default widths (64 LW, 48 SW) and 1024
+    pairs, cut to DEMO_EPOCHS x DEMO_STEPS, card and CPU from one saved
+    student (--init-from): each epoch's metrics card against CPU (LW_ATOL,
+    SW_ATOL), the best epoch, the saved files' names; the g-112 weights
+    within DEMO_G112_ATOL; the solar calibration at targets that positive
+    fractions reach (the CPU's responses times SW_SOLAR_BAND_FRAC_CAL): the
+    responses within SW_ATOL and the fractions within DEMO_SOLAR_ATOL. Then
+    K4's calls (the g-112 and the 224-wide g-224 net) and K2's 14
+    single-band cld_lut calls as the scripts made them, against their twins
+    on the card; K2 on a zero source exactly 0, and on the 14 sources
+    summed within SW_ATOL of its 14 outputs summed. "demos ..." lines."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import SW_SOLAR_BAND_FRAC_CAL, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.models.network import (
+        load_model_netcdf, nn_model_from_arrays, save_model_netcdf)
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.testing import float64_copy
+    from rte_rrtmgp_nn_tpu_torch.training.train import init_model
+    from rte_rrtmgp_nn_tpu_torch.utils import cli
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def both(name, entry, args, outs, consts=None, around=contextlib.nullcontext):
+        """The script's ``entry`` on the card (inside ``around()``, whose
+        value is kept) and on the CPU; ``outs(tag)`` the arguments naming
+        its outputs. Returns {tag: (value, stdout, counts, kept)}."""
+        runs = {}
+        for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+            with (around() if tag == "card" else contextlib.nullcontext()) as kept:
+                value, out, sec, counts = call_script(
+                    name, entry, [*args, *outs(tag), "--device", device], consts)
+            secs[f"{name}_{tag}"] = sec
+            print(f"demos {name} on the {tag}: {sec:.2f} s, launches {counts} | {card}")
+            for line in out.splitlines():
+                if line.startswith(("best radiation", "vs teacher", "achieved", "max |delta|")):
+                    print(f"demos {name} [{tag}] {line.strip()}")
+            runs[tag] = (value, out, counts, kept)
+        require(runs["cpu"][2] == {}, f"{name} --device cpu launched kernels: {runs['cpu'][2]}")
+        return runs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)
+        rfmip_file = j("rfmip.nc")
+        testing.write_rfmip_file(rfmip_file, CLI_NEXP, CLI_NSITES, NLAY, SEED)
+        paths = write_allsky_files(tmp)
+        os.makedirs(j("models"))
+        for f in cli.SW_MODEL_FILES:
+            shutil.copy(SW_MODEL, j("models", f))
+        sw_host = load_model_netcdf(SW_MODEL, device=cpu)
+        save_model_netcdf(j("models", cli.SW_G224_MODEL_FILE),
+                          nn_model_from_arrays(*testing.sw_g224_net_arrays(sw_host, SEED),
+                                               device=cpu))
+
+        # -- the demos, card and CPU from one saved student ----------------------
+        demos = {
+            "lw": ("torch_train_demo", ["--teacher", LW_MODEL], LW_MODEL, 64, LW_ATOL,
+                   {"k1": 1, "k1_clear": 1, "fused_predict_lw_both": DEMO_EPOCHS,
+                    "k7": DEMO_EPOCHS, "k7_angles": DEMO_EPOCHS}),
+            "sw": ("torch_train_demo_sw", ["--models-dir", j("models")], SW_MODEL, 48, SW_ATOL,
+                   {"fused_predict_sw": DEMO_EPOCHS + 1}),
+        }
+        for band, (name, teacher_args, teacher_path, hidden, atol, expect) in demos.items():
+            t = load_model_netcdf(teacher_path, device=cpu)
+            save_model_netcdf(j(f"student-{band}.nc"), init_model(
+                [t.n_inputs, hidden, hidden, t.n_outputs], torch.Generator().manual_seed(SEED),
+                input_names=t.input_names, input_min=t.input_min, input_max=t.input_max,
+                output_mean=t.output_mean, output_std=t.output_std, device=cpu))
+            runs = both(name, "run", [*teacher_args, "--rfmip", rfmip_file, "--epochs",
+                                      str(DEMO_EPOCHS), "--steps-per-epoch", str(DEMO_STEPS),
+                                      "--init-from", j(f"student-{band}.nc")],
+                        lambda tag: ["--out-dir", j(f"{band}-{tag}")])
+            require(runs["card"][2] == expect,
+                    f"{name} did not launch {expect} on the card: {runs['card'][2]}")
+            rc, rp = runs["card"][0], runs["cpu"][0]
+            require(len(rc.history) == len(rp.history) == DEMO_EPOCHS
+                    and all(np.isfinite(h["score"]) for h in rc.history),
+                    f"{name}: an epoch gave no finite radiation score")
+            dl = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                     for a, b in zip(rc.history, rp.history))
+            dm = [float(np.abs(np.subtract(a["metrics"], b["metrics"])).max())
+                  for a, b in zip(rc.history, rp.history)]
+            (fc,), (fp,) = (glob.glob(j(f"{band}-{tag}", "*.nc")) for tag in ("card", "cpu"))
+            print(f"demos {name}: net {rc.best_model.dims}, {DEMO_EPOCHS} epochs x {DEMO_STEPS} "
+                  f"steps of 2048 rows; scores card {[round(h['score'], 4) for h in rc.history]}, "
+                  f"cpu {[round(h['score'], 4) for h in rp.history]}; best epoch {rc.best_epoch} "
+                  f"/ {rp.best_epoch}; losses card vs cpu {dl:.3e} relative; metrics card vs cpu "
+                  f"by epoch {[float(f'{e:.3e}') for e in dm]} (tol {atol}); saved "
+                  f"{os.path.basename(fc)} / {os.path.basename(fp)} | {card}")
+            require(max(dm) <= atol, f"{name}: an epoch's metrics on the card are "
+                                     f"{max(dm):.3e} from the CPU run's (tol {atol})")
+            require(rc.best_epoch == rp.best_epoch and
+                    os.path.basename(fc) == os.path.basename(fp),
+                    f"{name}: the card's best epoch or saved file differs from the CPU run's")
+
+        # -- calibrate_sw_g112: K4 twice, the 224-wide net the second time --------
+        runs = both("torch_calibrate_sw_g112", "main",
+                    ["--rfmip", rfmip_file, "--models-dir", j("models")],
+                    lambda tag: ["--out", j(f"weights-{tag}.py")],
+                    around=lambda: kept_calls({"k4": (mlp, "fused_predict_tau")},
+                                              lambda i: True))
+        require(runs["card"][2] == {"fused_predict_tau": 2},
+                f"torch_calibrate_sw_g112 did not launch K4 twice: {runs['card'][2]}")
+        weights = {}
+        for tag in ("card", "cpu"):
+            scope = {}
+            exec(open(j(f"weights-{tag}.py")).read(), scope)
+            weights[tag] = scope["SW_G112_WEIGHTS"]
+        resid = {tag: script_numbers(r"rms transmission residual ([0-9.]+)", runs[tag][1])
+                 for tag in ("card", "cpu")}
+        dw = float(np.abs(weights["card"] - weights["cpu"]).max())
+        print(f"demos torch_calibrate_sw_g112: weights card vs cpu max {dw:.3e} (tol "
+              f"{DEMO_G112_ATOL}), zero weights {int((weights['card'] == 0).sum())} / "
+              f"{int((weights['cpu'] == 0).sum())}; band residuals card "
+              f"{resid['card'].ravel().tolist()}, cpu {resid['cpu'].ravel().tolist()} | {card}")
+        require(weights["card"].shape == (112,) and dw <= DEMO_G112_ATOL
+                and resid["card"].shape == (14, 1),
+                "torch_calibrate_sw_g112's weights on the card differ from the CPU run's")
+        for args, kw in runs["card"][3]["k4"]:
+            net, x, col_dry = args
+            label = f"demos K4 on {'x'.join(map(str, x.shape[:-1]))} rows, net {net.dims}"
+            got = mlp.fused_predict_tau(*args)
+            hold(label, got, mlp.fused_predict_tau_plain(*args),
+                 mlp.fused_predict_tau_plain(float64_copy(net), x.double(), col_dry.double()),
+                 MLP_RTOL, 1e-8)
+            rows = x.numel() // x.shape[-1]
+            b = bound(nbytes(x, col_dry) + model_bytes(net) + rows * net.dims[-1] * 4,
+                      mlp_flops(net, rows) + ELEMENT_FLOPS["mlp"] * rows * net.dims[-1])
+            ms = cuda_ms(lambda: mlp.fused_predict_tau(*args))
+            ms_plain = cuda_ms(lambda: mlp.fused_predict_tau_plain(*args), reps=9)
+            print(f"{label}: {ms:.4f} ms (plain {ms_plain:.4f}), bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']} | {card}")
+
+        # -- calibrate_sw_solar: K2 cld_lut once a band ---------------------------
+        script = load_script("torch_calibrate_sw_solar")
+        pair = [load_model_netcdf(j("models", f), device=cpu) for f in cli.SW_MODEL_FILES]
+        with contextlib.redirect_stdout(None):
+            resp = script.band_responses(paths["garand"], paths["sw_lut"], pair,
+                                         sw_spectral_g112(), cpu)
+        target = SW_SOLAR_BAND_FRAC_CAL @ resp
+        runs = both("torch_calibrate_sw_solar", "main",
+                    ["--garand", paths["garand"], "--sw-cloud-coeffs", paths["sw_lut"],
+                     "--models-dir", j("models")], lambda tag: [],
+                    consts={"TARGET_DN": target[0], "TARGET_UP": target[1]},
+                    around=lambda: kept_calls({"k2": (allsky, "sw_clearsky_megakernel")},
+                                              lambda i: True))
+        require(runs["card"][2] == {"k2": SOLAR_NBAND, "k2_cld_lut": SOLAR_NBAND},
+                f"torch_calibrate_sw_solar did not launch K2 cld_lut once a band: "
+                f"{runs['card'][2]}")
+        pattern = r"band +\d+: dn= *([0-9.]+) +up= *([0-9.]+)"
+        rc, rp = (script_numbers(pattern, runs[tag][1]) for tag in ("card", "cpu"))
+        fc, fp = (solar_fractions(runs[tag][1]) for tag in ("card", "cpu"))
+        dr, df = float(np.abs(rc - rp).max()), float(np.abs(fc - fp).max())
+        print(f"demos torch_calibrate_sw_solar: targets dn/up {target[0]:.4f} / {target[1]:.4f} "
+              f"W/m2; responses card vs cpu max {dr:.3e} W/m2 (tol {SW_ATOL}, printed to 1e-3), "
+              f"fractions max {df:.3e} (tol {DEMO_SOLAR_ATOL}); card {fc.tolist()} | {card}")
+        require(rc.shape == rp.shape == (SOLAR_NBAND, 2) and dr <= SW_ATOL
+                and df <= DEMO_SOLAR_ATOL and bool((fc > 0).all()),
+                "torch_calibrate_sw_solar on the card differs from the CPU run")
+        hold_single_band_k2(runs["card"][3]["k2"], script.NCOL, card)
+
+    secs["phase"] = time.perf_counter() - t_phase
+    print("demos seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" | {card}")
 
 
 def run() -> dict:
@@ -3313,6 +3574,9 @@ def run() -> dict:
     # ---- 24. the command-line entry points, and the lay-major K7 route -------------------------
     timed.update(cli_phase(dev, card, lw_model, table, lw_spec, data))
 
+    # ---- 25. the distillation demos and the SW calibrations -------------------------------------
+    demos_phase(dev, card)
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -3342,7 +3606,8 @@ def main() -> int:
          "counted_around": "rfmip_clear_sky_lw, both orientations; also launched, not counted "
                            "here: lw_mega_core_sharded, once a rank a call at world size 1 and "
                            "on two ranks (phase 22); scripts/torch_run_rfmip.py and "
-                           "torch_eval_rfmip.py, once a run (phase 24)"},
+                           "torch_eval_rfmip.py, once a run (phase 24); "
+                           "scripts/torch_train_demo.py, once a run (phase 25)"},
         {"name": "sw_clearsky_megakernel", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"],
@@ -3355,17 +3620,21 @@ def main() -> int:
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
          "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations; also "
                            "launched, not counted here: the dry run's g-point-split forward, "
-                           "once a rank (phase 22)"},
+                           "once a rank (phase 22); scripts/torch_train_demo.py, once an "
+                           "epoch's eval (phase 25)"},
         {"name": "fused_predict_tau", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"],
-         "counted_around": "rfmip_clear_sky_lw, two models, use_megakernel=False"},
+         "counted_around": "rfmip_clear_sky_lw, two models, use_megakernel=False; also "
+                           "launched, not counted here: scripts/torch_calibrate_sw_g112.py, "
+                           "twice a run, on a 112- and a 224-output SW net (phase 25)"},
         {"name": "fused_predict_sw", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:179", **r["k5"],
          "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations; also "
                            "launched, not counted here: the SW training eval, once an epoch "
-                           "(phase 23)"},
+                           "(phase 23); scripts/torch_train_demo_sw.py, once an epoch's eval "
+                           "and once for the teacher's fluxes (phase 25)"},
         {"name": "lw_prep", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
@@ -3385,7 +3654,8 @@ def main() -> int:
                            "scripts/torch_run_regression.py, once each of its nine broadband "
                            "LUT LW solves (one angle, three angles, per-(column, g-point) "
                            "optimal angles, the vertical reverse), and "
-                           "lw_solver_noscat_lay_major, once a call (phase 24)"},
+                           "lw_solver_noscat_lay_major, once a call (phase 24); "
+                           "scripts/torch_train_demo.py, once an epoch's eval (phase 25)"},
         {"name": "lw_noscat_broadband[fields]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_fields"],
@@ -3404,7 +3674,9 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:303", **r["k2_cld_lut"],
          "counted_around": "allsky_sw, lookup-table cloud optics; also launched, not counted "
-                           "here: scripts/torch_run_allsky.py, once a loop (phase 24)"},
+                           "here: scripts/torch_run_allsky.py, once a loop (phase 24); "
+                           "scripts/torch_calibrate_sw_solar.py, once a band on a source in "
+                           "that band alone, 14 a run (phase 25)"},
         {"name": "sw_clearsky_megakernel[cld_bands]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:321", **r["k2_cld_bands"],

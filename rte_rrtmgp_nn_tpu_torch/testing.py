@@ -360,6 +360,26 @@ def random_gas_optics_net_arrays(dims, activations, seed: int, names=None):
     return (ws, bs, acts, names, mn, mx, np.ones_like(om), np.full_like(os_, 0.1))
 
 
+def sw_g224_net_arrays(sw112, seed: int):
+    """A 224-output SW absorption net standing in for the reference's g-224
+    net (16 g-points a band): random_gas_optics_net_arrays from ``seed`` at
+    the widths of the g-112 net ``sw112`` but for its 224 outputs, with
+    ``sw112``'s activations, input names and input scalings; each band's 16
+    outputs take the output mean and std of that band's g-112 outputs,
+    spread over them in order, so that the two nets' optical depths are of
+    one size band by band."""
+    from .gasoptics.planck import SW_G112_GPT_PER_BAND
+
+    counts = np.asarray(SW_G112_GPT_PER_BAND)
+    starts = np.cumsum(counts) - counts
+    src = [s + (j * n) // 16 for s, n in zip(starts, counts) for j in range(16)]
+    ws, bs, acts, _, _, _, _, _ = random_gas_optics_net_arrays(
+        sw112.dims[:-1] + [16 * len(counts)], sw112.activations, seed)
+    a = lambda t: t.detach().cpu().numpy()
+    return (ws, bs, acts, sw112.input_names, a(sw112.input_min), a(sw112.input_max),
+            a(sw112.output_mean)[src], a(sw112.output_std)[src])
+
+
 def model_arrays(model):
     """The arrays of an NNModel of this package (any device), in the
     random_mlp_arrays layout."""

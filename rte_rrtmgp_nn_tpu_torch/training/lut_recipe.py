@@ -79,21 +79,27 @@ def lw_training_set(train_nc: str, ngpt: int) -> LWTrainingSet:
 
 
 def sample_pair_rows(rng: np.random.Generator, nexp: int, nsites: int, nlay: int,
-                     npairs: int) -> np.ndarray:
+                     npairs: int, eval_pair_p=EVAL_PAIR_P) -> np.ndarray:
     """The rows of one batch of ``npairs`` experiment pairs (2 * npairs
     rows: the first experiments, then their partners; the hybrid loss pairs
     row i with row i + npairs): one site and layer per pair, half the pairs
-    from EVAL_PAIRS (EVAL_PAIR_P), half two distinct random experiments;
-    the draws of scripts/train_from_lut.py. With fewer than 11 experiments
-    the scored pairs beyond them are left out (their shares renormalized),
-    and with none left every pair is random."""
+    from EVAL_PAIRS, half two distinct random experiments. The scored pairs
+    are drawn with the shares ``eval_pair_p`` (the draws of
+    scripts/train_from_lut.py) or, with None, uniformly (the draws of
+    scripts/train_demo.py and train_demo_sw.py). With fewer than 11
+    experiments the scored pairs beyond them are left out (their shares
+    renormalized), and with none left every pair is random."""
     site = rng.integers(0, nsites, npairs)
     lay = rng.integers(0, nlay, npairs)
     keep = EVAL_PAIRS.max(axis=1) < nexp
     n_eval = npairs // 2 if keep.any() else 0
-    p = np.asarray(EVAL_PAIR_P)[keep]
-    ab = EVAL_PAIRS[keep][rng.choice(int(keep.sum()), n_eval, p=p / p.sum())] if n_eval else \
-        np.zeros((0, 2), np.int64)
+    if not n_eval:
+        ab = np.zeros((0, 2), np.int64)
+    elif eval_pair_p is None:
+        ab = EVAL_PAIRS[keep][rng.integers(0, int(keep.sum()), n_eval)]
+    else:
+        p = np.asarray(eval_pair_p)[keep]
+        ab = EVAL_PAIRS[keep][rng.choice(int(keep.sum()), n_eval, p=p / p.sum())]
     ra = rng.integers(0, nexp, npairs - n_eval)
     rb = (ra + rng.integers(1, nexp, npairs - n_eval)) % nexp
     ea = np.concatenate([ab[:, 0], ra])

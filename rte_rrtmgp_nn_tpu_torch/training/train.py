@@ -37,14 +37,15 @@ def init_model(
     output_mean=None,
     output_std=None,
     dtype=torch.float32,
-    device="cpu",
+    *,
+    device,
 ) -> NNModel:
     """He-style init of an MLP (normal weights of std sqrt(2 / fan-in), zero
     biases) in the NNModel container, the equivalent of
     ml_trainfuncs_keras.create_model_mlp. The weights and biases require
     grad; the scaling coefficients are buffers. The draws come from
     ``generator`` on the CPU, one layer after another, and are then moved
-    to ``device``."""
+    to ``device``, which has no default (as ``load_model_netcdf``'s)."""
     weights, biases = [], []
     for n_in, n_out in zip(dims[:-1], dims[1:]):
         w = torch.randn((n_in, n_out), generator=generator, dtype=dtype)

@@ -22,6 +22,9 @@ MODELS_DIR_IN_REFERENCE = "neural/data"
 # the nets the reference's RFMIP and all-sky examples load from its models dir
 LW_MODEL_FILE = "lw-g128-210809_both_BEST.nc"
 SW_MODEL_FILES = ("sw-g112-210809_absorption_BEST.nc", "sw-g112-210809_rayleigh_BEST.nc")
+# the unreduced SW absorption net (16 g-points a band) the g-112 quadrature
+# weights are fitted against (scripts/torch_calibrate_sw_g112.py)
+SW_G224_MODEL_FILE = "sw-g224-2018-12-04-absorption_BEST.nc"
 
 
 def add_reference_argument(ap: argparse.ArgumentParser, flag: str, in_reference: str,

@@ -57,7 +57,8 @@ LW_ATOL, SW_ATOL = 2e-3, 2e-2  # W/m2: the port's bounds against the JAX package
 METRIC_ATOL = 2e-3
 NEXP, NSITES, NLAY, ALLSKY_NCOL = 11, 4, 60, 12
 PORT_SCRIPTS = ("torch_run_rfmip", "torch_run_allsky", "torch_eval_rfmip",
-                "torch_run_regression")
+                "torch_run_regression", "torch_train_demo", "torch_train_demo_sw",
+                "torch_calibrate_sw_g112", "torch_calibrate_sw_solar")
 # the flags each script requires (the reference checkout's files), here
 # naming files that do not exist
 REQUIRED_PATHS = {
@@ -66,6 +67,11 @@ REQUIRED_PATHS = {
                          "--sw-cloud-coeffs", "missing-sw.nc", "--models-dir", "missing"],
     "torch_eval_rfmip": ["missing-model.nc", "--rfmip", "missing.nc"],
     "torch_run_regression": [],
+    "torch_train_demo": ["--teacher", "missing-model.nc", "--rfmip", "missing.nc"],
+    "torch_train_demo_sw": ["--models-dir", "missing", "--rfmip", "missing.nc"],
+    "torch_calibrate_sw_g112": ["--rfmip", "missing.nc", "--models-dir", "missing"],
+    "torch_calibrate_sw_solar": ["--garand", "missing.nc", "--sw-cloud-coeffs", "missing-sw.nc",
+                                 "--models-dir", "missing"],
 }
 
 

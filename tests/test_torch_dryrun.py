@@ -35,7 +35,7 @@ def ranks():
 
 
 def test_train_step_split_over_ranks_equals_one_process(ranks):
-    model = init_model([18, 16, 16, 32], torch.Generator().manual_seed(0))
+    model = init_model([18, 16, 16, 32], torch.Generator().manual_seed(0), device="cpu")
     state, _ = create_train_state(model)
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.normal(size=(16, 18)), dtype=torch.float32)

@@ -205,7 +205,7 @@ def test_port_loop_learns_saves_and_reloads_bit_identically(kd_path, mini_rfmip,
     model = ptrain.init_model([ts.xs.shape[-1], 24, 24, 2 * kd.ngpt],
                               torch.Generator().manual_seed(0), input_names=("tlay", "play") + tuple(GASES),
                               input_min=ts.xmin, input_max=ts.xmax, output_mean=ts.out_mean,
-                              output_std=ts.out_std)
+                              output_std=ts.out_std, device=CPU)
     state, _ = ptrain.create_train_state(model, learning_rate=3e-3)
     step = ptrain.make_train_step(alpha=0.5)
     pairs = R.pair_index(64, CPU)
@@ -235,7 +235,7 @@ def test_loop_refuses_to_save_an_untrained_model_and_snapshots_the_best(tmp_path
     """Zero epochs (or no finite score) leaves the untrained init as the
     best model: the loop refuses to save it. The best model is a copy taken
     at its epoch: later steps do not reach it."""
-    m = ptrain.init_model([3, 4, 2], torch.Generator().manual_seed(1))
+    m = ptrain.init_model([3, 4, 2], torch.Generator().manual_seed(1), device=CPU)
     state, _ = ptrain.create_train_state(m, learning_rate=0.1)
     step = ptrain.make_train_step()
     batch = lambda: (torch.rand(8, 3), torch.rand(8, 2))

@@ -153,7 +153,7 @@ def test_init_model_is_he_init_and_trainable():
     dims = [7, 256, 256, 128]
     g = torch.Generator().manual_seed(0)
     m = ptrain.init_model(dims, g, input_min=np.zeros(7), input_max=np.ones(7),
-                          output_mean=np.zeros(128), output_std=np.ones(128))
+                          output_mean=np.zeros(128), output_std=np.ones(128), device="cpu")
     assert m.dims == dims and m.activations == ("softsign", "softsign", "linear")
     assert m.input_names == tuple(f"x{i}" for i in range(7))
     for w, n_in in zip(m.weights, dims[:-1]):
@@ -162,9 +162,16 @@ def test_init_model_is_he_init_and_trainable():
     assert all(b.requires_grad and not b.any() for b in m.biases)
     assert [n for n, _ in m.named_parameters()] == [
         "weights.0", "weights.1", "weights.2", "biases.0", "biases.1", "biases.2"]
-    m2 = ptrain.init_model(dims, torch.Generator().manual_seed(0))
+    m2 = ptrain.init_model(dims, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(m.weights, m2.weights))
     assert m2.output_mean is None and torch.equal(m2.input_max, torch.ones(7))
+
+
+def test_init_model_has_no_default_device():
+    """The device is a required keyword, as load_model_netcdf's: no
+    constructor of the port picks the CPU for its caller."""
+    with pytest.raises(TypeError, match="device"):
+        ptrain.init_model([3, 4, 2], torch.Generator().manual_seed(0))
 
 
 def test_create_train_state_is_adam_on_the_weights():
