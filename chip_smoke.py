@@ -187,7 +187,19 @@ non-zero and prints no result line):
      and once; K4 2; K2 cld_lut 14) and its host seconds; K4 on the 112-
      and 224-output nets and K2 cld_lut on each single-band source against
      their twins, K2 on a zero source exactly 0 and linear in its source.
-     "demos ..." lines.
+     "demos ..." lines;
+ 26. the benchmark entry points through their main() on the card:
+     bench_torch.py (the fused cores, then --core staged),
+     scripts/torch_bench_allsky.py at 1800 and 28,800 columns and
+     scripts/torch_bench_gcm.py streamed and --resident (cut to 230,400
+     columns in 4 blocks of 57,600: phase 20 sweeps all 1,036,800), each
+     with the counts set to 0 just before and read just
+     after: K1 and K2 once a core or driver call (clear; cld_lut for
+     all-sky), K3 + K7 and K5 once a call staged, K1 and K2 cld_lut and K1
+     clear once a GCM block (with the warm-up block and the one block of the
+     output check); each must exit 0 with "correct": true (the card's
+     fluxes against the port's float64 CPU run). Their JSON lines, then
+     "bench ..." lines and the phase's seconds.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -292,24 +304,13 @@ def maxabs(a, b) -> float:
 
 def cuda_ms(fn, reps=25, batch=10, warmup=3):
     """Milliseconds per fn() call: the median over ``reps`` samples, each the
-    CUDA-event time of ``batch`` back-to-back calls divided by ``batch``.
-    The host queues ahead of the card, so a call reads its device time
-    unless its host-side launches are slower than the card."""
-    import torch
+    CUDA-event time of ``batch`` back-to-back calls divided by ``batch``
+    (utils/bench.cuda_ms, the benchmark entries' timer). The host queues
+    ahead of the card, so a call reads its device time unless its host-side
+    launches are slower than the card."""
+    from rte_rrtmgp_nn_tpu_torch.utils import bench
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(batch):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / batch)
-    return statistics.median(times)
+    return bench.cuda_ms(fn, reps, batch, warmup)["median"]
 
 
 def adjudicate(name, err, tol, kernel, plain, ref64):
@@ -602,28 +603,6 @@ def hold_sw_f1(got, ref, dist, mu0, name="staged SW", show=12) -> tuple[float, i
     return f1_law(name, sw_col_err(got, ref), dist, mu0, show=show)
 
 
-def rfmip_sw_resonance_distance(data, sw64):
-    """(per column the smallest |k*mu0 - 1| over layers and g-points of the
-    clear-sky SW problem, mu0), k the two-stream eigenvalue from the float64
-    gas optics of the nets ``sw64`` on the CPU."""
-    import torch
-
-    from rte_rrtmgp_nn_tpu_torch.config import config
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
-    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
-    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
-
-    f64 = torch.float64
-    play, plev, tlay, _, mu0, _, _, concs = rfmip.sw_staged_inputs(data, "cpu", f64)
-    spec = sw_spectral_g112()
-    _, ssa, _ = go.gas_optics_sw_nn(sw64, play, plev, tlay, GasConcs(concs), spec,
-                                    torch.zeros(spec.ngpt, dtype=f64))
-    g1, g2 = (8.0 - 5.0 * ssa) * 0.25, 0.75 * ssa  # PIFM gammas, g = 0 (ops/sw_solver.py)
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
-    return (k * mu0[:, None, None] - 1.0).abs().amin((1, 2)).numpy(), mu0.numpy()
-
-
 def sw_col_err(got, ref):
     """Per column, the largest |got - ref| over levels and the SW fluxes
     (the three of a flux object, or every entry of a dict of named (ncol,
@@ -671,7 +650,8 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf, nn_model_from_arrays
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
-    from rte_rrtmgp_nn_tpu_torch.testing import model_arrays, split_lw_both_arrays
+    from rte_rrtmgp_nn_tpu_torch.testing import (
+        model_arrays, rfmip_sw_resonance_distance, split_lw_both_arrays)
 
     def reset():
         k7.LAUNCHES = 0
@@ -933,37 +913,6 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     return results, launches, timers
 
 
-def allsky_sw_resonance_distance(paths, flavour, sw64, ncol):
-    """Per column the smallest |k*mu0 - 1| over layers and g-points of the
-    all-sky SW problem (gas + delta-scaled clouds), k the two-stream
-    eigenvalue, from the float64 optical properties on the CPU."""
-    import torch
-
-    from rte_rrtmgp_nn_tpu_torch.config import config
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
-    from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics, load_cloud_optics
-    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
-    from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
-    from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalProps2str, delta_scale, increment
-
-    f64 = torch.float64
-    spec = sw_spectral_g112()
-    atm = allsky.read_garand(paths["garand"], ncol)
-    co = load_cloud_optics(paths[f"sw_{flavour}"], dtype=f64, device="cpu")
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
-    clouds = [t(a) for a in allsky.make_clouds(atm.play, atm.tlay, co)]
-    concs = {k: v.double() for k, v in atm.gas_concs.concs.items()}
-    tau, ssa, _ = go.gas_optics_sw_nn(sw64, t(atm.play), t(atm.plev), t(atm.tlay), GasConcs(concs),
-                                      spec, torch.zeros(spec.ngpt, dtype=f64))
-    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
-                   delta_scale(cloud_optics(co, *clouds, as_2str=True)))
-    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
-    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
-    return (k * ALLSKY_MU0 - 1.0).abs().amin((1, 2)).numpy()
-
-
 def write_allsky_files(directory) -> dict:
     """Write the all-sky drivers' input files, made from SEED, into
     ``directory``: a Garand-format atmosphere of NLAY layers, and
@@ -1042,6 +991,7 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -1133,7 +1083,8 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
             require(max(e_mega, e_st1, e_st3, e_ms) <= LW_ATOL, "all-sky LW routes disagree")
             ref_tiled = type(ref_sw)(**{n: tiled(ref_sw, n) for n in sw_names})
             e_mega = max(maxabs(getattr(sw, n).cpu(), getattr(ref_tiled, n)) for n in sw_names)
-            dist = allsky_sw_resonance_distance(paths, flavour, [sw64, sw64], 6)[tile.numpy()]
+            dist = testing.allsky_sw_resonance_distance(paths["garand"], paths[f"sw_{flavour}"],
+                                                         [sw64, sw64], 6)[tile.numpy()]
             mu0 = np.full(NCOL, ALLSKY_MU0)
             e_st, over, rest = f1_law(f"all-sky {flavour} staged SW", sw_col_err(sws, ref_tiled),
                                       dist, mu0)
@@ -1548,6 +1499,7 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
 def parallel_phase(dev, lw_model, sw_model, main):
     """Phase 16: the RFMIP drivers with scan_mode="parallel" against the
     sequential requests of phase 5 (fused) on the same data."""
+    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 
@@ -1572,7 +1524,7 @@ def parallel_phase(dev, lw_model, sw_model, main):
         for n in names:
             require(bool(torch.isfinite(getattr(fb, n)).all()), f"parallel-scan {n} not finite")
     sw64 = load_model_netcdf(SW_MODEL, device=torch.device("cpu"), dtype=torch.float64)
-    dist, mu0 = rfmip_sw_resonance_distance(d, [sw64, sw64])
+    dist, mu0 = testing.rfmip_sw_resonance_distance(d, [sw64, sw64])
     # the general SW core keeps float32 two-stream coefficients (as the JAX
     # one): against the fused kernel (float64 coefficients) its resonance
     # columns follow the F1 law
@@ -2720,11 +2672,13 @@ LW64_MODEL = os.path.join(HERE, "artifacts", "lw-g128-demo_both_64_64_HR_2.62e-0
 
 
 def load_script(name):
-    """scripts/<name>.py as a module."""
+    """scripts/<name>.py (or <name>.py beside this file) as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(f"cli_{name}",
-                                                  os.path.join(HERE, "scripts", f"{name}.py"))
+    path = os.path.join(HERE, "scripts", f"{name}.py")
+    if not os.path.exists(path):
+        path = os.path.join(HERE, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"cli_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2923,7 +2877,7 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
 
         hold_lw("torch_run_rfmip LW", fl["card"], fl["cpu"], rfmip_lw64)
         hold_sw("torch_run_rfmip SW", fs["card"], fs["cpu"], rfmip_sw64,
-                lambda: rfmip_sw_resonance_distance(fdata, sw64)[0], mu0)
+                lambda: testing.rfmip_sw_resonance_distance(fdata, sw64)[0], mu0)
 
         # torch_run_allsky: K1 and K2 in the cld_lut mode, once each a loop
         names = ("lw_flux_up", "lw_flux_dn", "sw_flux_up", "sw_flux_dn")
@@ -2953,7 +2907,8 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
                 lambda: allsky64("lw"))
         hold_sw("torch_run_allsky SW", sub(fa["card"], "sw"), sub(fa["cpu"], "sw"),
                 lambda: allsky64("sw"),
-                lambda: allsky_sw_resonance_distance(paths, "lut", sw64, 6)[tile.numpy()],
+                lambda: testing.allsky_sw_resonance_distance(
+                    paths["garand"], paths["sw_lut"], sw64, 6)[tile.numpy()],
                 np.full(NCOL, ALLSKY_MU0))
 
         # torch_eval_rfmip: K1 once; the reference fluxes from the 64-wide net
@@ -3281,6 +3236,62 @@ def demos_phase(dev, card) -> None:
     print("demos seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" | {card}")
 
 
+# phase 26: the benchmark entry points (bench_torch.py, scripts/torch_bench_allsky.py,
+# scripts/torch_bench_gcm.py), each through its main() at its default size
+BENCH_ALLSKY_WIDE = 28_800  # the all-sky size of ROADMAP Queue 1 item 2
+# the GCM entry cut from 18 blocks of 57,600 columns to 4, to keep the phase
+# near a minute (phase 20 sweeps all 18); the block size is not cut
+BENCH_GCM_NCOL = 4 * 57_600
+BENCH_RUNS = (("bench_torch", ()), ("bench_torch", ("--core", "staged")),
+              ("torch_bench_allsky", ()),
+              ("torch_bench_allsky", ("--ncol", str(BENCH_ALLSKY_WIDE))),
+              ("torch_bench_gcm", ("--ncol", str(BENCH_GCM_NCOL))),
+              ("torch_bench_gcm", ("--ncol", str(BENCH_GCM_NCOL), "--resident")))
+
+
+def bench_launches(name: str, args, lines: list) -> dict:
+    """The launches an entry's run must count (read_counts with the fused
+    kernels' modes): once a core or driver call ("calls" in its JSON) on
+    its route, K1 and K2 (clear, or cld_lut for all-sky), or K3 + K7 and K5
+    staged; for the GCM sweeps once a block, plus the warm-up block and
+    the one block of the output check, K1 and K2 cld_lut (all-sky) and K1
+    clear (LW)."""
+    if name == "torch_bench_gcm":
+        n = lines[0]["blocks"] + 2
+        return {"k1": 2 * n, "k1_cld_lut": n, "k1_clear": n, "k2": n, "k2_cld_lut": n}
+    lw, sw = lines[0]["calls"]["lw"], lines[0]["calls"]["sw"]
+    if "staged" in args:
+        return {"fused_predict_lw_both": lw, "k7": lw, "k7_angles": lw, "fused_predict_sw": sw}
+    mode = "cld_lut" if name == "torch_bench_allsky" else "clear"
+    return {"k1": lw, f"k1_{mode}": lw, "k2": sw, f"k2_{mode}": sw}
+
+
+def bench_phase(card) -> None:
+    """Phase 26: each benchmark entry on the card through its main(), the
+    kernels' counts set to 0 just before and read just after (call_script);
+    each must exit 0 with "correct": true on every JSON line, name the card
+    it ran on, and launch what bench_launches says. Prints their JSON lines
+    and the phase's seconds."""
+    t_phase = time.perf_counter()
+    for name, args in BENCH_RUNS:
+        rc, out, seconds, counts = call_script(name, "main", args)
+        lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        for line in lines:
+            print(json.dumps(line))
+        what = f"{name} {' '.join(args)}".strip()
+        require(rc == 0 and lines and all(line["correct"] for line in lines),
+                f"{what} exited {rc} or was not correct:\n{out}")
+        require(all(line["device"]["platform"] == "gpu" and line["backend"] == "cuda"
+                    and not line["metric"].endswith("_cpu") for line in lines),
+                f"{what} did not run on the card")
+        want = bench_launches(name, args, lines)
+        require(counts == want, f"{what} launched {counts}, not {want}")
+        print(f"bench {what}: exit 0, correct, {seconds:.2f} s, launches {counts}; "
+              + "; ".join(f"{line['metric']} {line['value']:.1f}" for line in lines)
+              + f" | {card}")
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def run() -> dict:
     import torch
 
@@ -3290,6 +3301,7 @@ def run() -> dict:
         import rte_rrtmgp_nn_tpu_torch  # noqa: F401
     except ImportError as e:
         raise SmokeFailure(f"the port package is not beside this script: {e}")
+    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
@@ -3486,7 +3498,7 @@ def run() -> dict:
     el = max(maxabs(got_lw.flux_up.cpu(), ref_lw.flux_up), maxabs(got_lw.flux_dn.cpu(), ref_lw.flux_dn))
     require(el <= LW_ATOL, "CUDA general LW path disagrees with the CPU reference")
     es, over, rest = hold_sw_f1(got_sw, ref_sw,
-                                *rfmip_sw_resonance_distance(small, [sw_cpu, sw_cpu]))
+                                *testing.rfmip_sw_resonance_distance(small, [sw_cpu, sw_cpu]))
     print(f"reference 64x{NLAY}: CUDA general path vs float64 on the CPU: LW {N_ANGLES} angles "
           f"{el:.3e} (tol {LW_ATOL}), staged SW {es:.3e} with {over} resonance columns beyond "
           f"{SW_ATOL}, the other columns {rest:.3e} W/m2")
@@ -3577,6 +3589,9 @@ def run() -> dict:
     # ---- 25. the distillation demos and the SW calibrations -------------------------------------
     demos_phase(dev, card)
 
+    # ---- 26. the benchmark entry points -----------------------------------------------------------
+    bench_phase(card)
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -3607,21 +3622,24 @@ def main() -> int:
                            "here: lw_mega_core_sharded, once a rank a call at world size 1 and "
                            "on two ranks (phase 22); scripts/torch_run_rfmip.py and "
                            "torch_eval_rfmip.py, once a run (phase 24); "
-                           "scripts/torch_train_demo.py, once a run (phase 25)"},
+                           "scripts/torch_train_demo.py, once a run (phase 25); "
+                           "bench_torch.py, once a core or driver call (phase 26)"},
         {"name": "sw_clearsky_megakernel", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2"],
          "counted_around": "rfmip_clear_sky_sw, both orientations; also launched, not counted "
                            "here: sw_mega_core_sharded, once a rank a call at world size 1 and "
                            "on two ranks (phase 22); scripts/torch_run_rfmip.py, once a run "
-                           "(phase 24)"},
+                           "(phase 24); bench_torch.py, once a core or driver call "
+                           "(phase 26)"},
         {"name": "fused_predict_lw_both", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
          "counted_around": "rfmip_clear_sky_lw(n_gauss_angles=3), both orientations; also "
                            "launched, not counted here: the dry run's g-point-split forward, "
                            "once a rank (phase 22); scripts/torch_train_demo.py, once an "
-                           "epoch's eval (phase 25)"},
+                           "epoch's eval (phase 25); bench_torch.py --core staged, once a "
+                           "call (phase 26)"},
         {"name": "fused_predict_tau", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:156", **r["k4"],
@@ -3634,7 +3652,8 @@ def main() -> int:
          "counted_around": "rfmip_clear_sky_sw(use_megakernel=False), both orientations; also "
                            "launched, not counted here: the SW training eval, once an epoch "
                            "(phase 23); scripts/torch_train_demo_sw.py, once an epoch's eval "
-                           "and once for the teacher's fluxes (phase 25)"},
+                           "and once for the teacher's fluxes (phase 25); bench_torch.py "
+                           "--core staged, once a call (phase 26)"},
         {"name": "lw_prep", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
@@ -3645,7 +3664,8 @@ def main() -> int:
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7"],
          "counted_around": "rfmip_clear_sky_lw(use_megakernel=False), one and two models: "
                            "one angle; also launched, not counted here: the dry run's "
-                           "g-point-split forward, once a rank (phase 22)"},
+                           "g-point-split forward, once a rank (phase 22); bench_torch.py "
+                           "--core staged, once a call (phase 26)"},
         {"name": "lw_noscat_broadband[angles]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_noscat.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_solver.py:89", **r["k7_angles"],
@@ -3665,7 +3685,9 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:431", **r["k1_cld_lut"],
          "counted_around": "allsky_lw, lookup-table cloud optics; also launched, not counted "
-                           "here: scripts/torch_run_allsky.py, once a loop (phase 24)"},
+                           "here: scripts/torch_run_allsky.py, once a loop (phase 24); "
+                           "scripts/torch_bench_allsky.py, once a call, and "
+                           "torch_bench_gcm.py, once a block (phase 26)"},
         {"name": "lw_clearsky_mega4[cld_bands]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:448", **r["k1_cld_bands"],
@@ -3676,7 +3698,9 @@ def main() -> int:
          "counted_around": "allsky_sw, lookup-table cloud optics; also launched, not counted "
                            "here: scripts/torch_run_allsky.py, once a loop (phase 24); "
                            "scripts/torch_calibrate_sw_solar.py, once a band on a source in "
-                           "that band alone, 14 a run (phase 25)"},
+                           "that band alone, 14 a run (phase 25); "
+                           "scripts/torch_bench_allsky.py, once a call, and "
+                           "torch_bench_gcm.py, once a block (phase 26)"},
         {"name": "sw_clearsky_megakernel[cld_bands]", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:321", **r["k2_cld_bands"],

@@ -316,6 +316,10 @@ def _warmup_stream(step_fn, arrays, block_size: int, *, device) -> None:
 
 def _mesh_for(mesh, device) -> Mesh:
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        # "cuda" names the current card; its tensors report it by index, and
+        # the replicated models and tables are looked up by their device
+        device = torch.device("cuda", torch.cuda.current_device())
     if mesh is None:
         return Mesh((device,))
     if mesh.ranks is not None:

@@ -586,6 +586,74 @@ def lut_reference_fluxes(directory: str, ncol: int, nlay: int, seed: int, top_at
 SW_F1_LAW = 4e-3
 
 
+def _resonance(op, mu0):
+    """Per column the smallest |k*mu0 - 1| over layers and g-points, k the
+    two-stream eigenvalue of the optical properties ``op`` (tau, ssa, g;
+    column-major) and ``mu0`` a scalar or per column."""
+    import torch
+
+    from .config import config
+
+    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
+    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
+    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    mu0 = torch.as_tensor(mu0, dtype=k.dtype)
+    if mu0.ndim:
+        mu0 = mu0[:, None, None]
+    return (k * mu0 - 1.0).abs().amin((1, 2)).numpy()
+
+
+def rfmip_sw_resonance_distance(data, sw64):
+    """(per column the smallest |k*mu0 - 1| over layers and g-points of the
+    clear-sky SW problem, mu0), k the two-stream eigenvalue from the float64
+    gas optics of the nets ``sw64`` on the CPU."""
+    import torch
+
+    from .drivers import rfmip
+    from .gas_concs import GasConcs
+    from .gasoptics import nn_gas_optics as go
+    from .gasoptics.planck import sw_spectral_g112
+    from .optical_props import OpticalProps2str
+
+    f64 = torch.float64
+    play, plev, tlay, _, mu0, _, _, concs = rfmip.sw_staged_inputs(data, "cpu", f64)
+    spec = sw_spectral_g112()
+    tau, ssa, _ = go.gas_optics_sw_nn(sw64, play, plev, tlay, GasConcs(concs), spec,
+                                      torch.zeros(spec.ngpt, dtype=f64))
+    op = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec)
+    return _resonance(op, mu0), mu0.numpy()
+
+
+def allsky_sw_resonance_distance(garand_path: str, coeffs_path: str, sw64, ncol: int,
+                                 mu0: float = 0.86):
+    """Per column the smallest |k*mu0 - 1| over layers and g-points of the
+    all-sky SW problem that allsky_sw solves on the Garand file
+    ``garand_path`` with the cloud coefficients ``coeffs_path`` (gas +
+    delta-scaled clouds; ``mu0`` the driver's), k the two-stream eigenvalue,
+    from the float64 optical properties of the nets ``sw64`` on the CPU."""
+    import torch
+
+    from .drivers import allsky
+    from .extensions.cloud_optics import cloud_optics, load_cloud_optics
+    from .gas_concs import GasConcs
+    from .gasoptics import nn_gas_optics as go
+    from .gasoptics.planck import sw_spectral_g112
+    from .optical_props import OpticalProps2str, delta_scale, increment
+
+    f64 = torch.float64
+    spec = sw_spectral_g112()
+    atm = allsky.read_garand(garand_path, ncol)
+    co = load_cloud_optics(coeffs_path, dtype=f64, device="cpu")
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
+    clouds = [t(a) for a in allsky.make_clouds(atm.play, atm.tlay, co)]
+    concs = {k: v.double() for k, v in atm.gas_concs.concs.items()}
+    tau, ssa, _ = go.gas_optics_sw_nn(sw64, t(atm.play), t(atm.plev), t(atm.tlay),
+                                      GasConcs(concs), spec, torch.zeros(spec.ngpt, dtype=f64))
+    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
+                   delta_scale(cloud_optics(co, *clouds, as_2str=True)))
+    return _resonance(op, mu0)
+
+
 def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) -> np.ndarray:
     """Per column ``idx`` of a GCM host dict (drivers.gcm.synthesize_gcm_columns),
     the smallest |k*mu0 - 1| over layers and g-points of the all-sky SW
@@ -595,7 +663,6 @@ def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) ->
     float64 on the CPU."""
     import torch
 
-    from .config import config
     from .drivers.allsky import make_clouds
     from .extensions.cloud_optics import cloud_optics
     from .gas_concs import GasConcs
@@ -620,8 +687,5 @@ def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) ->
                                    torch.zeros(spec.ngpt, dtype=f64))
     op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
                    delta_scale(cloud_optics(cloud_sw.to("cpu", f64), *clouds, as_2str=True)))
-    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
-    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
     mu0 = np.clip(np.cos(np.deg2rad(host["sza"][idx])).astype(np.float32), 0.05, 1.0)
-    return (k * t(mu0)[:, None, None] - 1.0).abs().amin((1, 2)).numpy()
+    return _resonance(op, t(mu0))

@@ -13,26 +13,34 @@ and one K2 launch a rank a call); ``--core staged``: the staged cores
 Either way a rank holds only its own block of columns on its card.
 ``--profile`` adds, for every rank, a torch.profiler window over ``--iters``
 calls: device busy and idle share, launches, and the host's time in
-PyTorch operators per call.
+PyTorch operators per call; beside it the weak-scaling efficiency on the
+slowest rank's device-busy time (busy at the first count over busy at N),
+which host noise does not reach.
 
 The inputs are synthetic (``testing.synthesize_rfmip(1800, 60, 0)`` tiled
 to the column count as ``bench_multichip._replicate_block`` tiles the RFMIP
-file) with the in-repo demo nets, and the JSON says so. Each timed sample:
-a barrier, CUDA events around ``--iters`` back-to-back LW + SW calls, the
-best of ``--reps`` samples, the slowest rank's. A count of 1 runs in this
-process; larger counts spawn their ranks.
+file) with the in-repo demo nets, and the JSON says so. Each rank is pinned
+to its own disjoint set of host cores (``os.sched_setaffinity``, the
+host's cores split evenly over the largest count's ranks, the same share
+at every count; ``torch.set_num_threads`` to match). One pass: a barrier,
+CUDA events around ``--iters`` back-to-back LW + SW calls, the best of
+``--reps`` samples, the slowest rank's. Each count runs ``--passes``
+passes in one launch of its ranks; every pass's per-card rate and
+efficiency (its per-card rate over the first count's median) is reported
+with the median and quartiles over the passes. Every count, 1 included,
+spawns its ranks, so that every count is timed in processes of one kind.
 
     python scripts/torch_bench_multichip.py --device-counts 1 --core mega
     python scripts/torch_bench_multichip.py --device-counts 1,2,4 --core mega --profile
     python scripts/torch_bench_multichip.py --device cpu --device-counts 1,2 --cols-per-device 64 --iters 2
 
 Prints one JSON line per count and a summary line (metric
-multichip_cols_per_s_per_chip, with the efficiency table inside).
+multichip_cols_per_s_per_chip, the median over the passes at the last
+count, with the efficiency table inside).
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -40,32 +48,45 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from rte_rrtmgp_nn_tpu_torch.parallel import distributed
-
-HERE = os.path.dirname(os.path.abspath(__file__))
-ARTIFACTS = os.path.join(HERE, "..", "artifacts")
-LW_MODEL = os.path.join(ARTIFACTS, "lw-g128-demo_both_128_128_HR_8.62e-02_FRC_1.55e+00.nc")
-SW_MODEL = os.path.join(ARTIFACTS, "sw-g112-demo_absorption_48_48_HR_3.64e-02_FRC_2.14e+00.nc")
+from rte_rrtmgp_nn_tpu_torch.utils import bench
 
 
 def _replicate_block(data, ncol_target: int):
     """Tile the base batch up or down to exactly ``ncol_target`` columns."""
-    reps = -(-ncol_target // data.ncol)
+    return bench.replicate_rfmip(data, -(-ncol_target // data.ncol)).block(0, ncol_target)
 
-    def rep(a):
-        return np.concatenate([np.asarray(a)] * reps, axis=0)[:ncol_target]
 
-    return dataclasses.replace(
-        data, play=rep(data.play), plev=rep(data.plev), tlay=rep(data.tlay),
-        tlev=rep(data.tlev), tsfc=rep(data.tsfc), sfc_emis=rep(data.sfc_emis),
-        sfc_alb=rep(data.sfc_alb), sza=rep(data.sza), tsi=rep(data.tsi),
-        gas_concs=type(data.gas_concs)({k: (rep(v) if np.ndim(v) == 2 else v)
-                                        for k, v in data.gas_concs.concs.items()}),
-        nexp=1, nsites=ncol_target)
+def core_sets(ndev_max: int) -> list[list[int]]:
+    """The host's cores (this process's affinity) split into ``ndev_max``
+    disjoint, equal, contiguous sets: rank r of any count takes set r."""
+    cores = sorted(os.sched_getaffinity(0))
+    k = max(1, len(cores) // ndev_max)
+    return [cores[r * k:(r + 1) * k] or cores[-k:] for r in range(ndev_max)]
+
+
+def pin(cores: list[int]) -> None:
+    """Pin this process to ``cores`` and give PyTorch's CPU ops as many
+    threads."""
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(len(cores))
+
+
+def pass_stats(rates: dict) -> dict:
+    """Weak-scaling statistics of per-card rates ``rates`` ({device count:
+    [one rate a pass]}, the first count first): per count the per-card rate
+    and the efficiency of each pass (its rate over the first count's
+    median rate), each with quartiles() beside the passes."""
+    first = bench.quartiles(rates[next(iter(rates))])["median"]
+    out = {}
+    for n, rs in rates.items():
+        eff = [r / first for r in rs]
+        out[n] = {"per_chip": {"passes": list(rs), **bench.quartiles(rs)},
+                  "efficiency": {"passes": eff, **bench.quartiles(eff)}}
+    return out
 
 
 def _clock(dev):
@@ -84,10 +105,13 @@ def _clock(dev):
 
 
 def rank_bench(core: str, cols_per_device: int, iters: int, reps: int,
-               profile: bool = False) -> dict:
-    """This rank's part of one device count: build the inputs, warm up, and
-    time; returns the slowest rank's best seconds per LW + SW call, and
-    with ``profile`` every rank's profiler window (``profile_window``)."""
+               profile: bool = False, passes: int = 1, cores=None) -> dict:
+    """This rank's part of one device count: pin to ``cores[rank]`` (when
+    given), build the inputs, warm up, and time ``passes`` passes; returns
+    each pass's slowest-rank best seconds per LW + SW call, and with
+    ``profile`` every rank's profiler window (``profile_window``)."""
+    if cores is not None:
+        pin(cores[dist.get_rank()])
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
@@ -102,8 +126,8 @@ def rank_bench(core: str, cols_per_device: int, iters: int, reps: int,
     ncol = cols_per_device * ndev
     data = _replicate_block(rfmip_data_from_arrays(synthesize_rfmip(1800, 60, 0)), ncol)
     lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
-    lw_models = [load_model_netcdf(LW_MODEL, device=dev)]
-    sw = load_model_netcdf(SW_MODEL, device=dev)
+    lw_models = [load_model_netcdf(bench.LW_MODEL, device=dev)]
+    sw = load_model_netcdf(bench.SW_MODEL, device=dev)
     sw_models = [sw, sw]
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
@@ -130,18 +154,22 @@ def rank_bench(core: str, cols_per_device: int, iters: int, reps: int,
 
     with torch.no_grad():
         call()  # the first call builds or loads the kernels
-        best = float("inf")
-        for _ in range(reps):
-            dist.barrier()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stop = _clock(dev)
-            for _ in range(iters):
-                call()
-            best = min(best, stop() / iters)
-    slowest = torch.tensor([best], dtype=torch.float64, device=dev)
+        bests = []
+        for _ in range(passes):
+            best = float("inf")
+            for _ in range(reps):
+                dist.barrier()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                stop = _clock(dev)
+                for _ in range(iters):
+                    call()
+                best = min(best, stop() / iters)
+            bests.append(best)
+    slowest = torch.tensor(bests, dtype=torch.float64, device=dev)
     dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
-    out = {"n_devices": ndev, "ncol": ncol, "s_per_iter": float(slowest)}
+    out = {"n_devices": ndev, "ncol": ncol, "s_per_iter": slowest.tolist(),
+           "cores": len(os.sched_getaffinity(0))}
     if profile:
         window = profile_window(call, iters, dev)
         windows = [None] * ndev
@@ -185,16 +213,11 @@ def profile_window(call, iters: int, dev) -> dict:
 
 
 def bench_count(ndev: int, device: str, core: str, cols_per_device: int, iters: int,
-                reps: int, profile: bool = False) -> dict:
-    """One device count: in this process for 1, else ``ndev`` spawned ranks."""
-    args = (core, cols_per_device, iters, reps, profile)
-    if ndev == 1 and not dist.is_initialized():
-        distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=device)
-        try:
-            return rank_bench(*args)
-        finally:
-            dist.destroy_process_group()
-    return distributed.launch(rank_bench, ndev, *args, device=device, timeout_s=900)[0]
+                reps: int, profile: bool = False, passes: int = 1, cores=None) -> dict:
+    """One device count on ``ndev`` spawned ranks (one as well: every count
+    is timed in processes of the same kind)."""
+    return distributed.launch(rank_bench, ndev, core, cols_per_device, iters, reps, profile,
+                              passes, cores, device=device, timeout_s=900)[0]
 
 
 def main(argv=None) -> list:
@@ -202,6 +225,8 @@ def main(argv=None) -> list:
     ap.add_argument("--cols-per-device", type=int, default=1824)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--passes", type=int, default=5,
+                    help="timed passes a device count, in one launch of its ranks")
     ap.add_argument("--device-counts", type=str, default="",
                     help="comma list; default 1,2,4,...,N")
     ap.add_argument("--core", choices=["staged", "mega"], default="staged",
@@ -226,24 +251,34 @@ def main(argv=None) -> list:
     if args.device != "cpu" and max(counts) > ndev_all:
         raise SystemExit(f"--device-counts {max(counts)}: this host has {ndev_all} cards")
 
-    rows, per_chip = [], {}
+    cores = core_sets(max(counts))
+    rows, rates, busy = [], {}, {}
     for ndev in counts:
         r = bench_count(ndev, args.device, args.core, args.cols_per_device, args.iters,
-                        args.reps, args.profile)
-        cols_s = r["ncol"] / r["s_per_iter"]
-        per_chip[ndev] = cols_s / ndev
-        row = {**r, "cols_per_s": cols_s, "cols_per_s_per_chip": per_chip[ndev],
-               "core": args.core, "inputs": "synthetic"}
+                        args.reps, args.profile, args.passes, cores)
+        rates[ndev] = [args.cols_per_device / s for s in r["s_per_iter"]]
+        row = {**r, "cols_per_s_per_chip": rates[ndev], "core": args.core,
+               "inputs": "synthetic"}
+        if args.profile:
+            busy[ndev] = max(w["busy_ms"] for w in r["profile"])
+            row["busy_ms_slowest_rank"] = busy[ndev]
         rows.append(row)
         print(json.dumps(row), flush=True)
-    eff = {str(n): per_chip[n] / per_chip[counts[0]] for n in counts}
+    stats = pass_stats(rates)
+    eff = {str(n): st["efficiency"] for n, st in stats.items()}
     summary = {
-        "metric": "multichip_cols_per_s_per_chip", "value": per_chip[counts[-1]],
+        "metric": "multichip_cols_per_s_per_chip",
+        "value": stats[counts[-1]]["per_chip"]["median"],
         "unit": "cols/s/chip (LW+SW)", "n_devices": counts[-1], "core": args.core,
+        "passes": args.passes, "per_chip": {str(n): st["per_chip"] for n, st in stats.items()},
         "weak_scaling_efficiency": eff, "inputs": "synthetic",
+        "cores_per_rank": len(cores[0]),
         "backend": "cuda" if args.device != "cpu" else "cpu",
         "device": torch.cuda.get_device_name(0) if args.device != "cpu" else "cpu",
     }
+    if args.profile:
+        summary["device_time_efficiency"] = {str(n): busy[counts[0]] / b
+                                             for n, b in busy.items()}
     rows.append(summary)
     print(json.dumps(summary), flush=True)
     return rows

@@ -435,3 +435,14 @@ def test_gcm_block_off_the_cpu_launches_its_kernels_never_twins(models, clouds, 
         got = body(*lanes[:6], lanes[6:])
         assert tuple(got.shape) == (BLOCK, 2)
         assert launched == expect_lw and modes == (["clear"] if mega else [])
+
+
+def test_gcm_mesh_names_the_current_card_by_index(monkeypatch):
+    """device="cuda" (no index) becomes the current card by index, as the
+    block tensors report their device: the step looks up the replicated
+    models by it (a sweep with device="cuda" failed with a KeyError)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert pgcm._mesh_for(None, "cuda").devices == (torch.device("cuda", 0),)
+    assert pgcm._mesh_for(None, "cuda:0").devices == (torch.device("cuda", 0),)
+    assert pgcm._mesh_for(None, CPU).devices == (CPU,)

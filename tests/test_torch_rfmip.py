@@ -160,15 +160,15 @@ def test_read_rfmip_classic_netcdf(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_triton():
-    """Every module of the port, the port's scripts (scripts/torch_*.py)
-    and chip_smoke.py import in a fresh interpreter without pulling in jax,
-    optax, triton or the JAX package."""
+    """Every module of the port, the port's scripts (scripts/torch_*.py),
+    bench_torch.py and chip_smoke.py import in a fresh interpreter without
+    pulling in jax, optax, triton or the JAX package."""
     code = (
         "import glob, importlib, importlib.util, pkgutil, sys\n"
         "import rte_rrtmgp_nn_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "for f in sorted(glob.glob('scripts/torch_*.py')) + ['chip_smoke.py']:\n"
+        "for f in sorted(glob.glob('scripts/torch_*.py')) + ['bench_torch.py', 'chip_smoke.py']:\n"
         "    spec = importlib.util.spec_from_file_location('m_' + f.split('/')[-1][:-3], f)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "    names.append(f)\n"
