@@ -23,10 +23,9 @@ kernels' first-use build, outside every timer), ``calls`` (core and driver
 calls on the device: the launches of the route's kernels), the mean fluxes,
 and the output check: the first min(ncol, 1800) columns of the card's
 cores against the port's own CPU run in float64 on the same inputs
-(``max_abs_dflux_lw`` / ``_sw``; LW within 2e-3, SW within 2e-2 W/m2, and
-on the staged SW route, whose two-stream coefficients are float32, a
-column beyond it within the F1 law, ROADMAP Queue 3). ``correct`` false
-exits 1.
+(``max_abs_dflux_lw`` / ``_sw``; LW within 2e-3, SW within 2e-2 W/m2 in
+every column on either route: both take float64 two-stream coefficients,
+``sw_f1_columns`` is 0). ``correct`` false exits 1.
 
 Routes (``--core``): ``auto`` is the drivers' dispatch
 (config.resolve_use_megakernel): on CUDA the fused cores
@@ -107,16 +106,16 @@ def core_calls(routes, lw_models, sw_models, data, dev) -> tuple:
     return lw, sw
 
 
-def reference64(data, lw_path: str, sw_paths) -> tuple[dict, list]:
+def reference64(data, lw_path: str, sw_paths) -> dict:
     """The port's own run in float64 on the CPU (the drivers' staged
-    route, the nets through testing.float64_copy) on ``data``: (the fluxes
-    as hold_fluxes takes them, the float64 SW nets)."""
+    route, the nets through testing.float64_copy) on ``data``: the fluxes
+    as hold_fluxes takes them."""
     lw64, sw64 = bench.float64_models(lw_path, sw_paths)
     f64 = torch.float64
     return {"lw": bench.flux_fields(rfmip.rfmip_clear_sky_lw(data, lw64, dtype=f64,
                                                              device="cpu")),
             "sw": bench.flux_fields(rfmip.rfmip_clear_sky_sw(data, sw64, dtype=f64, device="cpu"),
-                                    bench.SW_FIELDS)}, sw64
+                                    bench.SW_FIELDS)}
 
 
 def main(argv=None) -> int:
@@ -143,12 +142,10 @@ def main(argv=None) -> int:
 
     nchk = min(ncol, bench.CHECK_NCOL)
     head = data.block(0, nchk)
-    ref, sw64 = reference64(head, args.lw_model, args.sw_models)
-    dist = (testing.rfmip_sw_resonance_distance(head, sw64)[0]
-            if routes[1] == "staged" else None)
     check = bench.hold_fluxes(
         {"lw": bench.flux_fields(flw, ncol=nchk),
-         "sw": bench.flux_fields(fsw, bench.SW_FIELDS, ncol=nchk)}, ref, sw_resonance=dist)
+         "sw": bench.flux_fields(fsw, bench.SW_FIELDS, ncol=nchk)},
+        reference64(head, args.lw_model, args.sw_models))
 
     lw_s, sw_s = m["lw"]["median"] / 1e3, m["sw"]["median"] / 1e3
     cols_per_s = ncol / (lw_s + sw_s)

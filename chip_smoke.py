@@ -40,9 +40,9 @@ non-zero and prints no result line):
      and K7 once for all three angles per call); single-angle LW without the megakernel,
      two-model (K4, then K7) and one-model (K3, then K7), equal to each
      other and to the K1 path; rfmip_clear_sky_sw without the megakernel
-     (K5) held against the same path in float64 (a column beyond the bound
-     must lie near the two-stream resonance and within the measured
-     1/|k*mu0 - 1| law, ROADMAP Queue 3 F1, and is printed); then a small
+     (K5) held against the same path in float64 within 2e-2 W/m2 in every
+     column (its two-stream coefficients are float64, as K2's: no column
+     near the resonance k*mu0 = 1 is excepted); then a small
      input through both paths on CUDA against the same paths in float64
      on the CPU;
  10. timing of K3, K4, K5, K7 (one angle, three angles, fields mode) and
@@ -113,8 +113,8 @@ non-zero and prints no result line):
      (GB/s); one streamed sweep under torch.profiler (the device's idle
      share, K1 + K2 a block against the block's window); at 115,200
      columns Pade clouds (K1 and K2 in the cld_bands mode) and the staged
-     route (K3 + K7, K5; its SW held by the F1 law against the fused
-     route); 100,000 columns with a ragged last block against one block.
+     route (K3 + K7, K5; its SW within 2e-2 W/m2 of the fused route in
+     every column); 100,000 columns with a ragged last block against one block.
      The kernels' calls at the GCM's own shapes are kept (kept_calls) and
      held against their plain twins on the card on the same tensors (the
      twins 14,400 columns a call): K1 and K2 cld_lut on block 0 (57,600
@@ -166,7 +166,7 @@ non-zero and prints no result line):
      phase 12's all-sky files at 1800 columns and the stand-in nets under
      the reference's BEST names: the card's output files against the CPU
      run's (LW 2e-3, SW 2e-2 W/m2, float64 deciding beyond; the CPU's
-     staged SW by the F1 law; the regression's SW on both), the eval's
+     SW of both, the regression's too), the eval's
      metric block, every regression check at --fail-tol 1e-5 on the card
      and the regression's 28 fields; the launches around each run
      (K1 1 and K2 1; K1 and K2 cld_lut once a loop; K1 1; K7 once a LUT LW
@@ -199,7 +199,23 @@ non-zero and prints no result line):
      clear once a GCM block (with the warm-up block and the one block of the
      output check); each must exit 0 with "correct": true (the card's
      fluxes against the port's float64 CPU run). Their JSON lines, then
-     "bench ..." lines and the phase's seconds.
+     "bench ..." lines and the phase's seconds; each SW line with
+     "sw_f1_columns": 0;
+ 27. the SW main path on a real absorption + Rayleigh pair ("sw-pair"
+     lines): the in-repo sw-synth56-lut nets of hidden widths 128_128 on
+     the synthetic 56-g-point SW k-distribution they were trained on
+     (testing.sw_pair_setup, written to a temporary directory), 1800 x 60
+     from the seed, where ssa spans [0, 1]: its ssa quantiles and the
+     cells within 1e-3 of the two-stream resonance k*mu0 = 1;
+     rfmip_clear_sky_sw on the fused route (K2 at 56 g-points, once a
+     call) and on the staged route (K5 once a call, then the PyTorch
+     sweeps), each counted, each within 2e-2 W/m2 of the port's float64 CPU
+     run in every column, no resonance column excepted (every SW route
+     takes K2's float64 two-stream coefficients,
+     ops/sw_solver.pifm_coefficients); K2 against its twin on the same
+     tensors; K2's time, its twin's and its bound at 56 g-points; the
+     staged SW core's time and kernel launches a call on the pair and on
+     the stand-in.
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -254,9 +270,6 @@ N_ANGLES = 3  # Gauss angles of the general LW path
 # the largest g-point Planck source of the run
 K6_TRANS_ATOL, K6_SRC_REL = 1e-7, 2e-5
 LUT_GPTS_PER_BAND = 16  # the unreduced k-distributions' width: 256 LW, 224 SW g-points
-# W/m2: the SW float32 resonance columns' err * |k*mu0 - 1| limit, about
-# twice the largest measured (hold_sw_f1; ROADMAP Queue 3 F1)
-F1_LAW = 4e-3
 # NVIDIA H100 SXM data sheet: device memory rate and float32 rate outside
 # the tensor cores (TF32 and bf16 are excluded by the accuracy contract)
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
@@ -587,20 +600,13 @@ def k7_bound(bytes_moved: float, cells: int, angles: int) -> dict:
     return bound(bytes_moved, per_cell * cells)
 
 
-def hold_sw_f1(got, ref, dist, mu0, name="staged SW", show=12) -> tuple[float, int, float]:
-    """The F1 rule (ROADMAP Queue 3) for SW fluxes through the staged path
-    (float32 two-stream coefficients) against the same path in float64.
-    Near k*mu0 = 1 (k the two-stream eigenvalue) the float32 coefficients'
-    0/0 forms lose accuracy about as 1/|k*mu0 - 1|: on an H100, err *
-    |k*mu0 - 1| was at most 1.83e-3 W/m2 over the 52 columns beyond
-    SW_ATOL at 1800 x 60 and 64 x 60 (0.51 W/m2 at 6.5e-4 from the
-    resonance, 0.028 at 6.5e-2). Each column is held within max(SW_ATOL, F1_LAW / d), d its
-    smallest |k*mu0 - 1| over layers and g-points (``dist``, with k from
-    this run's float64 optical properties, e.g. rfmip_sw_resonance_distance);
-    each column beyond SW_ATOL is printed (the first ``show``). ``got`` and
-    ``ref`` are flux objects or dicts of named fields (sw_col_err). Returns
-    (max error, columns beyond SW_ATOL, max error of the other columns)."""
-    return f1_law(name, sw_col_err(got, ref), dist, mu0, show=show)
+def hold_sw(got, ref, name="staged SW") -> float:
+    """Hold SW fluxes per column within SW_ATOL of a reference (sw_col_err:
+    flux objects or dicts of named fields): every SW route of the port
+    takes float64 two-stream coefficients (ops/sw_solver.pifm_coefficients,
+    as K2), so no column near the resonance k*mu0 = 1 is excepted (ROADMAP
+    Queue 3 F1). Returns the largest error."""
+    return hold_sw_columns(name, sw_col_err(got, ref))
 
 
 def sw_col_err(got, ref):
@@ -617,25 +623,14 @@ def sw_col_err(got, ref):
     return col_err.amax(0).numpy()
 
 
-def f1_law(name, col_err, dist, mu0, show=12) -> tuple[float, int, float]:
-    """Hold per-column SW errors within max(SW_ATOL, F1_LAW / dist), dist
-    the column's smallest |k*mu0 - 1|; print (the first ``show`` of) the
-    columns beyond SW_ATOL. Returns (max error, columns beyond SW_ATOL, max
-    error of the other columns)."""
-    limit = np.maximum(SW_ATOL, F1_LAW / dist)
+def hold_sw_columns(name, col_err) -> float:
+    """Require every column's SW error ``col_err`` within SW_ATOL; the
+    failure names the columns beyond and the largest. Returns the largest."""
+    worst = int(np.argmax(col_err))
     over = np.nonzero(col_err > SW_ATOL)[0]
-    for c in over[:show]:
-        print(f"F1 column {c} ({name}): mu0 {float(mu0[c]):.6f}, min |k*mu0 - 1| {dist[c]:.2e}, "
-              f"|staged - float64| {col_err[c]:.3e} W/m2, err*|k*mu0 - 1| "
-              f"{col_err[c] * dist[c]:.3e} (limit {limit[c]:.3e} W/m2)")
-    if len(over) > show:
-        print(f"F1 ({name}): {len(over) - show} more columns beyond {SW_ATOL}, largest "
-              f"err*|k*mu0 - 1| {float((col_err * dist)[over].max()):.3e}")
-    bad = np.nonzero(col_err > limit)[0]
-    require(bad.size == 0, f"{name}: columns {bad.tolist()[:20]} are beyond "
-                           f"max({SW_ATOL}, {F1_LAW}/|k*mu0 - 1|) from float64")
-    rest = np.delete(col_err, over)
-    return float(col_err.max()), len(over), float(rest.max()) if rest.size else 0.0
+    require(over.size == 0, f"{name}: {over.size} columns beyond {SW_ATOL} W/m2 (the first "
+                            f"{over[:20].tolist()}), largest {col_err[worst]:.3e} at column {worst}")
+    return float(col_err[worst])
 
 
 def general_main_path(dev, lw_model, sw_model, main) -> dict:
@@ -650,8 +645,7 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf, nn_model_from_arrays
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
-    from rte_rrtmgp_nn_tpu_torch.testing import (
-        model_arrays, rfmip_sw_resonance_distance, split_lw_both_arrays)
+    from rte_rrtmgp_nn_tpu_torch.testing import model_arrays, split_lw_both_arrays
 
     def reset():
         k7.LAUNCHES = 0
@@ -727,12 +721,10 @@ def general_main_path(dev, lw_model, sw_model, main) -> dict:
     flip = max(maxabs(staged[True].flux_up, staged[False].flux_up.flip(1)),
                maxabs(staged[True].flux_dn, staged[False].flux_dn.flip(1)))
     require(flip <= 1e-6, "staged SW: the two vertical orientations disagree")
-    err, over, rest = hold_sw_f1(staged[True], ref,
-                                 *rfmip_sw_resonance_distance(d1, [sw64, sw64]))
-    e_fused = max(maxabs(staged[True].flux_up, sw1.flux_up), maxabs(staged[True].flux_dn, sw1.flux_dn))
+    err = hold_sw(staged[True], ref)
+    e_fused = hold_sw(staged[True], sw1, "staged vs fused SW")
     print(f"staged SW (K5): fused_predict_sw launches {launches['k5']}; vs float64 on the CPU "
-          f"{err:.3e} W/m2 (tol {SW_ATOL}), {over} resonance columns beyond it; the other "
-          f"columns {rest:.3e}; vs the fused path (K2, float64 coefficients) {e_fused:.3e}; "
+          f"{err:.3e} W/m2 (tol {SW_ATOL} in every column); vs the fused path (K2) {e_fused:.3e}; "
           f"orientations differ by {flip:.3e}")
     return launches
 
@@ -991,7 +983,6 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.config import config_override
-    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -1083,15 +1074,11 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
             require(max(e_mega, e_st1, e_st3, e_ms) <= LW_ATOL, "all-sky LW routes disagree")
             ref_tiled = type(ref_sw)(**{n: tiled(ref_sw, n) for n in sw_names})
             e_mega = max(maxabs(getattr(sw, n).cpu(), getattr(ref_tiled, n)) for n in sw_names)
-            dist = testing.allsky_sw_resonance_distance(paths["garand"], paths[f"sw_{flavour}"],
-                                                         [sw64, sw64], 6)[tile.numpy()]
-            mu0 = np.full(NCOL, ALLSKY_MU0)
-            e_st, over, rest = f1_law(f"all-sky {flavour} staged SW", sw_col_err(sws, ref_tiled),
-                                      dist, mu0)
-            f1_law(f"all-sky {flavour} fused vs staged SW", sw_col_err(sw, sws), dist, mu0)
-            print(f"all-sky {flavour} SW vs float64 on the CPU: fused {e_mega:.3e} (tol {SW_ATOL}), "
-                  f"staged {e_st:.3e} with {over} columns beyond {SW_ATOL} (min |k*mu0 - 1| "
-                  f"{float(dist.min()):.3e}), the others {rest:.3e} W/m2; mean dn "
+            e_st = hold_sw(sws, ref_tiled, f"all-sky {flavour} staged SW")
+            e_fs = hold_sw(sw, sws, f"all-sky {flavour} fused vs staged SW")
+            print(f"all-sky {flavour} SW vs float64 on the CPU: fused {e_mega:.3e}, staged "
+                  f"{e_st:.3e} (tol {SW_ATOL} in every column); fused vs staged {e_fs:.3e} "
+                  f"W/m2; mean dn "
                   f"{float(sw.flux_dn.mean()):.4f} up {float(sw.flux_up.mean()):.4f} dir "
                   f"{float(sw.flux_dn_dir.mean()):.4f}")
             require(e_mega <= SW_ATOL, "all-sky fused SW disagrees with float64")
@@ -1109,12 +1096,10 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
                                        scan_mode="parallel", device=dev)
                 c_swp = counts()
                 e_lwp = max(maxabs(getattr(lwp, n), getattr(lw1, n)) for n in lw_names)
-                e_swp, over, rest = f1_law("all-sky parallel-scan vs staged SW",
-                                           sw_col_err(swp, sws), dist, mu0)
+                e_swp = hold_sw(swp, sws, "all-sky parallel-scan vs staged SW")
                 print(f"all-sky parallel scans: allsky_lw launches {c_lwp}, vs the staged request "
                       f"{e_lwp:.3e} W/m2 (tol {LW_ATOL}); allsky_sw launches {c_swp}, vs the staged "
-                      f"request {e_swp:.3e} with {over} columns beyond {SW_ATOL}, the others "
-                      f"{rest:.3e}")
+                      f"request {e_swp:.3e} (tol {SW_ATOL} in every column)")
                 require(c_lwp == {"fused_predict_lw_both": 1} and c_swp == {"fused_predict_sw": 1},
                         "the parallel-scan all-sky requests did not take K3 and K5 alone")
                 require(e_lwp <= LW_ATOL, "all-sky parallel-scan LW disagrees with the staged request")
@@ -1499,9 +1484,7 @@ def prep_phase(dev, lw_model, table, lw_spec, lw_in, main, model64, table64, car
 def parallel_phase(dev, lw_model, sw_model, main):
     """Phase 16: the RFMIP drivers with scan_mode="parallel" against the
     sequential requests of phase 5 (fused) on the same data."""
-    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
-    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 
     import torch
 
@@ -1523,15 +1506,11 @@ def parallel_phase(dev, lw_model, sw_model, main):
     for fb, names in ((lw_par, ("flux_up", "flux_dn")), (sw_par, ("flux_up", "flux_dn", "flux_dn_dir"))):
         for n in names:
             require(bool(torch.isfinite(getattr(fb, n)).all()), f"parallel-scan {n} not finite")
-    sw64 = load_model_netcdf(SW_MODEL, device=torch.device("cpu"), dtype=torch.float64)
-    dist, mu0 = testing.rfmip_sw_resonance_distance(d, [sw64, sw64])
-    # the general SW core keeps float32 two-stream coefficients (as the JAX
-    # one): against the fused kernel (float64 coefficients) its resonance
-    # columns follow the F1 law
-    e_sw, over, rest = f1_law("parallel-scan SW vs the fused request", sw_col_err(sw_par, sw_seq),
-                              dist, mu0)
-    print(f"parallel-scan SW vs the sequential request (K2): {e_sw:.3e} W/m2 with {over} "
-          f"resonance columns beyond {SW_ATOL}, the other columns {rest:.3e}")
+    # the general SW core takes K2's float64 two-stream coefficients
+    # (pifm_coefficients): within SW_ATOL of the fused request in every column
+    e_sw = hold_sw(sw_par, sw_seq, "parallel-scan SW vs the fused request")
+    print(f"parallel-scan SW vs the sequential request (K2): {e_sw:.3e} W/m2 (tol {SW_ATOL} in "
+          f"every column)")
 
 
 def lut_phase(dev, card):
@@ -1625,7 +1604,7 @@ def lut_phase(dev, card):
     got = testing.lut_fluxes(kd["lw"], kd["sw"], small, dev, f32)
     errs = {}
     for name, v in got.items():
-        if name in ("sw_resonance", "hr_lw") or name.startswith("sw_"):
+        if name == "hr_lw" or name.startswith("sw_"):
             continue
         e = maxabs(v.cpu(), ref[name])
         e_own = maxabs(own[name], ref[name])
@@ -1637,13 +1616,11 @@ def lut_phase(dev, card):
                   f"float32 run is {e_own:.3e} from it (F3: thin layers in the two-stream source)")
     sw_got = type("SW", (), dict(flux_up=got["sw_up"], flux_dn=got["sw_dn"], flux_dn_dir=got["sw_dir"]))
     sw_ref = type("SW", (), dict(flux_up=ref["sw_up"], flux_dn=ref["sw_dn"], flux_dn_dir=ref["sw_dir"]))
-    e_sw, over, rest = f1_law("LUT SW", sw_col_err(sw_got, sw_ref), ref["sw_resonance"].numpy(),
-                              testing.lut_inputs(small, cpu, f64)[5].numpy())
+    e_sw = hold_sw(sw_got, sw_ref, "LUT SW")
     print(f"LUT path 64x{NLAY}: CUDA vs float64 on the CPU: LW "
           + ", ".join(f"{k[:-3]} {max(errs[k[:-3] + '_up'], errs[k[:-3] + '_dn']):.3e}"
                       for k in errs if k.endswith("_up"))
-          + f" (tol {LW_ATOL}); SW {e_sw:.3e} with {over} resonance columns beyond {SW_ATOL}, "
-          f"the others {rest:.3e} W/m2")
+          + f" (tol {LW_ATOL}); SW {e_sw:.3e} W/m2 (tol {SW_ATOL} in every column)")
     return timed
 
 GCM_NCOL, GCM_BLOCK = 1_036_800, 57_600  # scripts/bench_gcm.py's defaults: 18 blocks
@@ -1839,6 +1816,36 @@ def gcm_hold_kept(what: str, kept: dict, blocks, phase: str = "gcm") -> None:
     torch.cuda.empty_cache()
 
 
+def device_us(e) -> float:
+    """A torch.profiler key average's own device time (us), under either
+    attribute name of the installed torch."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def profiled_calls(fn, calls: int = 3) -> tuple[float, float]:
+    """``fn`` after one warm-up call, ``calls`` times under torch.profiler:
+    (kernel launches a call, device busy ms a call), the memory copies and
+    sets left out of both."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+              and not e.key.startswith(("Memcpy", "Memset"))]
+    require(events, "the profiler's trace holds no device time")
+    return (sum(e.count for e in events) / calls,
+            sum(device_us(e) for e in events) / 1e3 / calls)
+
+
 def gcm_profile(sweep, nblocks: int, card: str) -> None:
     """One streamed sweep under torch.profiler: the device's idle share over
     the sweep (1 - kernel time / the sweep's time), the copies' time, and
@@ -1849,19 +1856,12 @@ def gcm_profile(sweep, nblocks: int, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         r = sweep()
     window = r["elapsed_s"] * 1e3
-
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
-
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     require(events, "the profiler's trace of the GCM sweep holds no device time")
-    copies = sum(dev_us(e) for e in events if e.key.startswith(("Memcpy", "Memset"))) / 1e3
-    kernels = sum(dev_us(e) for e in events if not e.key.startswith(("Memcpy", "Memset"))) / 1e3
-    mega = {k: sum(dev_us(e) for e in events if f"{k}_mega_kernel" in e.key) / 1e3
+    copies = sum(device_us(e) for e in events if e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    kernels = sum(device_us(e) for e in events if not e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    mega = {k: sum(device_us(e) for e in events if f"{k}_mega_kernel" in e.key) / 1e3
             for k in ("lw", "sw")}
     launches = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
     print(f"gcm profile, one streamed sweep: window {window:.1f} ms, kernels {kernels:.1f} ms "
@@ -1869,8 +1869,8 @@ def gcm_profile(sweep, nblocks: int, card: str) -> None:
           f"{1 - kernels / window:.4f}; K1 + K2 {(mega['lw'] + mega['sw']) / nblocks:.3f} ms a "
           f"block (K1 {mega['lw'] / nblocks:.3f}, K2 {mega['sw'] / nblocks:.3f}) of a "
           f"{window / nblocks:.3f} ms window | {card}")
-    for e in sorted(events, key=dev_us, reverse=True)[:6]:
-        print(f"gcm profile kernel {e.key[:60]!r}: {dev_us(e) / 1e3 / nblocks:.3f} ms a block, "
+    for e in sorted(events, key=device_us, reverse=True)[:6]:
+        print(f"gcm profile kernel {e.key[:60]!r}: {device_us(e) / 1e3 / nblocks:.3f} ms a block, "
               f"{e.count / nblocks:.1f} launches a block")
 
 
@@ -1887,7 +1887,6 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
-    from rte_rrtmgp_nn_tpu_torch.testing import gcm_sw_resonance_distance
 
     t_phase = time.perf_counter()
     nblocks = -(-GCM_NCOL // GCM_BLOCK)
@@ -2011,19 +2010,11 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
                 f"the staged GCM sweep did not launch K3, K7 and K5 once a block: {c}")
         st = staged["diagnostics"]
         e_lw = float(np.abs(st[:, :2] - diag[:GCM_SIDE_NCOL, :2]).max())
-        col_err = np.abs(st[:, 2] - diag[:GCM_SIDE_NCOL, 2])
-        over = np.nonzero(col_err > SW_ATOL)[0]
-        # the resonance distance where it decides: a column within SW_ATOL
-        # keeps that bound (F1_LAW / 1 < SW_ATOL)
-        dist = np.ones(GCM_SIDE_NCOL)
-        if over.size:
-            dist[over] = gcm_sw_resonance_distance(side, over, sw_pair, co["lw_lut"], co["sw_lut"])
         print(f"gcm staged vs fused route on {GCM_SIDE_NCOL} columns: LW {e_lw:.3e} W/m2 "
               f"(tol {LW_ATOL})")
         require(e_lw <= LW_ATOL, "the staged GCM route's LW disagrees with the fused one")
-        e_sw, n_over, rest = f1_law("gcm staged vs fused SW", col_err, dist, mu0[:GCM_SIDE_NCOL])
-        print(f"gcm staged vs fused SW: max {e_sw:.3e} W/m2, {n_over} columns beyond {SW_ATOL} "
-              f"(held by the F1 law), the others {rest:.3e}")
+        e_sw = hold_sw_columns("gcm staged vs fused SW", np.abs(st[:, 2] - diag[:GCM_SIDE_NCOL, 2]))
+        print(f"gcm staged vs fused SW: max {e_sw:.3e} W/m2 (tol {SW_ATOL} in every column)")
         del side, pade, staged
 
         # a ragged last block against the same columns in one block
@@ -2731,33 +2722,17 @@ def read_fields(path, names=None) -> dict:
     return {n: torch.from_numpy(v.reshape(-1, v.shape[-1])) for n, v in arrays.items()}
 
 
-def regression_float64(script) -> tuple[dict, np.ndarray]:
+def regression_float64(script) -> dict:
     """scripts/torch_run_regression.py's fields at its defaults in float64
-    on the CPU (its own load_kdists and regression_fields), and per column
-    the smallest |k*mu0 - 1| over layers and g-points of its SW problem (k
-    the PIFM eigenvalue of the float64 LUT optical properties)."""
+    on the CPU (its own load_kdists and regression_fields)."""
     import torch
-
-    from rte_rrtmgp_nn_tpu_torch.config import config
-    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import gas_optics_sw_lut
-    from rte_rrtmgp_nn_tpu_torch.testing import make_atmosphere
 
     cpu, f64 = torch.device("cpu"), torch.float64
     with contextlib.redirect_stdout(None):
         kd_lw, kd_sw = script.load_kdists(None, None, f64, device=cpu)
     ncol, nlay = CLI_REGRESSION_SIZE
     fields = script.regression_fields(kd_lw, kd_sw, ncol, nlay, f64, device=cpu)
-    play, plev, tlay, _, _, vmr = make_atmosphere(ncol, nlay)
-    t = lambda a: torch.from_numpy(a)
-    props, _ = gas_optics_sw_lut(kd_sw, t(play), t(plev), t(tlay),
-                                 GasConcs.create({g: np.asarray(v, np.float64)
-                                                  for g, v in vmr.items()}))
-    g1 = (8.0 - props.ssa * (5.0 + 3.0 * props.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
-    g2 = 3.0 * (props.ssa * (1.0 - props.g)) * 0.25
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
-    return ({n: t(v) for n, v in fields.items()},
-            (k * script.MU0 - 1.0).abs().amin((1, 2)).numpy())
+    return {n: torch.from_numpy(v) for n, v in fields.items()}
 
 
 def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
@@ -2768,12 +2743,12 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
     (testing.write_rfmip_file, seed 0), the all-sky files of phase 12 and a
     models dir holding the in-repo stand-ins under the reference's BEST
     names. The card's output files against the CPU run's: LW within LW_ATOL,
-    beyond it float64 decides (adjudicate); SW within SW_ATOL, beyond it the
-    card against float64 within SW_ATOL and the CPU's staged SW by the F1
-    law; the eval's 8 metrics within 2e-3 of the CPU run's; every regression
-    check under --fail-tol 1e-5 on the card, and its 28 fields card against
-    CPU as above (its SW is PyTorch's float32 PIFM on both, so beyond SW_ATOL
-    the F1 law holds both against float64). The launches counted around
+    beyond it float64 decides (adjudicate); SW within SW_ATOL, beyond it
+    float64 decides, the card and the CPU each within SW_ATOL of it in every
+    column (float64 two-stream coefficients on every route); the eval's 8
+    metrics within 2e-3 of the CPU run's; every regression check under
+    --fail-tol 1e-5 on the card, and its 28 fields card against CPU as
+    above. The launches counted around
     each main on the card (and none on the CPU), each run's host seconds.
     Then lw_solver_noscat_lay_major's K7 route on the layer-major fields of
     the main path's gas optics, with per-(column, g-point) secants and an
@@ -2821,25 +2796,17 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
                         lambda: tuple(make_ref64()[n] for n in got))
         return e
 
-    def hold_sw(name, got, ref, make_ref64, make_dist, mu0, card_staged=False):
-        """Beyond SW_ATOL float64 decides: the CPU's staged SW (and the
-        card's, where ``card_staged``) under the F1 law, else the card
-        within SW_ATOL."""
+    def hold_sw_cli(name, got, ref, make_ref64):
+        """Beyond SW_ATOL float64 decides: the card and the CPU each within
+        SW_ATOL of it in every column."""
         e = max(maxabs(got[n], ref[n]) for n in got)
         line = f"cli {name}: max|card - cpu| {e:.3e} W/m2 (tol {SW_ATOL})"
         if e > SW_ATOL:
-            ref64, dist = make_ref64(), make_dist()
+            ref64 = make_ref64()
             ref64 = {n: ref64[n] for n in got}
-            if card_staged:
-                e64, over, _ = hold_sw_f1(got, ref64, dist, mu0, f"cli {name} card", show=3)
-                line += f"; float64 decides: card {e64:.3e} ({over} columns beyond {SW_ATOL})"
-            else:
-                e64 = max(maxabs(got[n], ref64[n]) for n in got)
-                require(e64 <= SW_ATOL, f"cli {name}: the card is {e64:.3e} W/m2 from float64")
-                line += f"; float64 decides: card {e64:.3e}"
-            e_cpu, over, rest = hold_sw_f1(ref, ref64, dist, mu0, f"cli {name} CPU", show=3)
-            line += (f", CPU {e_cpu:.3e} with {over} resonance columns beyond {SW_ATOL}, "
-                     f"the others {rest:.3e}")
+            e64 = hold_sw(got, ref64, f"cli {name} card")
+            e_cpu = hold_sw(ref, ref64, f"cli {name} CPU")
+            line += f"; float64 decides: card {e64:.3e}, CPU {e_cpu:.3e}"
         print(line)
         return e
 
@@ -2865,8 +2832,6 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
               for tag in ("card", "cpu")}
         fs = {tag: {n: read_fields(j(tag, f"{n}_t.nc"), [n])[n] for n in ("rsu", "rsd")}
               for tag in ("card", "cpu")}
-        mu0 = np.cos(np.deg2rad(fdata.sza.astype(np.float64)))
-
         def rfmip_sw64():
             fb = rfmip.rfmip_clear_sky_sw(fdata, sw64, device=cpu, dtype=f64)
             return {"rsu": fb.flux_up, "rsd": fb.flux_dn}
@@ -2876,8 +2841,7 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
             return {"rlu": fb.flux_up, "rld": fb.flux_dn}
 
         hold_lw("torch_run_rfmip LW", fl["card"], fl["cpu"], rfmip_lw64)
-        hold_sw("torch_run_rfmip SW", fs["card"], fs["cpu"], rfmip_sw64,
-                lambda: testing.rfmip_sw_resonance_distance(fdata, sw64)[0], mu0)
+        hold_sw_cli("torch_run_rfmip SW", fs["card"], fs["cpu"], rfmip_sw64)
 
         # torch_run_allsky: K1 and K2 in the cld_lut mode, once each a loop
         names = ("lw_flux_up", "lw_flux_dn", "sw_flux_up", "sw_flux_dn")
@@ -2905,11 +2869,8 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
         sub = lambda d, band: {n: v for n, v in d.items() if n.startswith(band)}
         hold_lw("torch_run_allsky LW", sub(fa["card"], "lw"), sub(fa["cpu"], "lw"),
                 lambda: allsky64("lw"))
-        hold_sw("torch_run_allsky SW", sub(fa["card"], "sw"), sub(fa["cpu"], "sw"),
-                lambda: allsky64("sw"),
-                lambda: testing.allsky_sw_resonance_distance(
-                    paths["garand"], paths["sw_lut"], sw64, 6)[tile.numpy()],
-                np.full(NCOL, ALLSKY_MU0))
+        hold_sw_cli("torch_run_allsky SW", sub(fa["card"], "sw"), sub(fa["cpu"], "sw"),
+                    lambda: allsky64("sw"))
 
         # torch_eval_rfmip: K1 once; the reference fluxes from the 64-wide net
         ref = j("ref64.nc")
@@ -2947,24 +2908,23 @@ def cli_phase(dev, card, lw_model, table, lw_spec, data) -> dict:
             require("all verification checks passed" in out,
                     f"torch_run_regression on the {tag}: a check failed")
         # its fields, card against CPU: every LW field (the nine K7 solves,
-        # the Jacobian's PyTorch solve) and every SW field (PyTorch's PIFM in
-        # float32 on both, so the F1 law on both beyond SW_ATOL)
+        # the Jacobian's PyTorch solve) and every SW field (PyTorch's PIFM,
+        # float64 coefficients, on both)
         fr = {tag: read_fields(j(f"regression-{tag}.nc")) for tag in ("card", "cpu")}
         require(sorted(fr["card"]) == sorted(fr["cpu"]) and len(fr["card"]) == 28,
                 f"torch_run_regression wrote other fields: {sorted(fr['card'])}")
         script = load_script("torch_run_regression")
         reg64 = {}
 
-        def regression64(key):
+        def regression64():
             if not reg64:
-                reg64["fields"], reg64["dist"] = regression_float64(script)
-            return reg64[key]
+                reg64.update(regression_float64(script))
+            return reg64
 
         hold_lw("torch_run_regression LW", sub(fr["card"], "lw"), sub(fr["cpu"], "lw"),
-                lambda: regression64("fields"))
-        hold_sw("torch_run_regression SW", sub(fr["card"], "sw"), sub(fr["cpu"], "sw"),
-                lambda: regression64("fields"), lambda: regression64("dist"),
-                np.full(CLI_REGRESSION_SIZE[0], script.MU0), card_staged=True)
+                regression64)
+        hold_sw_cli("torch_run_regression SW", sub(fr["card"], "sw"), sub(fr["cpu"], "sw"),
+                    regression64)
 
     # lw_solver_noscat_lay_major on the card: one launch of K7's angles mode
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -3284,12 +3244,123 @@ def bench_phase(card) -> None:
         require(all(line["device"]["platform"] == "gpu" and line["backend"] == "cuda"
                     and not line["metric"].endswith("_cpu") for line in lines),
                 f"{what} did not run on the card")
+        require(all(line.get("sw_f1_columns", 0) == 0 for line in lines),
+                f"{what}: SW columns beyond 2e-2 W/m2 were let through")
         want = bench_launches(name, args, lines)
         require(counts == want, f"{what} launched {counts}, not {want}")
         print(f"bench {what}: exit 0, correct, {seconds:.2f} s, launches {counts}; "
               + "; ".join(f"{line['metric']} {line['value']:.1f}" for line in lines)
               + f" | {card}")
     print(f"bench phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
+def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
+    """Phase 27: the SW main path on a real absorption + Rayleigh pair, the
+    in-repo sw-synth56-lut nets of hidden widths 128_128 on the synthetic
+    56-g-point SW k-distribution they were trained on
+    (testing.sw_pair_setup), at NCOL x NLAY from SEED. The float64 optical
+    properties' ssa quantiles and the cells and columns within 1e-3 of the
+    resonance k*mu0 = 1; rfmip_clear_sky_sw on the fused route (K2 at ngpt =
+    56, once a call) and on the staged route (K5 once a call, then the
+    PyTorch sweeps with pifm_coefficients), each with the counts set to 0
+    just before and read just after, each within SW_ATOL of the port's
+    float64 CPU run in every column; K2 against its twin on the same CUDA
+    tensors (float64 deciding beyond); K2's time, its twin's and its bound;
+    both staged SW cores' times and kernel launches a call (the pair and the
+    stand-in of phase 10). Returns (K2's result entry, its launches, its
+    times) for the kernels line."""
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.ops.sw_solver import pifm_eigenvalue
+
+    t_phase = time.perf_counter()
+    cpu, f64 = torch.device("cpu"), torch.float64
+    with tempfile.TemporaryDirectory() as tmp:
+        pair = testing.sw_pair_setup(tmp, "128_128", device=dev)
+        pair64 = testing.sw_pair_setup(tmp, "128_128", device=cpu, dtype=f64)
+    spec, models = pair["spectral"], pair["models"]
+    ngpt = spec.ngpt
+    data = rfmip_data_from_arrays(testing.synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=True))
+    kw = dict(spectral=spec, solar_source=pair["solar"])
+
+    _, ssa, mu0 = testing.rfmip_sw_optics64(data, pair64["models"], spec)
+    day = torch.as_tensor(data.sza < 90.0)
+    dist = (pifm_eigenvalue(ssa, torch.zeros_like(ssa))[2] * mu0[:, None, None] - 1.0).abs()
+    near = dist[day] <= 1e-3
+    q = np.quantile(ssa.numpy(), [0.0, 0.05, 0.5, 0.95, 1.0])
+    print(f"sw-pair {NCOL}x{NLAY}, {ngpt} g-points ({os.path.basename(pair['paths'][0])}): ssa "
+          f"quantiles 0/5/50/95/100% " + " ".join(f"{v:.6g}" for v in q)
+          + f"; {float(near.double().mean()):.4e} of the day cells ({int(near.sum())} of "
+          f"{near.numel()}) within 1e-3 of k*mu0 = 1, in {int(near.any(2).any(1).sum())} of "
+          f"{int(day.sum())} day columns; smallest |k*mu0 - 1| {float(dist[day].min()):.3e}")
+    require(q[0] < 1e-3 and q[-1] > 0.99, "the pair's ssa does not span [0, 1]")
+    ref = rfmip.rfmip_clear_sky_sw(data, pair64["models"], dtype=f64, device=cpu, **kw)
+
+    reset_counts()
+    fused = rfmip.rfmip_clear_sky_sw(data, models, device=dev, **kw)
+    c_fused = read_counts()
+    reset_counts()
+    with config_override(use_megakernel=False):
+        staged = rfmip.rfmip_clear_sky_sw(data, models, device=dev, **kw)
+    c_staged = read_counts()
+    print(f"sw-pair launches: fused rfmip_clear_sky_sw {c_fused}, staged {c_staged}")
+    require(c_fused == {"k2": 1} and c_staged == {"fused_predict_sw": 1},
+            "the pair's SW requests did not launch K2 once (fused) or K5 once (staged)")
+    for fb in (fused, staged):
+        for n in ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"):
+            v = getattr(fb, n)
+            require(tuple(v.shape) == (NCOL, NLAY + 1) and bool(torch.isfinite(v).all()),
+                    f"sw-pair {n}: {tuple(v.shape)} or not finite")
+    e_fused = hold_sw(fused, ref, "sw-pair fused SW (K2) vs float64")
+    e_staged = hold_sw(staged, ref, "sw-pair staged SW (K5) vs float64")
+    e_routes = hold_sw(staged, fused, "sw-pair staged vs fused SW")
+    print(f"sw-pair vs float64 on the CPU, in every column: fused (K2) {e_fused:.3e}, staged (K5) "
+          f"{e_staged:.3e}; staged vs fused {e_routes:.3e} W/m2 (tol {SW_ATOL}) | {card}")
+
+    solar = torch.as_tensor(pair["solar"], dtype=torch.float32, device=dev)
+    args = rfmip.sw_mega_args(models, solar, *rfmip.sw_canonical_inputs(data, dev))
+    outs_k = k2.sw_clearsky_megakernel(*args)
+    torch.cuda.synchronize()
+    outs_p = k2.sw_clearsky_megakernel_plain(*args)
+    outs_64 = k2.sw_clearsky_megakernel_plain(*in_float64(args, {})[0])
+    e2 = max(maxabs(a, b) for a, b in zip(outs_k, outs_p))
+    print(f"sw-pair K2 {NCOL}x{NLAY}x{ngpt}: max|kernel-plain| {e2:.3e} W/m2 (tol {SW_ATOL}); vs "
+          f"float64 plain: kernel {max(maxabs(a, b) for a, b in zip(outs_k, outs_64)):.3e}, "
+          f"plain {max(maxabs(a, b) for a, b in zip(outs_p, outs_64)):.3e}")
+    adjudicate("K2 on the pair", e2, SW_ATOL, outs_k, outs_p, outs_64)
+    ncell = NCOL * NLAY
+    result = {"max_abs_err": e2, **bound(
+        nbytes(*args[2:4], *args[5:]) + model_bytes(*models) + 3 * NCOL * (NLAY + 1) * 4,
+        sum(mlp_flops(m, ncell) for m in models) + ELEMENT_FLOPS["sw"] * ncell * ngpt)}
+    timed = {"k2_pair": cuda_ms(lambda: k2.sw_clearsky_megakernel(*args)),
+             "k2_pair_plain": cuda_ms(lambda: k2.sw_clearsky_megakernel_plain(*args), reps=9)}
+    print(f"timing sw-pair K2 (ngpt {ngpt}): {timed['k2_pair']:.4f} ms, plain twin "
+          f"{timed['k2_pair_plain']:.4f} ms; bound {result['bound_ms']:.4f} ms by "
+          f"{result['bound_by']} ({result['bound_ms'] / timed['k2_pair']:.3f} of it) | {card}")
+
+    stand = load_model_netcdf(SW_MODEL, device=dev)
+    stand_solar = torch.as_tensor(rfmip.default_solar_source(sw_spectral_g112()),
+                                  dtype=torch.float32, device=dev)
+    sw_in = rfmip.sw_staged_inputs(data, dev)
+    cores = {"pair": lambda: rfmip._sw_core_lay_major(models, solar, *sw_in, top_at_1=True),
+             "stand-in": lambda: rfmip._sw_core_lay_major([stand, stand], stand_solar, *sw_in,
+                                                          top_at_1=True)}
+    for name, core in cores.items():
+        ms = cuda_ms(core)
+        launches, busy = profiled_calls(core)
+        print(f"timing sw-pair staged SW core, {name}: {ms:.4f} ms, {launches:.1f} kernel launches "
+              f"a call, device busy {busy:.4f} ms a call (idle share {1 - busy / ms:.4f}) | {card}")
+    print(f"sw-pair phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+    return result, {"k2_pair": c_fused["k2"]}, timed
 
 
 def run() -> dict:
@@ -3301,7 +3372,6 @@ def run() -> dict:
         import rte_rrtmgp_nn_tpu_torch  # noqa: F401
     except ImportError as e:
         raise SmokeFailure(f"the port package is not beside this script: {e}")
-    from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
@@ -3497,11 +3567,9 @@ def run() -> dict:
         got_sw = rfmip.rfmip_clear_sky_sw(small, [sw_model, sw_model], device=dev)
     el = max(maxabs(got_lw.flux_up.cpu(), ref_lw.flux_up), maxabs(got_lw.flux_dn.cpu(), ref_lw.flux_dn))
     require(el <= LW_ATOL, "CUDA general LW path disagrees with the CPU reference")
-    es, over, rest = hold_sw_f1(got_sw, ref_sw,
-                                *testing.rfmip_sw_resonance_distance(small, [sw_cpu, sw_cpu]))
+    es = hold_sw(got_sw, ref_sw)
     print(f"reference 64x{NLAY}: CUDA general path vs float64 on the CPU: LW {N_ANGLES} angles "
-          f"{el:.3e} (tol {LW_ATOL}), staged SW {es:.3e} with {over} resonance columns beyond "
-          f"{SW_ATOL}, the other columns {rest:.3e} W/m2")
+          f"{el:.3e} (tol {LW_ATOL}), staged SW {es:.3e} W/m2 (tol {SW_ATOL} in every column)")
 
     # ---- 10. timing of the general path -------------------------------------
     timed.update({k: cuda_ms(fn, reps=9 if k.startswith("k7") and k.endswith("_plain") else 25)
@@ -3592,6 +3660,11 @@ def run() -> dict:
     # ---- 26. the benchmark entry points -----------------------------------------------------------
     bench_phase(card)
 
+    # ---- 27. the SW main path on a real absorption + Rayleigh pair --------------------------------
+    results["k2_pair"], pair_launches, pair_timed = sw_pair_phase(dev, card)
+    launches.update(pair_launches)
+    timed.update(pair_timed)
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -3631,7 +3704,8 @@ def main() -> int:
                            "here: sw_mega_core_sharded, once a rank a call at world size 1 and "
                            "on two ranks (phase 22); scripts/torch_run_rfmip.py, once a run "
                            "(phase 24); bench_torch.py, once a core or driver call "
-                           "(phase 26)"},
+                           "(phase 26); rfmip_clear_sky_sw on the real 56-g-point pair, "
+                           "once a call (phase 27, its own entry below)"},
         {"name": "fused_predict_lw_both", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/mlp.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/mlp.py:116", **r["k3"],
@@ -3653,7 +3727,9 @@ def main() -> int:
                            "launched, not counted here: the SW training eval, once an epoch "
                            "(phase 23); scripts/torch_train_demo_sw.py, once an epoch's eval "
                            "and once for the teacher's fluxes (phase 25); bench_torch.py "
-                           "--core staged, once a call (phase 26)"},
+                           "--core staged, once a call (phase 26); "
+                           "rfmip_clear_sky_sw(use_megakernel=False) on the real 56-g-point "
+                           "pair, once a call (phase 27)"},
         {"name": "lw_prep", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_prep.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:134", **r["k6"],
@@ -3705,6 +3781,11 @@ def main() -> int:
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:321", **r["k2_cld_bands"],
          "counted_around": "allsky_sw, Pade cloud optics"},
+        {"name": "sw_clearsky_megakernel[ngpt=56]", "route": "cuda",
+         "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
+         "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2_pair"],
+         "counted_around": "rfmip_clear_sky_sw on the real absorption + Rayleigh pair "
+                           "(sw-synth56-lut 128_128, 56 g-points), once a call (phase 27)"},
         {"name": "lw_clearsky_mega5", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:931", **r["k8"],

@@ -32,7 +32,7 @@ import torch
 from ...config import config, megakernel_model_ok, refuse_grad
 from ...gasoptics.nn_gas_optics import split_first_layer
 from ...models.network import NNModel
-from ..sw_solver import sw_adding_broadband, sw_two_stream_coeffs
+from ..sw_solver import pifm_coefficients, sw_adding_broadband
 from . import build
 from .lw_megakernel import (
     MAX_LANES, MAX_SMEM, MODE_CODES, LaunchPlan, _align4, _check, _smem_limit,
@@ -103,7 +103,8 @@ def sw_clearsky_megakernel_plain(
     the lookup tables with the delta scaling in its subtraction form) are
     expanded to g-points and incremented into the gas properties; PIFM
     two-stream coefficients in float64 (their rdir/tdir are 0/0 forms at
-    k*mu0 = 1, where float32 loses up to ~10 W/m2); then the direct beam
+    k*mu0 = 1, where float32 loses up to ~10 W/m2), by pifm_coefficients
+    as every staged SW route takes them; then the direct beam
     and the adding sweeps in the input precision with the exact
     exponential. Canonical top-at-0. Returns (flux_up, flux_dn_total,
     flux_dn_dir), each (ncol, nlay+1).
@@ -141,10 +142,7 @@ def sw_clearsky_megakernel_plain(
         ssa = tauscat / torch.clamp_min(tau, CLD_EPS)
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros_like(inc_flux_dir)
-    f64 = torch.float64
-    coeffs = sw_two_stream_coeffs(tau.to(f64), ssa.to(f64), g.to(f64),
-                                  mu0.to(f64)[:, None], fast_exp=False)
-    rdif, tdif, rdir, tdir = (c.to(tau.dtype) for c in coeffs[:4])
+    rdif, tdif, rdir, tdir = pifm_coefficients(tau, ssa, g, mu0[:, None], fast_exp=False)
     return sw_adding_broadband(rdif, tdif, rdir, tdir, tau, mu0, inc_flux_dir,
                                sfc_alb_dir, sfc_alb_dif, inc_flux_dif, fast_exp=False)
 

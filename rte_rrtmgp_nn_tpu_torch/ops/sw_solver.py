@@ -24,6 +24,12 @@ from .adding import adding
 from .expfast import exp_fast
 
 
+# elements of a float32 field whose float64 two-stream coefficients are
+# computed in one piece (pifm_coefficients): the RFMIP problem, 1800 x 60 x
+# 112, is one; a GCM block, 57,600 x 60 x 112, is taken two layers at a time
+COEFF_CHUNK = 1 << 24
+
+
 class SWSolution(NamedTuple):
     """Broadband fluxes (ncol, nlay+1) [W/m2]. flux_dn is the TOTAL
     downward flux (diffuse + direct); flux_dn_dir the direct beam alone."""
@@ -70,27 +76,66 @@ def sw_two_stream_source(tau, ssa, g, mu0, sfc_alb_dir, flux_dn_dir):
     and canonical top-at-0 (reference sw_two_stream_source, :1364-1480):
     flux_dn_dir (ncol, nlay+1, ngpt) the direct beam. Returns (rdif, tdif,
     source_up, source_dn, source_sfc)."""
-    rdif, tdif, rdir, tdir, _ = sw_two_stream_coeffs(
-        tau, ssa, g, mu0[:, None, None], fast_exp=config.fast_exponential)
+    rdif, tdif, rdir, tdir = pifm_coefficients(
+        tau, ssa, g, mu0[:, None, None], fast_exp=config.fast_exponential, dim=1)
     dir_inc = flux_dn_dir[:, :-1]
     return rdif, tdif, rdir * dir_inc, tdir * dir_inc, flux_dn_dir[:, -1] * sfc_alb_dir
 
 
+def pifm_eigenvalue(ssa, g):
+    """(gamma1, gamma2, k): the Zdunkowski PIFM gammas and the two-stream
+    eigenvalue k = sqrt((gamma1 - gamma2) * (gamma1 + gamma2)), floored at
+    config.k_min. The rdir / tdir of sw_two_stream_coeffs are 0/0 forms at
+    k * mu0 = 1."""
+    gamma1 = (8.0 - ssa * (5.0 + 3.0 * g)) * 0.25
+    gamma2 = 3.0 * (ssa * (1.0 - g)) * 0.25
+    k = torch.sqrt(torch.clamp_min((gamma1 - gamma2) * (gamma1 + gamma2), config.k_min))
+    return gamma1, gamma2, k
+
+
+def pifm_coefficients(tau, ssa, g, mu0b, *, fast_exp: bool, dim: int = 0):
+    """(rdif, tdif, rdir, tdir) of every SW route, as the fused SW kernel
+    computes them: tau, ssa, g and mu0b cast to float64,
+    sw_two_stream_coeffs there (float64's eps guards the k * mu0 = 1
+    resonance, config.k_min floors k), each coefficient rounded once to
+    tau's dtype. In float32 the 0/0 forms of rdir and tdir lose accuracy
+    as 1 / |k * mu0 - 1| near the resonance, W/m2 in the fluxes (ROADMAP
+    Queue 3 F1). mu0b and the others broadcast against tau. A field of
+    more than COEFF_CHUNK elements is taken in chunks along ``dim`` (the
+    layers), so that the float64 temporaries stay smaller than the float32
+    ones of the whole field would be. Float64 inputs are computed as they
+    are. ``fast_exp`` as sw_two_stream_coeffs."""
+    if tau.dtype == torch.float64:
+        return sw_two_stream_coeffs(tau, ssa, g, mu0b, fast_exp=fast_exp)[:4]
+    fields = torch.broadcast_tensors(tau, ssa, g, mu0b)
+    out = [torch.empty(fields[0].shape, dtype=tau.dtype, device=tau.device) for _ in range(4)]
+    n = out[0].shape[dim]
+    step = max(1, COEFF_CHUNK * n // max(out[0].numel(), 1))
+    f64 = torch.float64
+    for start in range(0, n, step):
+        size = min(step, n - start)
+        part = [a.narrow(dim, start, size).to(f64) for a in fields]
+        coeffs = sw_two_stream_coeffs(*part, fast_exp=fast_exp)
+        for o, c in zip(out, coeffs[:4]):
+            o.narrow(dim, start, size).copy_(c)
+    return tuple(out)
+
+
 def sw_two_stream_coeffs(tau_l, ssa_l, g_l, mu0b, *, fast_exp: bool):
     """PIFM two-stream coefficients (rdif, tdif, rdir, tdir, tnoscat),
-    elementwise; mu0b broadcasts against tau_l. ``fast_exp`` takes the Pade
-    exponential (config.fast_exponential)."""
+    elementwise in the inputs' precision, with that precision's eps as the
+    resonance guard; mu0b broadcasts against tau_l. ``fast_exp`` takes the
+    Pade exponential (config.fast_exponential). The SW routes call it
+    through pifm_coefficients."""
     exp = exp_fast if fast_exp else torch.exp
     eps = torch.finfo(tau_l.dtype).eps
     mu0_inv = 1.0 / mu0b
     # Zdunkowski Practical Improved Flux Method coefficients.
-    gamma1 = (8.0 - ssa_l * (5.0 + 3.0 * g_l)) * 0.25
-    gamma2 = 3.0 * (ssa_l * (1.0 - g_l)) * 0.25
+    gamma1, gamma2, k = pifm_eigenvalue(ssa_l, g_l)
     gamma3 = (2.0 - 3.0 * mu0b * g_l) * 0.25
     gamma4 = 1.0 - gamma3
     alpha1 = gamma1 * gamma4 + gamma2 * gamma3  # MW Eq 16
     alpha2 = gamma1 * gamma3 + gamma2 * gamma4  # MW Eq 17
-    k = torch.sqrt(torch.clamp_min((gamma1 - gamma2) * (gamma1 + gamma2), config.k_min))
     tnoscat = exp(-tau_l * mu0_inv)
     e1 = exp(-tau_l * k)
     e2 = e1 * e1
@@ -132,7 +177,7 @@ def sw_2stream_broadband(tau, ssa, g, mu0, inc_flux_dir, sfc_alb_dir,
     already times mu0; albedos and inc_flux_dif (ncol, ngpt). Returns
     (bb_up, bb_dn_total, bb_dir), each (ncol, nlay+1)."""
     fast = config.fast_exponential
-    rdif, tdif, rdir, tdir, _ = sw_two_stream_coeffs(tau, ssa, g, mu0[:, None], fast_exp=fast)
+    rdif, tdif, rdir, tdir = pifm_coefficients(tau, ssa, g, mu0[:, None], fast_exp=fast)
     return sw_adding_broadband(rdif, tdif, rdir, tdir, tau, mu0, inc_flux_dir,
                                sfc_alb_dir, sfc_alb_dif, inc_flux_dif, fast_exp=fast)
 

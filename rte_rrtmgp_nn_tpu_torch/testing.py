@@ -518,12 +518,9 @@ def lut_fluxes(kd_lw, kd_sw, data: dict, device, dtype) -> dict:
     optimal-angle secants, ``lw2s_*`` the two-stream solver and ``lwtang_*``
     the rescaled solve on the gas optics incremented by a scattering cloud
     (LUT_CLOUD_LAYERS), ``sw_*`` two-stream SW, ``hr_lw`` the one-angle
-    heating rate [K/day] -- and ``sw_resonance``, per column the smallest
-    |k*mu0 - 1| over layers and g-points (k the SW two-stream eigenvalue),
-    which bounds what float32 two-stream coefficients can deliver."""
+    heating rate [K/day]."""
     import torch
 
-    from .config import config
     from .extensions.heating_rates import compute_heating_rate_kday
     from .gasoptics.lut_gas_optics import (
         compute_optimal_angles, gas_optics_lw_lut, gas_optics_sw_lut)
@@ -561,9 +558,6 @@ def lut_fluxes(kd_lw, kd_sw, data: dict, device, dtype) -> dict:
     alb = torch.full((ncol, kd_sw.ngpt), 0.1, dtype=dtype, device=device)
     sol = rte_sw(sw_props, top_at_1, mu0, sw_src.toa_source, alb, alb, broadband=True)
     out.update(sw_up=sol.flux_up, sw_dn=sol.flux_dn, sw_dir=sol.flux_dn_dir)
-    g1, g2 = (8.0 - 5.0 * sw_props.ssa) * 0.25, 0.75 * sw_props.ssa  # PIFM gammas, g = 0
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
-    out["sw_resonance"] = (k * mu0[:, None, None] - 1.0).abs().amin((1, 2))
     return out
 
 
@@ -579,11 +573,58 @@ def lut_reference_fluxes(directory: str, ncol: int, nlay: int, seed: int, top_at
     return lut_fluxes(kd["lw"], kd["sw"], data, device, dtype)
 
 
-# W/m2: a staged-SW column's error times its distance |k*mu0 - 1| from the
-# two-stream resonance stays below this (ROADMAP Queue 3 F1: float32
+# W/m2: a column's error times its distance |k*mu0 - 1| from the two-stream
+# resonance stays below this where the two-stream coefficients are float32:
+# the JAX package's staged SW routes (ROADMAP Queue 3 F1: float32
 # coefficients lose accuracy as 1/|k*mu0 - 1|; about twice the largest
-# product measured on an H100; the chip smoke's F1_LAW)
+# product measured on an H100). The port's SW routes take float64
+# coefficients (ops/sw_solver.pifm_coefficients) and need no such law.
 SW_F1_LAW = 4e-3
+
+# the matched absorption / Rayleigh pairs in artifacts/, by hidden widths:
+# trained on the synthetic 56-g-point SW k-distribution of sw_pair_setup
+SW_PAIR_TAGS = {"48_48": "HR_3.61e-01_FRC_2.75e+00", "128_128": "HR_4.22e-02_FRC_1.44e-01"}
+
+
+def sw_pair_paths(width: str) -> list:
+    """The files of the in-repo sw-synth56-lut absorption and Rayleigh nets
+    of hidden widths ``width`` ("48_48" or "128_128"), in that order."""
+    import os
+
+    art = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts")
+    return [os.path.join(art, f"sw-synth56-lut_{k}_{width}_{SW_PAIR_TAGS[width]}.nc")
+            for k in ("absorption", "rayleigh")]
+
+
+def sw_pair_setup(directory: str, width: str = "48_48", device="cpu", dtype=None) -> dict:
+    """The SW real-pair problem: the matched sw-synth56-lut absorption and
+    Rayleigh nets of hidden widths ``width`` (sw_pair_paths), and the
+    synthetic SW k-distribution they were trained on (generate_kdist_nc
+    with kind="sw", gpts_per_band=4, nband=14, seed 0: 56 g-points),
+    written into ``directory``. Returns a dict: "models" [absorption,
+    Rayleigh] and "kdist" (its LUT_GASES) on ``device`` in ``dtype``
+    (default float32), "spectral" the k-distribution's spectral mapping,
+    "solar" its solar source per g-point (numpy, float64), "paths" the
+    nets' files and "kdist_path"."""
+    import os
+
+    import torch
+
+    from .drivers.rfmip import resolve_solar_source
+    from .gasoptics.kdist import load_kdist
+    from .gasoptics.synthetic import generate_kdist_nc
+    from .models.network import load_model_netcdf
+
+    dtype = dtype or torch.float32
+    kdist_path = os.path.join(directory, "kdist-synthetic-sw-g4-nband14.nc")
+    if not os.path.exists(kdist_path):
+        generate_kdist_nc(kdist_path, kind="sw", gases=LUT_GASES, gpts_per_band=4, nband=14)
+    kd = load_kdist(kdist_path, LUT_GASES, dtype=dtype, device=device)
+    paths = sw_pair_paths(width)
+    return {"models": [load_model_netcdf(p, device=device, dtype=dtype) for p in paths],
+            "kdist": kd, "spectral": kd.spectral,
+            "solar": np.asarray(resolve_solar_source(kd.spectral, kd), np.float64),
+            "paths": paths, "kdist_path": kdist_path}
 
 
 def _resonance(op, mu0):
@@ -592,66 +633,48 @@ def _resonance(op, mu0):
     column-major) and ``mu0`` a scalar or per column."""
     import torch
 
-    from .config import config
+    from .ops.sw_solver import pifm_eigenvalue
 
-    g1 = (8.0 - op.ssa * (5.0 + 3.0 * op.g)) * 0.25  # PIFM gammas (ops/sw_solver.py)
-    g2 = 3.0 * (op.ssa * (1.0 - op.g)) * 0.25
-    k = torch.sqrt(torch.clamp_min((g1 - g2) * (g1 + g2), config.k_min))
+    k = pifm_eigenvalue(op.ssa, op.g)[2]
     mu0 = torch.as_tensor(mu0, dtype=k.dtype)
     if mu0.ndim:
         mu0 = mu0[:, None, None]
     return (k * mu0 - 1.0).abs().amin((1, 2)).numpy()
 
 
-def rfmip_sw_resonance_distance(data, sw64):
-    """(per column the smallest |k*mu0 - 1| over layers and g-points of the
-    clear-sky SW problem, mu0), k the two-stream eigenvalue from the float64
-    gas optics of the nets ``sw64`` on the CPU."""
+def rfmip_sw_optics64(data, sw64, spectral=None):
+    """(tau, ssa, mu0) of the clear-sky SW problem ``data`` (an RFMIPData):
+    the float64 gas optics of the nets ``sw64`` on the CPU, column-major
+    (ncol, nlay, ngpt), on ``spectral`` (default the g-112 mapping), and mu0
+    per column as the drivers take it."""
     import torch
 
     from .drivers import rfmip
     from .gas_concs import GasConcs
     from .gasoptics import nn_gas_optics as go
     from .gasoptics.planck import sw_spectral_g112
-    from .optical_props import OpticalProps2str
 
     f64 = torch.float64
     play, plev, tlay, _, mu0, _, _, concs = rfmip.sw_staged_inputs(data, "cpu", f64)
-    spec = sw_spectral_g112()
+    spec = spectral or sw_spectral_g112()
     tau, ssa, _ = go.gas_optics_sw_nn(sw64, play, plev, tlay, GasConcs(concs), spec,
                                       torch.zeros(spec.ngpt, dtype=f64))
-    op = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec)
-    return _resonance(op, mu0), mu0.numpy()
+    return tau, ssa, mu0
 
 
-def allsky_sw_resonance_distance(garand_path: str, coeffs_path: str, sw64, ncol: int,
-                                 mu0: float = 0.86):
-    """Per column the smallest |k*mu0 - 1| over layers and g-points of the
-    all-sky SW problem that allsky_sw solves on the Garand file
-    ``garand_path`` with the cloud coefficients ``coeffs_path`` (gas +
-    delta-scaled clouds; ``mu0`` the driver's), k the two-stream eigenvalue,
-    from the float64 optical properties of the nets ``sw64`` on the CPU."""
+def rfmip_sw_resonance_distance(data, sw64, spectral=None):
+    """(per column the smallest |k*mu0 - 1| over layers and g-points of the
+    clear-sky SW problem, mu0), k the two-stream eigenvalue from the float64
+    gas optics of the nets ``sw64`` on the CPU (rfmip_sw_optics64, on
+    ``spectral``, default the g-112 mapping)."""
     import torch
 
-    from .drivers import allsky
-    from .extensions.cloud_optics import cloud_optics, load_cloud_optics
-    from .gas_concs import GasConcs
-    from .gasoptics import nn_gas_optics as go
     from .gasoptics.planck import sw_spectral_g112
-    from .optical_props import OpticalProps2str, delta_scale, increment
+    from .optical_props import OpticalProps2str
 
-    f64 = torch.float64
-    spec = sw_spectral_g112()
-    atm = allsky.read_garand(garand_path, ncol)
-    co = load_cloud_optics(coeffs_path, dtype=f64, device="cpu")
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
-    clouds = [t(a) for a in allsky.make_clouds(atm.play, atm.tlay, co)]
-    concs = {k: v.double() for k, v in atm.gas_concs.concs.items()}
-    tau, ssa, _ = go.gas_optics_sw_nn(sw64, t(atm.play), t(atm.plev), t(atm.tlay),
-                                      GasConcs(concs), spec, torch.zeros(spec.ngpt, dtype=f64))
-    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
-                   delta_scale(cloud_optics(co, *clouds, as_2str=True)))
-    return _resonance(op, mu0)
+    tau, ssa, mu0 = rfmip_sw_optics64(data, sw64, spectral)
+    op = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral or sw_spectral_g112())
+    return _resonance(op, mu0), mu0.numpy()
 
 
 def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) -> np.ndarray:

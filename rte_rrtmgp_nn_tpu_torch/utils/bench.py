@@ -318,12 +318,14 @@ def hold_fluxes(card: dict, ref64: dict, lw_tol: float = LW_TOL, sw_tol: float =
     a run with SW) "sw" to dicts of named fields (numpy, a column per row;
     flux_fields), the card's run and the port's float64 CPU run on the same
     columns. LW holds within ``lw_tol`` everywhere. SW holds per column
-    within ``sw_tol``; on the staged SW route, whose two-stream
-    coefficients are float32 (ROADMAP Queue 3 F1), ``sw_resonance`` gives
-    each column's smallest |k*mu0 - 1| and a column beyond ``sw_tol`` holds
-    within testing.SW_F1_LAW / that distance. Returns max_abs_dflux_lw,
-    with SW max_abs_dflux_sw and sw_f1_columns (the columns beyond
-    ``sw_tol`` that the law held), and correct."""
+    within ``sw_tol``: every SW route of the port takes float64 two-stream
+    coefficients. Only for a result whose coefficients are float32, such as
+    the JAX package's staged SW (ROADMAP Queue 3 F1), does
+    ``sw_resonance`` give each column's smallest |k*mu0 - 1|, and a column
+    beyond ``sw_tol`` then holds within testing.SW_F1_LAW / that distance.
+    Returns max_abs_dflux_lw, with SW max_abs_dflux_sw and sw_f1_columns
+    (the columns beyond ``sw_tol`` that the law held: 0 without
+    ``sw_resonance``), and correct."""
     lw = _col_err(card["lw"], ref64["lw"])
     out = {"max_abs_dflux_lw": float(lw.max())}
     correct = bool(lw.max() <= lw_tol)

@@ -272,7 +272,10 @@ def test_multichip_core_sets_are_disjoint_and_equal(monkeypatch):
 
 def test_hold_fluxes_takes_the_f1_law_on_the_staged_route():
     """The output check: LW within 2e-3; an SW column beyond 2e-2 only by
-    the F1 law where the staged route's resonance distance is given."""
+    the F1 law, and only where a resonance distance is given: for a result
+    whose two-stream coefficients are float32, such as the JAX package's
+    staged route (the port's own routes pass none,
+    test_staged_entries_take_no_f1_law)."""
     ref = {"lw": {"flux_up": np.zeros((3, 2))}, "sw": {"flux_dn": np.zeros((3, 2))}}
     card = {"lw": {"flux_up": np.full((3, 2), 1e-3)},
             "sw": {"flux_dn": np.array([[0.0, 0.0], [0.1, 0.0], [0.0, 0.0]])}}
@@ -283,3 +286,25 @@ def test_hold_fluxes_takes_the_f1_law_on_the_staged_route():
     assert not bench.hold_fluxes(card, ref, sw_resonance=np.array([1.0, 0.1, 1.0]))["correct"]
     card["lw"]["flux_up"][1, 1] = 3e-3
     assert bench.hold_fluxes(card, ref)["correct"] is False
+
+
+@pytest.mark.parametrize("name", ["bench_torch", "torch_bench_allsky"])
+def test_staged_entries_take_no_f1_law(name, files, monkeypatch, capsys):
+    """Every SW route of the port takes float64 two-stream coefficients
+    (ops/sw_solver.pifm_coefficients), so the staged route's output check
+    holds SW within 2e-2 W/m2 in every column: the entry passes no
+    resonance distance and reports sw_f1_columns 0."""
+    asked = []
+    hold = bench.hold_fluxes
+
+    def spy(*args, **kw):
+        asked.append(kw)
+        return hold(*args, **kw)
+
+    monkeypatch.setattr(bench, "hold_fluxes", spy)
+    flags = ([] if name == "bench_torch" else
+             ["--garand", files["garand"], "--lw-cloud-coeffs", files["lw"],
+              "--sw-cloud-coeffs", files["sw"]])
+    (line,) = run(name, ["--ncol", "64", "--core", "staged", *flags, *SMALL], capsys)
+    assert asked == [{}]
+    assert line["sw_f1_columns"] == 0 and line["max_abs_dflux_sw"] <= SW_ATOL

@@ -25,7 +25,10 @@ Held, port against JAX:
   values); the fractions within SOLAR_ATOL: a fraction moves its band's
   source by TSI times its change, 0.014 W/m2 at 1e-5, inside the SW flux
   bound (the normal equations amplify the responses' float32 differences:
-  measured 7.9e-7, 1.2e-4 relative); the achieved fluxes equal to the
+  measured 7.9e-7, 1.2e-4 relative); beyond it float64 decides (the port's
+  SW takes float64 two-stream coefficients, the JAX script's float32 ones,
+  ROADMAP Queue 3 F1): the port within SOLAR_ATOL of the fractions fitted
+  to the float64 responses and nearer to them than JAX; the achieved fluxes equal to the
   targets. The targets are a point that positive fractions reach (the
   port's responses times the shipped SW_SOLAR_BAND_FRAC_CAL); with the
   reference's targets the stand-in nets need negative fractions, and both
@@ -149,7 +152,26 @@ def fractions(out: str) -> np.ndarray:
     return np.array([float(v) for v in text.strip("[] ").split(",")])
 
 
-def test_calibrate_sw_solar_matches_the_jax_script(files, capsys):
+def fractions64(mod, files, monkeypatch) -> np.ndarray:
+    """The port script's fractions fitted to its band responses in float64
+    (the nets and allsky_sw in float64 on the CPU), at its set targets."""
+    import functools
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import solar_band_fractions
+
+    spec = sw_spectral_g112()
+    models = [load_model_netcdf(str(files / "models" / f), device="cpu", dtype=torch.float64)
+              for f in cli.SW_MODEL_FILES]
+    monkeypatch.setattr(mod, "allsky_sw", functools.partial(mod.allsky_sw, dtype=torch.float64))
+    resp = mod.band_responses(str(files / "garand.nc"), str(files / "sw-lut.nc"), models, spec,
+                              "cpu")
+    return mod.band_fractions(resp, solar_band_fractions(spec.band_lims_wvn_array,
+                                                         calibrated=False))
+
+
+def test_calibrate_sw_solar_matches_the_jax_script(files, capsys, monkeypatch):
     before = tree_digest()
     mod = load_script("torch_calibrate_sw_solar")
     spec = sw_spectral_g112()
@@ -169,7 +191,11 @@ def test_calibrate_sw_solar_matches_the_jax_script(files, capsys):
     np.testing.assert_allclose(rp, rj, rtol=0, atol=SW_ATOL)
     fp, fj = fractions(pout), fractions(jout)
     assert fp.shape == fj.shape == (14,) and (fp > 0).all()
-    np.testing.assert_allclose(fp, fj, rtol=0, atol=SOLAR_ATOL)
+    beyond = np.abs(fp - fj) > SOLAR_ATOL
+    if beyond.any():
+        f64 = fractions64(mod, files, monkeypatch)
+        assert np.abs(fp - f64).max() <= SOLAR_ATOL, (fp, fj, f64)
+        assert np.all(np.abs(fp - f64)[beyond] < np.abs(fj - f64)[beyond]), (fp, fj, f64)
     np.testing.assert_allclose(fp.sum(), 1.0, rtol=1e-7)
     achieved = lambda out: [float(v) for v in re.search(
         r"achieved dn/up: ([0-9.]+) / ([0-9.]+)", out).groups()]

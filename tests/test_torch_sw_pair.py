@@ -1,0 +1,230 @@
+"""The SW main path on a real absorption + Rayleigh pair: the in-repo
+sw-synth56-lut nets (hidden widths 48_48) on the synthetic 56-g-point SW
+k-distribution they were trained on, where ssa spans [0, 1], against the
+port's float64 run, the JAX package and the lookup table itself.
+
+Every SW route of the port takes its two-stream coefficients from
+ops/sw_solver.pifm_coefficients: float64 arithmetic, rounded once, as the
+fused kernel (K2) computes them. So the float32 staged route is held
+within 2e-2 W/m2 of float64 in every column, with no resonance law, on the
+real pair and on the stand-in pair (the g-112 demo net as both nets, ssa
+= 1/2 everywhere). The JAX package's staged route keeps float32
+coefficients: where it is beyond 2e-2 of the port, float64 decides, and
+JAX's column is held by testing.SW_F1_LAW / |k*mu0 - 1| (ROADMAP Queue 3
+F1).
+
+The CUDA kernels on the pair are tested on the card by
+test_torch_cuda_kernels.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rte_rrtmgp_nn_tpu.drivers import rfmip as jrfmip
+from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist as jload_kdist
+from rte_rrtmgp_nn_tpu.ops.pallas.sw_megakernel import sw_clearsky_megakernel as jax_sw_mega
+from rte_rrtmgp_nn_tpu_torch import testing as T
+from rte_rrtmgp_nn_tpu_torch.config import config_override
+from rte_rrtmgp_nn_tpu_torch.drivers import rfmip as prfmip
+from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+from rte_rrtmgp_nn_tpu_torch.ops import sw_solver as psw
+from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+from test_torch_core import CPU, SW_MODEL, model_pair, rfmip_pair
+
+NCOL, NLAY, SEED = 480, 60, 0
+SW_ATOL = 2e-2  # W/m2: the JAX package's SW bound, per column
+FIELDS = ("flux_up", "flux_dn", "flux_dn_dir")
+# W/m2: the float64 pair against the lookup table it was trained to, on
+# every level of the day columns. The 48_48 nets' file names give a heating
+# rate error of 0.361 K/day and a forcing error of 2.75 W/m2; this is a
+# sanity bound on the nets and the wiring, not on the solver
+LUT_ATOL = 20.0
+
+
+def col_err(got, ref, names=FIELDS) -> np.ndarray:
+    """Per column the largest |got - ref| over the fields and levels, in
+    float64; flux objects of either package."""
+    f = lambda fb, n: np.asarray(getattr(fb, n), np.float64)
+    return np.max([np.abs(f(got, n) - f(ref, n)).max(1) for n in names], axis=0)
+
+
+@pytest.fixture(scope="module")
+def problem(tmp_path_factory):
+    """The shared inputs: the synthetic problem in both packages, the pair
+    on the k-distribution (float32 and float64) and the stand-in pair."""
+    d = T.synthesize_rfmip(NCOL, NLAY, SEED)
+    jd, pd = rfmip_pair(d)
+    directory = str(tmp_path_factory.mktemp("sw_pair"))
+    pair = T.sw_pair_setup(directory, "48_48")
+    pair64 = T.sw_pair_setup(directory, "48_48", dtype=torch.float64)
+    stand = load_model_netcdf(SW_MODEL, device=CPU)
+    return {"d": d, "jd": jd, "pd": pd, "dir": directory, "pair": pair, "pair64": pair64,
+            "stand": [stand, stand], "stand64": [T.float64_copy(stand)] * 2}
+
+
+def port_sw(problem, which: str, dtype=torch.float32, fused: bool = False):
+    """The port's rfmip_clear_sky_sw on the CPU: ``which`` "pair" (on the
+    k-distribution's spectral mapping and solar source) or "stand-in" (the
+    g-112 defaults); the staged route, or the fused one (K2's twin)."""
+    f64 = dtype == torch.float64
+    if which == "pair":
+        p = problem["pair64" if f64 else "pair"]
+        models, kw = p["models"], dict(spectral=p["spectral"], solar_source=p["solar"])
+    else:
+        models, kw = problem["stand64" if f64 else "stand"], {}
+    with config_override(use_megakernel=fused):
+        return prfmip.rfmip_clear_sky_sw(problem["pd"], models, dtype=dtype, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("which", ["pair", "stand-in"])
+def test_staged_sw_within_bound_of_float64_in_every_column(problem, which):
+    """(a) The float32 staged SW route within 2e-2 W/m2 of its float64 run
+    in every column, no resonance column excepted. With float32
+    coefficients the same request put columns at 0.17 (real pair) and 0.51
+    W/m2 (stand-in) at 1800 x 60 (ROADMAP Queue 3 F1)."""
+    got = port_sw(problem, which)
+    ref = port_sw(problem, which, torch.float64)
+    err = col_err(got, ref)
+    worst = int(err.argmax())
+    assert err.max() <= SW_ATOL, (
+        f"{which}: {int((err > SW_ATOL).sum())} columns beyond {SW_ATOL} W/m2 from float64, "
+        f"largest {err.max():.4e} at column {worst}")
+
+
+def test_fused_twin_on_the_pair_matches_staged_and_float64(problem):
+    """K2's twin takes the pair through the fused route (ngpt = 56, the
+    absorption net's input scaling): within 2e-2 W/m2 of float64 in every
+    column, and of the staged route."""
+    fused = port_sw(problem, "pair", fused=True)
+    ref = port_sw(problem, "pair", torch.float64)
+    staged = port_sw(problem, "pair")
+    assert col_err(fused, ref).max() <= SW_ATOL
+    assert col_err(fused, staged).max() <= SW_ATOL
+
+
+def _spy(monkeypatch, module, name, seen):
+    """Wrap ``module.name`` so that each call's (arguments, result) is
+    appended to ``seen``."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+@pytest.mark.parametrize("chunk", [psw.COEFF_CHUNK, 5000])
+def test_staged_coefficients_equal_the_twins_bit_for_bit(problem, monkeypatch, chunk):
+    """(b) On the same tau, ssa, g and mu0 the staged routes' two-stream
+    coefficients equal K2 twin's bit for bit: the lay-major broadband route
+    (the RFMIP and all-sky staged cores) and the column-major spectral route
+    (rte_sw), taken whole or in chunks of layers."""
+    p = problem["pair"]
+    solar = torch.as_tensor(p["solar"], dtype=torch.float32)
+    args = prfmip.sw_mega_args(p["models"], solar, *prfmip.sw_canonical_inputs(problem["pd"], CPU))
+    taken = []
+    _spy(monkeypatch, k2, "pifm_coefficients", taken)
+    k2.sw_clearsky_megakernel_plain(*args)
+    ((tau, ssa, g, _), twin), = taken
+    mu0, inc = args[6], args[7]
+    assert float(ssa.min()) < 1e-6 and float(ssa.max()) > 0.99  # the real pair's range
+
+    monkeypatch.setattr(psw, "COEFF_CHUNK", chunk)
+    seen = []
+    _spy(monkeypatch, psw, "pifm_coefficients", seen)
+    psw.sw_solver_2stream_lay_major(tau, ssa, g, mu0, inc / mu0[:, None], args[8], args[9])
+    t = lambda a: a.transpose(0, 1)
+    psw.sw_solver_2stream(t(tau), t(ssa), t(g), mu0, inc / mu0[:, None], args[8], args[9])
+    (_, lay_major), (_, col_major) = seen
+    for name, a, b, c in zip(("rdif", "tdif", "rdir", "tdir"), twin, lay_major, col_major):
+        assert torch.equal(a, b), f"{name}: lay-major route"
+        assert torch.equal(a, t(c)), f"{name}: column-major route"
+
+
+def test_port_against_jax_on_the_pair(problem):
+    """(c) The port's staged SW against the JAX package's
+    rfmip_clear_sky_sw on the same numpy inputs and the same pair files:
+    within 2e-2 W/m2 where both hold it; beyond, float64 decides: the port
+    within 2e-2 of its float64 run in every column, and the JAX column
+    within SW_F1_LAW / |k*mu0 - 1| of it (JAX's coefficients are
+    float32)."""
+    p = problem["pair"]
+    jkd = jload_kdist(p["kdist_path"], T.LUT_GASES)
+    jm = [model_pair(path)[0] for path in p["paths"]]
+    ref = jrfmip.rfmip_clear_sky_sw(problem["jd"], jm, spectral=jkd.spectral,
+                                    solar_source=p["solar"])
+    got = port_sw(problem, "pair")
+    ref64 = port_sw(problem, "pair", torch.float64)
+    gap = col_err(got, ref)
+    port = col_err(got, ref64)
+    assert port.max() <= SW_ATOL, f"port off float64 by {port.max():.4e}"
+    beyond = gap > SW_ATOL
+    if beyond.any():
+        dist, _ = T.rfmip_sw_resonance_distance(problem["pd"], problem["pair64"]["models"],
+                                                p["spectral"])
+        jax_err = col_err(ref, ref64)
+        limit = np.maximum(SW_ATOL, T.SW_F1_LAW / dist)
+        assert np.all(jax_err[beyond] <= limit[beyond]), (gap, jax_err, dist)
+        assert np.all(port[beyond] < jax_err[beyond])  # the port is the nearer to float64
+
+
+def test_twin_against_the_jax_kernel_on_the_pair(problem):
+    """(d) K2's twin against the JAX package's Pallas sw_clearsky_megakernel
+    in interpret mode on 32 columns x 60 layers of the pair: 2e-2 W/m2,
+    float64 deciding beyond (the Pallas kernel's coefficients are float32,
+    F1)."""
+    p = problem["pair"]
+    n = 32
+    pd = problem["pd"].block(0, n)
+    solar = torch.as_tensor(p["solar"], dtype=torch.float32)
+    args = prfmip.sw_mega_args(p["models"], solar, *prfmip.sw_canonical_inputs(pd, CPU))
+    (_, _, x2d, cf, perm, col_dry, mu0, inc, alb_dir, alb_dif) = args
+    got = k2.sw_clearsky_megakernel_plain(*args)
+    ja, jr = (model_pair(path)[0] for path in p["paths"])
+    j = lambda a: jnp.asarray(a.numpy())
+    lanes = [j(x2d[..., i]) for i in range(x2d.shape[-1])]
+    jax_out = jax_sw_mega(ja, jr, lanes, j(col_dry), j(mu0), j(inc), j(alb_dir), j(alb_dif),
+                          tile_c=8, interpret=True, const_feats=j(cf), perm=perm)
+    a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    a64[0], a64[1] = problem["pair64"]["models"]
+    ref = k2.sw_clearsky_megakernel_plain(*a64)
+    err = lambda a, b: np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max(1)
+    for name, g, q, r in zip(("up", "dn", "dn_dir"), got, jax_out, ref):
+        gap = err(g, q)
+        twin = err(g, r)
+        assert twin.max() <= SW_ATOL, name
+        assert np.all((gap <= SW_ATOL) | (twin < err(q, r))), (name, gap.max())
+
+
+def test_float64_pair_against_its_lookup_table(problem):
+    """(e) The float64 pair against the lookup-table fluxes it was trained
+    to (gas_optics_sw_lut -> rte_sw, float64, the driver's boundary: the
+    solar source scaled to each column's TSI, mu0, the surface albedo),
+    on the day columns: within LUT_ATOL W/m2 on every level, the TOA
+    downward flux equal (both are TSI * mu0)."""
+    from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import gas_optics_sw_lut
+    from rte_rrtmgp_nn_tpu_torch.rte import rte_sw
+
+    f64 = torch.float64
+    kd = load_kdist(problem["pair"]["kdist_path"], T.LUT_GASES, dtype=f64, device=CPU)
+    play, plev, tlay, sfc_alb, mu0, usecol, tsi, concs = prfmip.sw_staged_inputs(
+        problem["pd"], CPU, f64)
+    day = usecol.numpy()
+    props, _ = gas_optics_sw_lut(kd, play, plev, tlay,
+                                 GasConcs({g: concs[g] for g in T.LUT_GASES}))
+    solar = torch.as_tensor(problem["pair"]["solar"], dtype=f64)
+    toa = solar[None, :] * (tsi / solar.sum())[:, None]
+    alb = sfc_alb[:, None].expand(NCOL, kd.ngpt)
+    lut = rte_sw(props, problem["pd"].top_at_1, torch.where(usecol, mu0, 1.0), toa, alb, alb,
+                 broadband=True)
+    nn = port_sw(problem, "pair", f64)
+    for name in FIELDS:
+        a, b = getattr(nn, name)[day], getattr(lut, name)[day]
+        assert float((a - b).abs().max()) <= LUT_ATOL, (name, float((a - b).abs().max()))
+    toa_i = 0 if problem["pd"].top_at_1 else NLAY
+    np.testing.assert_allclose(nn.flux_dn[day, toa_i].numpy(), lut.flux_dn[day, toa_i].numpy(),
+                               rtol=1e-12)
