@@ -215,7 +215,22 @@ non-zero and prints no result line):
      ops/sw_solver.pifm_coefficients); K2 against its twin on the same
      tensors; K2's time, its twin's and its bound at 56 g-points; the
      staged SW core's time and kernel launches a call on the pair and on
-     the stand-in.
+     the stand-in;
+ 28. the all-sky path at the net shapes users run ("allsky-pair" lines):
+     P1, a GCM step's recipe without the packing (testing.allsky_pair_setup:
+     1800 x 60 columns that all differ, every third column clear, mu0
+     clipped to [0.05, 1]; SW on the 128_128 pair at 56 g-points, LW on the
+     18 -> 64 -> 64 -> 256 net; synthetic cloud coefficients on each
+     mapping's bands), in both cloud flavours: the float64 ssa and g
+     quantiles and the day cells near k*mu0 = 1; the fused cores (K1, K2
+     once each in the cloud mode) and the staged ones (K3 + K7, K5; the
+     log-depth adding, K5), counted with every twin raising, each within
+     2e-3 (LW) / 2e-2 (SW) W/m2 of the port's float64 CPU run in every
+     column; K2 and K1 in both cloud modes against their twins and,
+     without clouds, against their clear mode, their times and bounds; P2,
+     allsky_lw / allsky_sw on a Garand file with the same nets at 1800 and
+     28,800 columns on every route, counted, against float64, and the
+     all-sky cores' times at both sizes (the log-depth ones at 1800).
 
 Before the last line one JSON line lists every kernel with its launches and
 the call they were counted around ("counted_around": a driver of a main
@@ -231,8 +246,9 @@ K3-K7's ``ms_wide``, the time of a call at 7200 columns (K7's also
 launch ("[angles]") and the fields mode ("[fields]").
 
 The models are the repository's in-repo stand-ins (artifacts/): the g-128
-LW demo net; the g-112 SW absorption demo net, used as both the absorption
-and the Rayleigh net; the matched synthetic 56-g-point SW pair. Atmospheres
+LW demo net (and its 64-wide sibling in phase 28); the g-112 SW absorption
+demo net, used as both the absorption and the Rayleigh net; the matched
+synthetic 56-g-point SW pair. Atmospheres
 and the generic net are synthesized from seeds
 (rte_rrtmgp_nn_tpu_torch.testing). The last line of standard output is
 {"ok": true, "device": {...}}.
@@ -601,36 +617,40 @@ def k7_bound(bytes_moved: float, cells: int, angles: int) -> dict:
 
 
 def hold_sw(got, ref, name="staged SW") -> float:
-    """Hold SW fluxes per column within SW_ATOL of a reference (sw_col_err:
+    """Hold SW fluxes per column within SW_ATOL of a reference (col_err:
     flux objects or dicts of named fields): every SW route of the port
     takes float64 two-stream coefficients (ops/sw_solver.pifm_coefficients,
     as K2), so no column near the resonance k*mu0 = 1 is excepted (ROADMAP
     Queue 3 F1). Returns the largest error."""
-    return hold_sw_columns(name, sw_col_err(got, ref))
+    return hold_columns(name, col_err(got, ref))
 
 
-def sw_col_err(got, ref):
-    """Per column, the largest |got - ref| over levels and the SW fluxes
-    (the three of a flux object, or every entry of a dict of named (ncol,
-    nlev) tensors), in float64 on the CPU."""
+SW_FLUXES, LW_FLUXES = ("flux_up", "flux_dn", "flux_dn_dir"), ("flux_up", "flux_dn", "flux_net")
+
+
+def col_err(got, ref, names=SW_FLUXES):
+    """Per column, the largest |got - ref| over levels and fluxes (``names``
+    of a flux object, or every entry of a dict of named (ncol, nlev)
+    tensors), in float64 on the CPU."""
     import torch
 
     if isinstance(got, dict):
         pairs = [(got[n], ref[n]) for n in got]
     else:
-        pairs = [(getattr(got, n), getattr(ref, n)) for n in ("flux_up", "flux_dn", "flux_dn_dir")]
-    col_err = torch.stack([(a.double().cpu() - b.double().cpu()).abs().amax(1) for a, b in pairs])
-    return col_err.amax(0).numpy()
+        pairs = [(getattr(got, n), getattr(ref, n)) for n in names]
+    err = torch.stack([(a.double().cpu() - b.double().cpu()).abs().amax(1) for a, b in pairs])
+    return err.amax(0).numpy()
 
 
-def hold_sw_columns(name, col_err) -> float:
-    """Require every column's SW error ``col_err`` within SW_ATOL; the
-    failure names the columns beyond and the largest. Returns the largest."""
-    worst = int(np.argmax(col_err))
-    over = np.nonzero(col_err > SW_ATOL)[0]
-    require(over.size == 0, f"{name}: {over.size} columns beyond {SW_ATOL} W/m2 (the first "
-                            f"{over[:20].tolist()}), largest {col_err[worst]:.3e} at column {worst}")
-    return float(col_err[worst])
+def hold_columns(name, err, tol=SW_ATOL) -> float:
+    """Require every column's error ``err`` within ``tol`` (default the SW
+    bound); the failure names the columns beyond and the largest. Returns
+    the largest."""
+    worst = int(np.argmax(err))
+    over = np.nonzero(err > tol)[0]
+    require(over.size == 0, f"{name}: {over.size} columns beyond {tol} W/m2 (the first "
+                            f"{over[:20].tolist()}), largest {err[worst]:.3e} at column {worst}")
+    return float(err[worst])
 
 
 def general_main_path(dev, lw_model, sw_model, main) -> dict:
@@ -927,24 +947,29 @@ def write_allsky_files(directory) -> dict:
     return paths
 
 
-def allsky_core_closures(dev, lw_model, sw_model, paths) -> dict:
+def allsky_core_closures(dev, lw_model, sw_models, paths, ncol=NCOL, sw_spec=None,
+                         solar_source=None) -> dict:
     """The six all-sky cores (LW and SW; fused, staged and parallel-scan
     route) as closures over device-resident inputs read from the files ``paths``
-    (write_allsky_files), lookup-table cloud optics, NCOL columns."""
+    (write_allsky_files: "garand", "lw_lut", "sw_lut"), lookup-table cloud
+    optics, ``ncol`` columns; SW on ``sw_spec`` (default the g-112 mapping)
+    and ``solar_source`` (default the mapping's)."""
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
         PlanckTable, lw_spectral_g128, sw_spectral_g112)
 
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
-    atm = allsky.read_garand(paths["garand"], NCOL)
+    lw_spec, sw_spec = lw_spectral_g128(), sw_spec or sw_spectral_g112()
+    if solar_source is None:
+        solar_source = allsky.resolve_solar_source(sw_spec)
+    atm = allsky.read_garand(paths["garand"], ncol)
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
-    solar = torch.as_tensor(allsky.resolve_solar_source(sw_spec), dtype=torch.float32, device=dev)
+    solar = torch.as_tensor(solar_source, dtype=torch.float32, device=dev)
     tsfc = torch.as_tensor(atm.tlev[:, -1], device=dev)
-    emis = torch.full((NCOL, lw_spec.nband), 0.98, device=dev)
-    mu0 = torch.full((NCOL,), ALLSKY_MU0, device=dev)
-    alb = torch.full((NCOL, sw_spec.nband), 0.06, device=dev)
+    emis = torch.full((ncol, lw_spec.nband), 0.98, device=dev)
+    mu0 = torch.full((ncol,), ALLSKY_MU0, device=dev)
+    alb = torch.full((ncol, sw_spec.nband), 0.06, device=dev)
     lw_co = allsky.load_cloud_optics_checked(paths["lw_lut"], device=dev)
     sw_co = allsky.load_cloud_optics_checked(paths["sw_lut"], device=dev)
     clouds = allsky.make_clouds(atm.play, atm.tlay, lw_co)
@@ -956,19 +981,19 @@ def allsky_core_closures(dev, lw_model, sw_model, paths) -> dict:
             [lw_model], table, lw_spec, lw_co, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t,
             concs_t, top_at_1=True),
         "allsky_sw_core_fused": lambda: allsky._allsky_sw_core_mega(
-            [sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
+            sw_models, sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
             *cld_t, concs_t, top_at_1=True),
         "allsky_lw_core_staged": lambda: allsky._allsky_lw_core(
             [lw_model], table, lw_spec, lw_co, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
             top_at_1=True, n_gauss_angles=1),
         "allsky_sw_core_staged": lambda: allsky._allsky_sw_core_lay_major(
-            [sw_model, sw_model], sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
+            sw_models, sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
             concs, top_at_1=True),
         "allsky_lw_core_parallel": lambda: allsky._allsky_lw_core(
             [lw_model], table, lw_spec, lw_co, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
             top_at_1=True, n_gauss_angles=1, scan_mode="parallel"),
         "allsky_sw_core_parallel": lambda: allsky._allsky_sw_core(
-            [sw_model, sw_model], sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
+            sw_models, sw_spec, solar, sw_co, play, plev, tlay, mu0, alb, alb, *cld,
             concs, top_at_1=True, scan_mode="parallel"),
     }
 
@@ -1117,7 +1142,7 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
                         / (solar_sum * ALLSKY_MU0))
             require(toa <= 1e-5, f"all-sky SW TOA down differs from sum(solar)*mu0 by {toa:.2e}")
 
-        timers = allsky_core_closures(dev, lw_model, sw_model, paths)
+        timers = allsky_core_closures(dev, lw_model, [sw_model, sw_model], paths)
     return launches, timers
 
 
@@ -2013,7 +2038,7 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
         print(f"gcm staged vs fused route on {GCM_SIDE_NCOL} columns: LW {e_lw:.3e} W/m2 "
               f"(tol {LW_ATOL})")
         require(e_lw <= LW_ATOL, "the staged GCM route's LW disagrees with the fused one")
-        e_sw = hold_sw_columns("gcm staged vs fused SW", np.abs(st[:, 2] - diag[:GCM_SIDE_NCOL, 2]))
+        e_sw = hold_columns("gcm staged vs fused SW", np.abs(st[:, 2] - diag[:GCM_SIDE_NCOL, 2]))
         print(f"gcm staged vs fused SW: max {e_sw:.3e} W/m2 (tol {SW_ATOL} in every column)")
         del side, pade, staged
 
@@ -3363,6 +3388,277 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
     return result, {"k2_pair": c_fused["k2"]}, timed
 
 
+ALLSKY_PAIR_WIDE = BENCH_ALLSKY_WIDE  # P2's larger size: the all-sky bench's --ncol
+
+
+def read_mode_counts() -> dict:
+    """read_counts, with K1's and K2's launches also by mode (k1_<mode>,
+    k2_<mode>)."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    c = read_counts()
+    for tag, mod in (("k1", k1), ("k2", k2)):
+        c.update({f"{tag}_{k}": v for k, v in mod.MODE_LAUNCHES.items() if v})
+    return c
+
+
+@contextlib.contextmanager
+def no_twins():
+    """While the block runs, every kernel's plain twin raises: a call on the
+    card that reached a twin fails instead of running it."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_prep as k6
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+
+    def twin(*args, **kwargs):
+        raise SmokeFailure("a kernel's plain twin ran on the card")
+
+    saved = [(mod, name, getattr(mod, name)) for mod in (k1, k2, k6, k7, mlp)
+             for name in dir(mod) if name.endswith("_plain") and callable(getattr(mod, name))]
+    for mod, name, _ in saved:
+        setattr(mod, name, twin)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def allsky_pair_phase(dev, card) -> tuple[dict, dict, dict]:
+    """Phase 28: the all-sky path at the net shapes users run. P1
+    (testing.allsky_pair_setup, NCOL x NLAY from SEED: a GCM step's recipe
+    on columns that all differ, every third column clear, mu0 clipped to
+    [0.05, 1]; SW on the 128_128 sw-synth56-lut pair at 56 g-points, LW on
+    the 18 -> 64 -> 64 -> 256 net), in both cloud flavours: the float64 ssa
+    and g quantiles and the day cells and columns within 1e-3 of k*mu0 = 1;
+    the fused cores (K1 and K2 once each in the flavour's cloud mode) and
+    the staged cores (K3 + K7 once, K5 once a call, the log-depth adding K5
+    once), each with the counts set to 0 just before and read just after
+    and every twin raising, each within LW_ATOL / SW_ATOL of the port's
+    float64 CPU run in every column; K2 and K1 in both cloud modes against
+    their twins on the same CUDA tensors (float64 deciding beyond) and,
+    with every cloud field 0, against their clear mode (1e-3 W/m2: the
+    cloud combine's float32 guard), their times, their twins' and their
+    bounds. P2: allsky_lw / allsky_sw on a
+    synthetic Garand file with the same nets and coefficient files at NCOL
+    and ALLSKY_PAIR_WIDE columns on every route, counted, against float64
+    (6 columns, which the file's 2 profiles and the 3-column cloud pattern
+    repeat), and the all-sky cores' times at both sizes (the log-depth
+    ones at NCOL only). Returns (the four
+    kernel entries, their launches, their times) for the kernels line."""
+    import tempfile
+
+    import torch
+
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
+    from rte_rrtmgp_nn_tpu_torch.ops.sw_solver import pifm_eigenvalue
+    from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc
+
+    t_phase = time.perf_counter()
+    cpu, f64 = torch.device("cpu"), torch.float64
+    results, launches, timed = {}, {}, {}
+    modes = (("lut", "cld_lut"), ("pade", "cld_bands"))
+    with tempfile.TemporaryDirectory() as tmp:
+        p = testing.allsky_pair_setup(tmp, "128_128", NCOL, NLAY, SEED, dev)
+        p64 = testing.allsky_pair_setup(tmp, "128_128", NCOL, NLAY, SEED, cpu, f64)
+        garand = os.path.join(tmp, "garand-synthetic.nc")
+        write_nc(garand, *testing.garand_nc_variables(testing.synthesize_garand(NLAY, SEED)))
+        pair, lw_model = p["sw"], p["lw_models"][0]
+        sw_spec, lw_spec = pair["spectral"], p["lw_spectral"]
+        day = p64["day"]
+        print(f"allsky-pair P1 {NCOL}x{NLAY}: SW {os.path.basename(pair['paths'][0])} and its "
+              f"Rayleigh net, {sw_spec.ngpt} g-points, {sw_spec.nband} bands; LW "
+              f"{testing.LW_NET_64} ({lw_model.dims}); {int(day.sum())} day columns, "
+              f"{int((~torch.as_tensor(p['cloud_col'])).sum())} clear ones")
+        ncell, rows = NCOL * NLAY, NCOL * NLAY
+        for flavour, mode in modes:
+            # the float64 optics after the clouds' increment, and the resonance
+            op = testing.allsky_pair_optics64(p64, flavour)
+            dist = (pifm_eigenvalue(op.ssa, op.g)[2] * p64["mu0"][:, None, None] - 1.0).abs()
+            near = dist[day] <= 1e-3
+            q = lambda a: " ".join(f"{v:.6g}" for v in np.quantile(a.numpy(),
+                                                                  [0.0, 0.05, 0.5, 0.95, 1.0]))
+            print(f"allsky-pair {flavour}: float64 ssa quantiles 0/5/50/95/100% {q(op.ssa)}; g "
+                  f"{q(op.g)}; {int(near.sum())} of {near.numel()} day cells within 1e-3 of "
+                  f"k*mu0 = 1, in {int(near.any(2).any(1).sum())} of {int(day.sum())} day "
+                  f"columns; smallest |k*mu0 - 1| {float(dist[day].min()):.3e}")
+            require(float(op.ssa.min()) < 1e-3 and float(op.ssa.max()) > 0.99
+                    and float(op.g.max()) > 0.3, "P1's ssa does not span [0, 1] or no cloud g")
+
+            # every route, counted, no twin, against the port's float64 run
+            refs = testing.allsky_pair_cores(p64, flavour)
+            ref = {"lw": refs["lw_lay_major"](), "sw": refs["sw_staged"]()}
+            expect = {"lw_fused": {"k1": 1, f"k1_{mode}": 1},
+                      "sw_fused": {"k2": 1, f"k2_{mode}": 1},
+                      "lw_staged": {"fused_predict_lw_both": 1, "k7": 1, "k7_angles": 1},
+                      "sw_staged": {"fused_predict_sw": 1},
+                      "sw_parallel": {"fused_predict_sw": 1}}
+            cores, out, counted = testing.allsky_pair_cores(p, flavour), {}, {}
+            with no_twins():
+                for name, want in expect.items():
+                    reset_counts()
+                    out[name] = cores[name]()
+                    counted[name] = read_mode_counts()
+                    require(counted[name] == want, f"allsky-pair {flavour} {name}: launches "
+                                                   f"{counted[name]}, expected {want}")
+            print(f"allsky-pair {flavour} launches (no twin ran): "
+                  + "; ".join(f"{n} {w}" for n, w in expect.items()))
+            for name, fb in out.items():
+                band = name[:2]
+                for n in LW_FLUXES + (("flux_dn_dir",) if band == "sw" else ()):
+                    v = getattr(fb, n)
+                    require(v.device.type == dev.type and tuple(v.shape) == (NCOL, NLAY + 1)
+                            and bool(torch.isfinite(v).all()),
+                            f"allsky-pair {name}.{n}: {tuple(v.shape)} or not finite")
+            errs = {}
+            for name, fb in out.items():
+                lw = name.startswith("lw")
+                err = col_err(fb, ref[name[:2]], LW_FLUXES if lw else SW_FLUXES)
+                errs[name] = (hold_columns(f"allsky-pair {flavour} {name}", err,
+                                           LW_ATOL if lw else SW_ATOL), int(np.argmax(err)))
+            e_lw = hold_columns(f"allsky-pair {flavour} LW fused vs staged",
+                                col_err(out["lw_fused"], out["lw_staged"], LW_FLUXES), LW_ATOL)
+            e_sw = hold_sw(out["sw_fused"], out["sw_staged"], f"allsky-pair {flavour} SW fused "
+                                                              "vs staged")
+            print(f"allsky-pair {flavour} vs float64 on the CPU, in every column (LW tol "
+                  f"{LW_ATOL}, SW {SW_ATOL}): "
+                  + ", ".join(f"{n} {e:.3e} at column {c}" for n, (e, c) in errs.items())
+                  + f"; fused vs staged LW {e_lw:.3e}, SW {e_sw:.3e} W/m2 | {card}")
+            sw_dn = out["sw_fused"].flux_dn[:, -1] * p["day"]
+            print(f"allsky-pair {flavour}: mean surface SW down (night masked) "
+                  f"{float(sw_dn.mean()):.4f}, LW down {float(out['lw_fused'].flux_dn[:, -1].mean()):.4f}"
+                  f", OLR {float(out['lw_fused'].flux_up[:, 0].mean()):.4f} W/m2")
+            launches[f"k2_{mode}_pair"] = counted["sw_fused"][f"k2_{mode}"]
+            launches[f"k1_{mode}_64"] = counted["lw_fused"][f"k1_{mode}"]
+
+            # the kernels against their twins on the same CUDA tensors
+            cld = p["lw_canon"][6:10]
+            sargs, skw = allsky.allsky_sw_mega_args(pair["models"], sw_spec, p["solar"],
+                                                    p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
+            largs, lkw = allsky.allsky_lw_mega_args(p["lw_models"], p["table"], lw_spec,
+                                                    p["cloud"][f"lw_{flavour}"], *p["lw_canon"])
+            cases = {
+                f"k2_{mode}_pair": (k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain,
+                                    sargs, skw, SW_ATOL),
+                f"k1_{mode}_64": (k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain, largs, lkw,
+                                  LW_ATOL),
+            }
+            for key, (kernel, plain, args, kw, tol) in cases.items():
+                got = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                twin = plain(*args, **kw)
+                e = max(maxabs(a, b) for a, b in zip(got, twin))
+
+                def ref64(args=args, kw=kw, plain=plain):
+                    a, k = in_float64(args, kw)
+                    return plain(*a, **k)
+
+                adjudicate_lazy(f"{key} ({mode})", e, tol, got, twin, ref64)
+                # the cloud combine's float32 guard: no cloud gives the clear mode
+                bare = max(maxabs(a, b) for a, b in zip(
+                    kernel(*args, **testing.without_clouds(kw)), kernel(*args)))
+                require(bare <= 1e-3, f"{key} without clouds is {bare:.3e} W/m2 off its clear "
+                                      "mode")
+                if key.startswith("k2"):
+                    plan = k2.launch_plan(NLAY, args[2].shape[-1], [m.dims[1] for m in args[:2]],
+                                          [m.dims[2] for m in args[:2]], sw_spec.ngpt)
+                    b = bound(nbytes(*args[2:4], *args[5:], list(kw.values()))
+                              + model_bytes(*pair["models"]) + 3 * NCOL * (NLAY + 1) * 4,
+                              sum(mlp_flops(m, rows) for m in pair["models"])
+                              + ELEMENT_FLOPS["sw"] * ncell * sw_spec.ngpt
+                              + cloud_flops("sw", mode, cld, sw_spec.nband, sw_spec.ngpt))
+                else:
+                    plan = k1.launch_plan(NLAY, args[1].shape[-1], lw_model.dims[1],
+                                          lw_model.dims[2], lw_spec.ngpt)
+                    b = bound(nbytes(*args[1:3], *args[5:9], args[11], list(kw.values()))
+                              + model_bytes(lw_model)
+                              + nbytes(p["table"].totplnk, p["table"].totplnk_diff)
+                              + 2 * NCOL * (NLAY + 1) * 4,
+                              mlp_flops(lw_model, rows) + ELEMENT_FLOPS["lw"] * ncell * lw_spec.ngpt
+                              + cloud_flops("lw", mode, cld, lw_spec.nband, lw_spec.ngpt))
+                results[key] = {"max_abs_err": e, **b}
+                timed[key] = cuda_ms(lambda: kernel(*args, **kw))
+                timed[f"{key}_plain"] = cuda_ms(lambda: plain(*args, **kw), reps=5, batch=5)
+                print(f"allsky-pair {key}: max|kernel-twin| {e:.3e} W/m2 (tol {tol}); without "
+                      f"clouds vs the clear mode {bare:.3e}; plan "
+                      f"{plan.threads} threads, {plan.groups} groups of {plan.layers_per_group} "
+                      f"layers, {plan.smem_bytes} B shared; {timed[key]:.4f} ms, twin "
+                      f"{timed[f'{key}_plain']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']} ({b['bound_ms'] / timed[key]:.3f} of it) | {card}")
+
+        # P2: the entry points on a Garand file with the same nets and files
+        tile = torch.arange(ALLSKY_PAIR_WIDE) % 6
+        sw_kw = dict(spectral=sw_spec, solar_source=pair["solar"])
+        solar_sum = float(np.sum(pair["solar"]))
+        for flavour, mode in modes:
+            lw_co, sw_co = (p["cloud_paths"][f"{b}_{flavour}"] for b in ("lw", "sw"))
+            ref_lw = allsky.allsky_lw(garand, lw_co, p64["lw_models"], ncol=6, device=cpu,
+                                      dtype=f64)
+            ref_sw = allsky.allsky_sw(garand, sw_co, p64["sw"]["models"], ncol=6, device=cpu,
+                                      dtype=f64, **sw_kw)
+            routes = {"fused": (dict(use_megakernel=True), {}),
+                      "staged": (dict(use_megakernel=False), {}),
+                      "parallel": ({}, dict(scan_mode="parallel"))}
+            want = {"fused": ({"k1": 1, f"k1_{mode}": 1}, {"k2": 1, f"k2_{mode}": 1}),
+                    "staged": ({"fused_predict_lw_both": 1, "k7": 1, "k7_angles": 1},
+                               {"fused_predict_sw": 1}),
+                    "parallel": ({"fused_predict_lw_both": 1}, {"fused_predict_sw": 1})}
+            for ncol in (NCOL, ALLSKY_PAIR_WIDE):
+                line = []
+                for route, (cfg, kw) in routes.items():
+                    with config_override(**cfg), no_twins():
+                        reset_counts()
+                        lw = allsky.allsky_lw(garand, lw_co, p["lw_models"], ncol=ncol,
+                                              device=dev, **kw)
+                        c_lw = read_mode_counts()
+                        reset_counts()
+                        sw = allsky.allsky_sw(garand, sw_co, pair["models"], ncol=ncol,
+                                              device=dev, **sw_kw, **kw)
+                        c_sw = read_mode_counts()
+                    require((c_lw, c_sw) == want[route],
+                            f"allsky-pair P2 {flavour} {route} at {ncol}: launches LW {c_lw}, "
+                            f"SW {c_sw}, expected {want[route]}")
+                    t = tile[:ncol]
+                    ref_t = lambda fb, names: type(fb)(**{n: getattr(fb, n)[t] for n in names})
+                    e_lw = hold_columns(f"allsky-pair P2 {flavour} {route} LW at {ncol}",
+                                        col_err(lw, ref_t(ref_lw, LW_FLUXES), LW_FLUXES), LW_ATOL)
+                    e_sw = hold_sw(sw, ref_t(ref_sw, SW_FLUXES),
+                                   f"allsky-pair P2 {flavour} {route} SW at {ncol}")
+                    toa = float((sw.flux_dn[:, 0].double() - solar_sum * ALLSKY_MU0).abs().max()
+                                / (solar_sum * ALLSKY_MU0))
+                    require(toa <= 1e-5, f"allsky-pair P2 SW TOA down off sum(solar)*mu0 by "
+                                         f"{toa:.2e}")
+                    line.append(f"{route} LW {e_lw:.3e} SW {e_sw:.3e} (launches {c_lw}, {c_sw})")
+                print(f"allsky-pair P2 {flavour} {ncol} columns vs float64, every column: "
+                      + "; ".join(line))
+
+        # the all-sky cores' times at both sizes (lookup-table clouds)
+        paths = {"garand": garand, "lw_lut": p["cloud_paths"]["lw_lut"],
+                 "sw_lut": p["cloud_paths"]["sw_lut"]}
+        # (samples, calls a sample) by route: fewer where a call takes tens of ms
+        for ncol, plan in ((NCOL, {"fused": (25, 10), "staged": (9, 10), "parallel": (9, 10)}),
+                           (ALLSKY_PAIR_WIDE, {"fused": (9, 3), "staged": (5, 2)})):
+            closures = allsky_core_closures(dev, lw_model, pair["models"], paths, ncol, sw_spec,
+                                            pair["solar"])
+            ms = {k: cuda_ms(fn, *plan[k.rsplit("_", 1)[1]]) for k, fn in closures.items()
+                  if k.rsplit("_", 1)[1] in plan}
+            print(f"timing allsky-pair P2 cores at {ncol}x{NLAY}, ms: "
+                  + ", ".join(f"{k[7:]} {v:.4f}" for k, v in ms.items()) + f" | {card}")
+            for route in plan:
+                both = ms[f"allsky_lw_core_{route}"] + ms[f"allsky_sw_core_{route}"]
+                print(f"timing allsky-pair P2 LW+SW cores at {ncol}, {route}: {both:.4f} ms, "
+                      f"{ncol / both * 1e3:.0f} columns/s | {card}")
+    print(f"allsky-pair phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+    return results, launches, timed
+
+
 def run() -> dict:
     import torch
 
@@ -3665,6 +3961,12 @@ def run() -> dict:
     launches.update(pair_launches)
     timed.update(pair_timed)
 
+    # ---- 28. the all-sky path at the real net shapes --------------------------------------------
+    allsky_results, allsky_launches, allsky_timed = allsky_pair_phase(dev, card)
+    results.update(allsky_results)
+    launches.update(allsky_launches)
+    timed.update(allsky_timed)
+
     for k in results:
         results[k].update(launches=launches[k], ms=timed[k], plain_ms=timed[f"{k}_plain"])
         r = results[k]
@@ -3786,6 +4088,24 @@ def main() -> int:
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:391", **r["k2_pair"],
          "counted_around": "rfmip_clear_sky_sw on the real absorption + Rayleigh pair "
                            "(sw-synth56-lut 128_128, 56 g-points), once a call (phase 27)"},
+        *({"name": f"sw_clearsky_megakernel[{mode},ngpt=56]", "route": "cuda",
+           "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
+           "replaces": f"rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:{line}",
+           **r[f"k2_{mode}_pair"],
+           "counted_around": "_allsky_sw_core_mega on the all-sky problem of the real pair "
+                             "(sw-synth56-lut 128_128, 56 g-points, 1800 x 60 varied "
+                             "columns), once a call (phase 28); also launched, not counted "
+                             "here: allsky_sw on the pair, once a call (phase 28)"}
+          for mode, line in (("cld_lut", 303), ("cld_bands", 321))),
+        *({"name": f"lw_clearsky_mega4[{mode},h=64]", "route": "cuda",
+           "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
+           "replaces": f"rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:{line}",
+           **r[f"k1_{mode}_64"],
+           "counted_around": "_allsky_lw_core_mega on the all-sky problem with the 18 -> 64 "
+                             "-> 64 -> 256 LW net (1800 x 60 varied columns), once a call "
+                             "(phase 28); also launched, not counted here: allsky_lw on that "
+                             "net, once a call (phase 28)"}
+          for mode, line in (("cld_lut", 431), ("cld_bands", 448))),
         {"name": "lw_clearsky_mega5", "route": "cuda",
          "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
          "replaces": "rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:931", **r["k8"],

@@ -390,6 +390,10 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
     tensors, with its routes taken (LW and SW each by
     ``resolve_use_megakernel``); returns (ncol, 3) [olr, surface LW down,
     surface SW down]."""
+    if sw_models[0].n_outputs not in (112, 224):
+        raise ValueError(f"gcm_sweep_allsky takes the g-112 or g-224 SW nets (112 or 224 "
+                         f"outputs), not {sw_models[0].n_outputs} outputs: the sweep takes its "
+                         "SW spectral mapping, solar source and albedo from the nets' outputs")
     lw_spec = lw_spectral_g128()
     sw_spec = sw_spectral_g112() if sw_models[0].n_outputs == 112 else sw_spectral_g224()
     lw_route = _route("gcm_sweep_allsky (LW)", device, dtype, lw=True, models=lw_models)

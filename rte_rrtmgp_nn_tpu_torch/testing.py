@@ -586,13 +586,18 @@ SW_F1_LAW = 4e-3
 SW_PAIR_TAGS = {"48_48": "HR_3.61e-01_FRC_2.75e+00", "128_128": "HR_4.22e-02_FRC_1.44e-01"}
 
 
+def artifact_path(name: str) -> str:
+    """The path of ``name`` in the repository's artifacts/ directory."""
+    import os
+
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "artifacts", name)
+
+
 def sw_pair_paths(width: str) -> list:
     """The files of the in-repo sw-synth56-lut absorption and Rayleigh nets
     of hidden widths ``width`` ("48_48" or "128_128"), in that order."""
-    import os
-
-    art = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts")
-    return [os.path.join(art, f"sw-synth56-lut_{k}_{width}_{SW_PAIR_TAGS[width]}.nc")
+    return [artifact_path(f"sw-synth56-lut_{k}_{width}_{SW_PAIR_TAGS[width]}.nc")
             for k in ("absorption", "rayleigh")]
 
 
@@ -677,13 +682,15 @@ def rfmip_sw_resonance_distance(data, sw64, spectral=None):
     return _resonance(op, mu0), mu0.numpy()
 
 
-def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) -> np.ndarray:
-    """Per column ``idx`` of a GCM host dict (drivers.gcm.synthesize_gcm_columns),
-    the smallest |k*mu0 - 1| over layers and g-points of the all-sky SW
-    problem that gcm_sweep_allsky solves there: the gas optics of
-    ``sw_models`` with the delta-scaled clouds of the all-sky placement,
-    k the two-stream eigenvalue, mu0 clipped as the sweep clips it. In
-    float64 on the CPU."""
+def allsky_sw_optics64(play, plev, tlay, concs, cloud_col, sw_models, cloud_lw, cloud_sw,
+                       spectral=None):
+    """The optical properties of an all-sky SW problem, in float64 on the
+    CPU, column-major: the gas optics of ``sw_models`` on ``spectral``
+    (default the g-112 mapping for 112 outputs, else the g-224 one), and
+    the clouds of the all-sky placement (make_clouds with ``cloud_col``,
+    radii from ``cloud_lw``) with ``cloud_sw``'s optics, delta-scaled and
+    incremented. ``play``, ``plev``, ``tlay``, ``concs`` (each gas (ncol,
+    nlay)) and ``cloud_col`` (per column): numpy arrays or tensors."""
     import torch
 
     from .drivers.allsky import make_clouds
@@ -694,21 +701,183 @@ def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw) ->
     from .optical_props import OpticalProps2str, delta_scale, increment
 
     f64 = torch.float64
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64)
-    play, plev, tlay = (t(host[k][idx]) for k in ("play", "plev", "tlay"))
+    play, plev, tlay = _cpu64(play), _cpu64(plev), _cpu64(tlay)
+    clouds = make_clouds(play, tlay, cloud_lw.to("cpu", f64), cloud_col=_cpu64(cloud_col))
+    models = [float64_copy(m).to("cpu") for m in sw_models]
+    if spectral is None:
+        spectral = sw_spectral_g112() if models[0].n_outputs == 112 else sw_spectral_g224()
+    tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay,
+                                   GasConcs({k: _cpu64(v) for k, v in concs.items()}), spectral,
+                                   torch.zeros(spectral.ngpt, dtype=f64))
+    return increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral),
+                     delta_scale(cloud_optics(cloud_sw.to("cpu", f64), *clouds, as_2str=True)))
+
+
+def _cpu64(a):
+    import torch
+
+    return torch.as_tensor(np.array(a.cpu() if torch.is_tensor(a) else a), dtype=torch.float64)
+
+
+def gcm_sw_resonance_distance(host: dict, idx, sw_models, cloud_lw, cloud_sw,
+                              spectral=None) -> np.ndarray:
+    """Per column ``idx`` of a GCM host dict (drivers.gcm.synthesize_gcm_columns),
+    the smallest |k*mu0 - 1| over layers and g-points of the all-sky SW
+    problem that gcm_sweep_allsky solves there (allsky_sw_optics64 with the
+    sweep's cloud columns, on ``spectral``, default by the nets' outputs as
+    the sweep takes it), k the two-stream eigenvalue, mu0 clipped as the
+    sweep clips it."""
+    play = np.asarray(host["play"][idx])
     ncol, nlay = play.shape
     concs = {}
     for k in host:
         if k.startswith("gas:"):
-            v = t(host[k][idx])
-            concs[k[4:]] = v if v.ndim == 2 else v[:, None].expand(ncol, nlay)
-    cloud_col = t((((np.arange(host["play"].shape[0]) + 1) % 3) != 0)[idx])
-    clouds = make_clouds(play, tlay, cloud_lw.to("cpu", f64), cloud_col=cloud_col)
-    models = [float64_copy(m).to("cpu") for m in sw_models]
-    spec = sw_spectral_g112() if models[0].n_outputs == 112 else sw_spectral_g224()
-    tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs), spec,
-                                   torch.zeros(spec.ngpt, dtype=f64))
-    op = increment(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spec),
-                   delta_scale(cloud_optics(cloud_sw.to("cpu", f64), *clouds, as_2str=True)))
+            v = np.asarray(host[k][idx], np.float64)
+            concs[k[4:]] = v if v.ndim == 2 else np.broadcast_to(v[:, None], (ncol, nlay))
+    cloud_col = (((np.arange(host["play"].shape[0]) + 1) % 3) != 0)[idx]
     mu0 = np.clip(np.cos(np.deg2rad(host["sza"][idx])).astype(np.float32), 0.05, 1.0)
-    return _resonance(op, t(mu0))
+    op = allsky_sw_optics64(play, host["plev"][idx], host["tlay"][idx], concs, cloud_col,
+                            sw_models, cloud_lw, cloud_sw, spectral)
+    return _resonance(op, _cpu64(mu0))
+
+
+# the in-repo LW net of the reference's shipped LW shape, 18 -> 64 -> 64 ->
+# 256 softsign (the 128-wide demo net does about 2.4 times its MLP work)
+LW_NET_64 = "lw-g128-demo_both_64_64_HR_2.62e-01_FRC_2.07e+01.nc"
+ALLSKY_PAIR_FLAVOURS = ("lut", "pade")  # the cloud-optics files of each band
+
+
+def allsky_pair_setup(directory: str, width: str = "128_128", ncol: int = 1800, nlay: int = 60,
+                      seed: int = 0, device="cpu", dtype=None) -> dict:
+    """The all-sky problem on the real nets, as a GCM step poses it
+    (drivers/gcm.py ``_allsky_body`` without the packing): ``ncol`` x
+    ``nlay`` columns of synthesize_rfmip(ncol, nlay, seed), whose columns
+    all differ; clouds by make_clouds with every third column clear
+    (``cloud_col``, as the GCM places them); mu0 = cos(sza) clipped to
+    [0.05, 1], ``day`` the columns whose SW flux the GCM keeps; SW on the
+    sw-synth56-lut pair of hidden widths ``width`` and its 56-g-point
+    mapping and solar source (sw_pair_setup); LW on the LW_NET_64 net and
+    the g-128 mapping; cloud coefficients of synthesize_cloud_optics(seed)
+    on each mapping's bands in both flavours, written into ``directory``.
+
+    Returns a dict on ``device`` in ``dtype`` (default float32): "sw" (the
+    sw_pair_setup dict), "solar" (its source as a tensor), "lw_models",
+    "lw_spectral", "table", "cloud" and "cloud_paths" by "<lw|sw>_<lut|pade>",
+    "data" (the numpy problem), "cloud_col", "mu0", "day", "clouds" (lwp,
+    iwp, rel, rei, column-major), and the all-sky cores' inputs after their
+    nets, table or source, spectral mapping and cloud optics: "lw_staged",
+    "sw_staged" (column-major, top at index 0) and "lw_canon", "sw_canon"
+    (the fused cores' layer-major ones). Call them through allsky_pair_cores."""
+    import os
+
+    import torch
+
+    from .drivers import rfmip
+    from .drivers.allsky import make_clouds
+    from .drivers.rfmip_io import rfmip_data_from_arrays
+    from .extensions.cloud_optics import load_cloud_optics
+    from .gas_concs import GasConcs
+    from .gasoptics.planck import PlanckTable, lw_spectral_g128
+    from .models.network import load_model_netcdf
+    from .utils.ncio import write_nc
+
+    dtype = dtype or torch.float32
+    pair = sw_pair_setup(directory, width, device=device, dtype=dtype)
+    lw_spec = lw_spectral_g128()
+    paths, cloud = {}, {}
+    for band, spec in (("lw", lw_spec), ("sw", pair["spectral"])):
+        for flavour in ALLSKY_PAIR_FLAVOURS:
+            key = f"{band}_{flavour}"
+            paths[key] = os.path.join(directory, f"cloud-{band}{spec.ngpt}-{flavour}-{seed}.nc")
+            if not os.path.exists(paths[key]):
+                write_nc(paths[key], *cloud_optics_nc_variables(
+                    synthesize_cloud_optics(spec, seed, flavour)))
+            cloud[key] = load_cloud_optics(paths[key], dtype=dtype, device=device)
+    data = synthesize_rfmip(ncol, nlay, seed, top_at_1=True)
+    rd = rfmip_data_from_arrays(data)
+    play, plev, tlay, tlev, tsfc, emis, concs = rfmip.lw_staged_inputs(rd, lw_spec, device,
+                                                                        dtype)
+    alb = torch.as_tensor(data["sfc_alb"], dtype=dtype, device=device)[:, None].expand(
+        ncol, pair["spectral"].nband)
+    gases = GasConcs(concs)
+    concs = {k: gases.get_vmr(k, ncol, nlay).contiguous() for k in concs}
+    cloud_col = ((np.arange(ncol) + 1) % 3) != 0
+    clouds = make_clouds(play, tlay, cloud["lw_lut"],
+                         cloud_col=torch.as_tensor(cloud_col, dtype=dtype, device=device))
+    cos_sza = np.cos(np.deg2rad(data["sza"]))
+    mu0 = torch.as_tensor(np.clip(cos_sza.astype(np.float32), 0.05, 1.0), dtype=dtype,
+                          device=device)
+    canon = lambda a: a.T.contiguous()
+    concs_t = {k: canon(v) for k, v in concs.items()}
+    play_t, plev_t, tlay_t, tlev_t, *cld_t = map(canon, (play, plev, tlay, tlev, *clouds))
+    return {
+        "sw": pair, "solar": torch.as_tensor(pair["solar"], dtype=dtype, device=device),
+        "lw_models": [load_model_netcdf(artifact_path(LW_NET_64), device=device, dtype=dtype)],
+        "lw_spectral": lw_spec,
+        "table": PlanckTable.compute(lw_spec.band_lims_wvn_array, device=device, dtype=dtype),
+        "cloud": cloud, "cloud_paths": paths, "data": data, "cloud_col": cloud_col,
+        "mu0": mu0, "day": torch.as_tensor(cos_sza > 0.0, device=device), "clouds": clouds,
+        "lw_staged": (play, plev, tlay, tlev, tsfc, emis, *clouds, concs),
+        "sw_staged": (play, plev, tlay, mu0, alb, alb, *clouds, concs),
+        "lw_canon": (play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t, concs_t),
+        "sw_canon": (play_t, plev_t, tlay_t, mu0, alb, alb, *cld_t, concs_t),
+    }
+
+
+ALLSKY_PAIR_CORES = ("lw_fused", "lw_staged", "lw_lay_major", "sw_fused", "sw_staged",
+                     "sw_parallel")
+
+
+def allsky_pair_cores(p: dict, flavour: str) -> dict:
+    """The all-sky cores of both bands on the problem ``p``
+    (allsky_pair_setup) with ``flavour`` ("lut" or "pade") cloud optics, as
+    closures by ALLSKY_PAIR_CORES name: "lw_fused" / "sw_fused" the fused
+    cores (K1 / K2 in the flavour's cloud mode on CUDA), "lw_staged" the
+    general LW core with one angle (K3, then K7), "lw_lay_major" the
+    layer-major LW core (PyTorch sweeps: the CPU oracle), "sw_staged" the
+    layer-major SW core (K5, then the PyTorch sweeps), "sw_parallel" the
+    general SW core with the log-depth adding."""
+    from .drivers import allsky
+
+    lw_m, sw_m = p["lw_models"], p["sw"]["models"]
+    lw_head = (lw_m, p["table"], p["lw_spectral"], p["cloud"][f"lw_{flavour}"])
+    sw_head = (sw_m, p["sw"]["spectral"], p["solar"], p["cloud"][f"sw_{flavour}"])
+    return {
+        "lw_fused": lambda: allsky._allsky_lw_core_mega(*lw_head, *p["lw_canon"],
+                                                        top_at_1=True),
+        "lw_staged": lambda: allsky._allsky_lw_core(*lw_head, *p["lw_staged"], top_at_1=True,
+                                                    n_gauss_angles=1),
+        "lw_lay_major": lambda: allsky._allsky_lw_core_lay_major(*lw_head, *p["lw_staged"],
+                                                                 top_at_1=True),
+        "sw_fused": lambda: allsky._allsky_sw_core_mega(*sw_head, *p["sw_canon"], top_at_1=True),
+        "sw_staged": lambda: allsky._allsky_sw_core_lay_major(*sw_head, *p["sw_staged"],
+                                                              top_at_1=True),
+        "sw_parallel": lambda: allsky._allsky_sw_core(*sw_head, *p["sw_staged"], top_at_1=True,
+                                                      scan_mode="parallel"),
+    }
+
+
+def without_clouds(kw: dict) -> dict:
+    """A fused kernel's cloud keywords (allsky_lw_mega_args /
+    allsky_sw_mega_args) with every cloud field set to 0."""
+    import torch
+
+    z = lambda v: torch.zeros_like(v) if torch.is_tensor(v) else tuple(map(torch.zeros_like, v))
+    return {k: (z(v) if k in ("cld_fields", "cld_bands", "cld_tau_band") else v)
+            for k, v in kw.items()}
+
+
+def allsky_pair_optics64(p64: dict, flavour: str):
+    """allsky_sw_optics64 of the float64 problem ``p64`` (allsky_pair_setup)
+    with its ``flavour`` SW cloud optics."""
+    play, plev, tlay, *_, concs = p64["sw_staged"]
+    return allsky_sw_optics64(play, plev, tlay, concs, p64["cloud_col"], p64["sw"]["models"],
+                              p64["cloud"]["lw_lut"], p64["cloud"][f"sw_{flavour}"],
+                              p64["sw"]["spectral"])
+
+
+def allsky_pair_resonance_distance(p64: dict, flavour: str) -> np.ndarray:
+    """Per column of the float64 problem ``p64`` (allsky_pair_setup), the
+    smallest |k*mu0 - 1| over layers and g-points after the ``flavour``
+    clouds' delta-scaled increment."""
+    return _resonance(allsky_pair_optics64(p64, flavour), _cpu64(p64["mu0"]))

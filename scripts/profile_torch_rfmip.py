@@ -97,7 +97,7 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        cores = allsky_core_closures(dev, lw_model, sw_model, write_allsky_files(tmp))
+        cores = allsky_core_closures(dev, lw_model, [sw_model, sw_model], write_allsky_files(tmp))
 
     def both(route):
         return lambda: (cores[f"allsky_lw_core_{route}"](), cores[f"allsky_sw_core_{route}"]())

@@ -442,7 +442,53 @@ def test_sw_routes_on_the_real_pair_match_twin_and_float64(dev, tmp_path):
             assert float(err.max()) <= SW_ATOL, (n, int(err.argmax()), float(err.max()))
 
 
-# -- the all-sky path: cloud modes of K1/K2, and the lane input modes K8/K9 ----
+@pytest.mark.parametrize("flavour", ["lut", "pade"])
+@pytest.mark.parametrize("width", ["128_128", "48_48"])
+def test_cloud_modes_at_real_net_shapes_match_twins_and_float64(dev, tmp_path, width, flavour):
+    """The cloud modes at the net shapes users run, on columns that all
+    differ (testing.allsky_pair_setup, 300 x 60): K2 in the flavour's cloud
+    mode at 56 g-points on the ``width`` pair (128_128: 256 threads in 2
+    layer groups; 48_48: 512 in 4) and K1 in it on the 18 -> 64 -> 64 ->
+    256 net, each against its twin on the same CUDA tensors, and
+    launched once by the fused all-sky core, and without clouds equal to
+    its clear mode within 1e-3 W/m2; the fused and staged all-sky
+    cores within LW 2e-3 / SW 2e-2 W/m2 of the port's float64 CPU run in
+    every column."""
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    mode = {"lut": "cld_lut", "pade": "cld_bands"}[flavour]
+    p = testing.allsky_pair_setup(str(tmp_path), width, 300, 60, 0, dev)
+    p64 = testing.allsky_pair_setup(str(tmp_path), width, 300, 60, 0, cpu, f64)
+    sargs, skw = allsky.allsky_sw_mega_args(p["sw"]["models"], p["sw"]["spectral"], p["solar"],
+                                            p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
+    largs, lkw = allsky.allsky_lw_mega_args(p["lw_models"], p["table"], p["lw_spectral"],
+                                            p["cloud"][f"lw_{flavour}"], *p["lw_canon"])
+    for kernel, plain, args, kw, tol in (
+            (k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain, sargs, skw, SW_ATOL),
+            (k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain, largs, lkw, LW_ATOL)):
+        got = kernel(*args, **kw)
+        for a, b in zip(got, plain(*args, **kw)):
+            assert a.is_cuda and _maxabs(a, b) <= tol, kernel.__name__
+        # the cloud combine's float32 guard: no cloud gives the clear mode's fluxes
+        for a, b in zip(kernel(*args, **testing.without_clouds(kw)), kernel(*args)):
+            assert _maxabs(a, b) <= 1e-3, kernel.__name__
+    cores, refs = testing.allsky_pair_cores(p, flavour), testing.allsky_pair_cores(p64, flavour)
+    ref = {"lw": refs["lw_lay_major"](), "sw": refs["sw_staged"]()}
+    n1, n2 = k1.MODE_LAUNCHES[mode], k2.MODE_LAUNCHES[mode]
+    out = {name: cores[name]() for name in ("lw_fused", "sw_fused", "lw_staged", "sw_staged")}
+    torch.cuda.synchronize()
+    assert (k1.MODE_LAUNCHES[mode] - n1, k2.MODE_LAUNCHES[mode] - n2) == (1, 1)
+    for name, fb in out.items():
+        lw = name.startswith("lw")
+        for n in ("flux_up", "flux_dn", "flux_net") if lw else ("flux_up", "flux_dn",
+                                                                "flux_dn_dir"):
+            err = (getattr(fb, n).double().cpu() - getattr(ref["lw" if lw else "sw"], n)).abs()
+            err = err.amax(1)
+            assert float(err.max()) <= (LW_ATOL if lw else SW_ATOL), (
+                name, n, int(err.argmax()), float(err.max()))
+
 
 def _cloud_optics(spec, flavour, dev, seed=51, dtype=torch.float32):
     from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics_from_arrays
