@@ -38,7 +38,9 @@ launches: its time is the host's queueing time).
 Inputs: ``testing.synthesize_rfmip(1800, 60, --seed)`` and the in-repo demo
 nets (the SW g-112 demo net as both SW nets), or the reference's files
 through ``--rfmip``, ``--lw-model`` and ``--sw-models``. ``--mult N``
-replicates the columns N times (57,600 columns at 32).
+replicates the columns N times (57,600 columns at 32). The entry runs the
+g-128 LW and g-112 SW mappings, as bench.py does: other nets are refused
+with a ValueError before anything is built (utils/bench.load_nets).
 
     python3 bench_torch.py                    # on the card (exit 2 without one)
     python3 bench_torch.py --core staged
@@ -59,9 +61,7 @@ if HERE not in sys.path:
 
 from rte_rrtmgp_nn_tpu_torch.drivers import rfmip  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import read_rfmip, rfmip_data_from_arrays  # noqa: E402
-from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (  # noqa: E402
-    PlanckTable, lw_spectral_g128, sw_spectral_g112)
-from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf  # noqa: E402
+from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch import testing  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils import bench, cli  # noqa: E402
 
@@ -81,10 +81,10 @@ def parse(argv):
     return ap, ap.parse_args(argv)
 
 
-def core_calls(routes, lw_models, sw_models, data, dev) -> tuple:
-    """The LW and SW cores of ``routes`` as closures over device-resident
-    inputs."""
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
+def core_calls(routes, lw_models, sw_models, specs: dict, data, dev) -> tuple:
+    """The LW and SW cores of ``routes`` on the mappings ``specs`` ("lw",
+    "sw") as closures over device-resident inputs."""
+    lw_spec, sw_spec = specs["lw"], specs["sw"]
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32,
                             device=dev)
@@ -121,6 +121,8 @@ def reference64(data, lw_path: str, sw_paths) -> dict:
 def main(argv=None) -> int:
     ap, args = parse(argv)
     dev = cli.resolve_device(ap, args.device)
+    lw_models, sw_models, specs = bench.load_nets("bench_torch.py", args.lw_model,
+                                                  args.sw_models, dev)
     build_s = bench.build_seconds(dev)
     if args.rfmip:
         data, inputs = read_rfmip(args.rfmip), "files"
@@ -129,10 +131,8 @@ def main(argv=None) -> int:
         inputs = "synthetic"
     data = bench.replicate_rfmip(data, args.mult)
     ncol = data.ncol
-    lw_models = [load_model_netcdf(args.lw_model, device=dev)]
-    sw_models = [load_model_netcdf(p, device=dev) for p in args.sw_models]
     routes = bench.routes(args.core, lw_models, sw_models, dev)
-    lw_core, sw_core = core_calls(routes, lw_models, sw_models, data, dev)
+    lw_core, sw_core = core_calls(routes, lw_models, sw_models, specs, data, dev)
     m = bench.measure_pair(
         lw_core, sw_core,
         bench.on_route(args.core, lambda: rfmip.rfmip_clear_sky_lw(data, lw_models, device=dev)),

@@ -200,7 +200,11 @@ non-zero and prints no result line):
      output check); each must exit 0 with "correct": true (the card's
      fluxes against the port's float64 CPU run). Their JSON lines, then
      "bench ..." lines and the phase's seconds; each SW line with
-     "sw_f1_columns": 0;
+     "sw_f1_columns": 0; then each entry, scripts/torch_bench_multichip.py
+     too, handed the 128_128 sw-synth56-lut pair (56 g-points) and
+     bench_torch.py the one-net 64-g-point lw-synth64-lut net: each must
+     refuse it with the ValueError naming the mapping it takes, no kernel
+     launched around the call ("bench refuses ..." lines);
  27. the SW main path on a real absorption + Rayleigh pair ("sw-pair"
      lines): the in-repo sw-synth56-lut nets of hidden widths 128_128 on
      the synthetic 56-g-point SW k-distribution they were trained on
@@ -958,9 +962,12 @@ def allsky_core_closures(dev, lw_model, sw_models, paths, ncol=NCOL, sw_spec=Non
 
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
-        PlanckTable, lw_spectral_g128, sw_spectral_g112)
+        PlanckTable, lw_spectral_g128, spectral_for, sw_spectral_g112)
 
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spec or sw_spectral_g112()
+    lw_spec = spectral_for("lw", [lw_model], entry="allsky_core_closures",
+                           accepts=(lw_spectral_g128,))
+    sw_spec = spectral_for("sw", sw_models, entry="allsky_core_closures",
+                           accepts=(sw_spectral_g112,), spectral=sw_spec)
     if solar_source is None:
         solar_source = allsky.resolve_solar_source(sw_spec)
     atm = allsky.read_garand(paths["garand"], ncol)
@@ -1009,7 +1016,8 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
 
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        lw_spectral_g128, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
@@ -1038,7 +1046,9 @@ def allsky_main_path(dev, lw_model, sw_model, solar_sum) -> tuple[dict, dict]:
             require(bool(torch.isfinite(v).all()), f"all-sky {n} not finite")
 
     lw_names, sw_names = ("flux_up", "flux_dn", "flux_net"), ("flux_up", "flux_dn", "flux_dn_dir")
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
+    lw_spec = spectral_for("lw", [lw_model], entry="allsky_main_path", accepts=(lw_spectral_g128,))
+    sw_spec = spectral_for("sw", [sw_model, sw_model], entry="allsky_main_path",
+                           accepts=(sw_spectral_g112,))
     cpu, f64 = torch.device("cpu"), torch.float64
     lw64 = load_model_netcdf(LW_MODEL, device=cpu, dtype=f64)
     sw64 = load_model_netcdf(SW_MODEL, device=cpu, dtype=f64)
@@ -2383,7 +2393,7 @@ def sharded_rank(arrays):
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
-        PlanckTable, lw_spectral_g128, sw_spectral_g112)
+        PlanckTable, lw_spectral_g128, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.parallel.distributed import global_mesh
     from rte_rrtmgp_nn_tpu_torch.parallel.sharding import column_sharding
@@ -2395,7 +2405,8 @@ def sharded_rank(arrays):
     block = data.block(c0, nc)
     lw = load_model_netcdf(LW_MODEL, device=dev)
     sw = load_model_netcdf(SW_MODEL, device=dev)
-    spec, sspec = lw_spectral_g128(), sw_spectral_g112()
+    spec = spectral_for("lw", [lw], entry="sharded_rank", accepts=(lw_spectral_g128,))
+    sspec = spectral_for("sw", [sw, sw], entry="sharded_rank", accepts=(sw_spectral_g112,))
     table = PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
     lw_fn = rfmip.lw_mega_core_sharded(mesh, [lw], table, spec, data.top_at_1)
@@ -3067,7 +3078,8 @@ def demos_phase(dev, card) -> None:
 
     from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.drivers import allsky
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import SW_SOLAR_BAND_FRAC_CAL, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        SW_SOLAR_BAND_FRAC_CAL, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.models.network import (
         load_model_netcdf, nn_model_from_arrays, save_model_netcdf)
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
@@ -3194,7 +3206,8 @@ def demos_phase(dev, card) -> None:
         pair = [load_model_netcdf(j("models", f), device=cpu) for f in cli.SW_MODEL_FILES]
         with contextlib.redirect_stdout(None):
             resp = script.band_responses(paths["garand"], paths["sw_lut"], pair,
-                                         sw_spectral_g112(), cpu)
+                                         spectral_for("sw", pair, entry="demos_phase",
+                                                      accepts=(sw_spectral_g112,)), cpu)
         target = SW_SOLAR_BAND_FRAC_CAL @ resp
         runs = both("torch_calibrate_sw_solar", "main",
                     ["--garand", paths["garand"], "--sw-cloud-coeffs", paths["sw_lut"],
@@ -3233,6 +3246,37 @@ BENCH_RUNS = (("bench_torch", ()), ("bench_torch", ("--core", "staged")),
               ("torch_bench_gcm", ("--ncol", str(BENCH_GCM_NCOL))),
               ("torch_bench_gcm", ("--ncol", str(BENCH_GCM_NCOL), "--resident")))
 
+# nets of another k-distribution than the entries' fixed g-128 LW / g-112 SW
+# mappings: each entry refuses them in words before it builds or launches
+# anything (utils/bench.load_nets)
+LW64_LUT_MODEL = os.path.join(HERE, "artifacts",
+                              "lw-synth64-lut_both_128_128_HR_2.31e-01_FRC_2.39e-01.nc")
+BENCH_MISFITS = tuple((name, ("--sw-models", *SW_PAIR)) for name in (
+    "bench_torch", "torch_bench_allsky", "torch_bench_gcm", "torch_bench_multichip")) + (
+    ("bench_torch", ("--lw-model", LW64_LUT_MODEL)),)
+
+
+def bench_refusals(card) -> None:
+    """Each entry of BENCH_MISFITS through its main() on the card: it must
+    raise the ValueError that names the mapping it takes, with every
+    kernel's count 0 around the call. Prints each refusal's first line."""
+    for name, args in BENCH_MISFITS:
+        what = f"{name} {' '.join(os.path.basename(a) for a in args)}"
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            call_script(name, "main", args)
+        except ValueError as e:
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            first = str(e).split(". ")[0]
+            require("takes the g-" in first and "not " in first,
+                    f"{what}: refused in other words: {e}")
+            require(not counts, f"{what}: launched {counts} before refusing")
+            print(f"bench refuses {what}: {first}; {seconds:.3f} s, launches {counts} | {card}")
+        else:
+            raise SmokeFailure(f"{what} ran on nets it should refuse")
+
 
 def bench_launches(name: str, args, lines: list) -> dict:
     """The launches an entry's run must count (read_counts with the fused
@@ -3255,8 +3299,9 @@ def bench_phase(card) -> None:
     """Phase 26: each benchmark entry on the card through its main(), the
     kernels' counts set to 0 just before and read just after (call_script);
     each must exit 0 with "correct": true on every JSON line, name the card
-    it ran on, and launch what bench_launches says. Prints their JSON lines
-    and the phase's seconds."""
+    it ran on, and launch what bench_launches says; then each refuses nets
+    of another mapping (bench_refusals). Prints their JSON lines and the
+    phase's seconds."""
     t_phase = time.perf_counter()
     for name, args in BENCH_RUNS:
         rc, out, seconds, counts = call_script(name, "main", args)
@@ -3276,6 +3321,7 @@ def bench_phase(card) -> None:
         print(f"bench {what}: exit 0, correct, {seconds:.2f} s, launches {counts}; "
               + "; ".join(f"{line['metric']} {line['value']:.1f}" for line in lines)
               + f" | {card}")
+    bench_refusals(card)
     print(f"bench phase: {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
@@ -3302,7 +3348,7 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import spectral_for, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
     from rte_rrtmgp_nn_tpu_torch.ops.sw_solver import pifm_eigenvalue
@@ -3373,7 +3419,9 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
           f"{result['bound_by']} ({result['bound_ms'] / timed['k2_pair']:.3f} of it) | {card}")
 
     stand = load_model_netcdf(SW_MODEL, device=dev)
-    stand_solar = torch.as_tensor(rfmip.default_solar_source(sw_spectral_g112()),
+    stand_spec = spectral_for("sw", [stand, stand], entry="sw_pair_phase",
+                              accepts=(sw_spectral_g112,))
+    stand_solar = torch.as_tensor(rfmip.default_solar_source(stand_spec),
                                   dtype=torch.float32, device=dev)
     sw_in = rfmip.sw_staged_inputs(data, dev)
     cores = {"pair": lambda: rfmip._sw_core_lay_major(models, solar, *sw_in, top_at_1=True),
@@ -3671,7 +3719,8 @@ def run() -> dict:
     from rte_rrtmgp_nn_tpu_torch.config import config_override
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g128, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        PlanckTable, lw_spectral_g128, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.models.network import NNModel, load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import build
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
@@ -3707,9 +3756,11 @@ def run() -> dict:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
 
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
     lw_model = load_model_netcdf(LW_MODEL, device=dev)
     sw_model = load_model_netcdf(SW_MODEL, device=dev)
+    lw_spec = spectral_for("lw", [lw_model], entry="chip_smoke.py", accepts=(lw_spectral_g128,))
+    sw_spec = spectral_for("sw", [sw_model, sw_model], entry="chip_smoke.py",
+                           accepts=(sw_spectral_g112,))
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
     data = rfmip_data_from_arrays(synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=True))

@@ -57,6 +57,7 @@ from ..gasoptics.planck import (
     PlanckTable,
     compute_planck_source_nn,
     lw_spectral_g128,
+    spectral_for,
     sw_spectral_g112,
 )
 from ..models.network import NNModel
@@ -378,14 +379,17 @@ def allsky_lw(
     device,
 ) -> FluxesBroadband:
     """Full all-sky LW run on ``device`` (reference rrtmgp_allsky LW
-    branch); ``models`` must be on ``device``. Returns (ncol, nlay+1)
+    branch); ``models`` must be on ``device``. ``spectral`` defaults to
+    the g-128 mapping; nets that do not fit it, or the mapping passed,
+    raise ValueError (planck.spectral_for). Returns (ncol, nlay+1)
     fluxes on ``device``."""
+    spectral = spectral_for("lw", models, entry="allsky_lw", accepts=(lw_spectral_g128,),
+                            spectral=spectral)
     device = torch.device(device)
     route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
                                    n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
     if route.kind == "refuse":
         raise NotImplementedError(f"allsky_lw: {route.reason}")
-    spectral = spectral or lw_spectral_g128()
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
     table = PlanckTable.compute(spectral.band_lims_wvn_array, device=device, dtype=dtype)
@@ -423,13 +427,16 @@ def allsky_sw(
     device,
 ) -> FluxesBroadband:
     """Full all-sky SW run on ``device`` (reference rrtmgp_allsky SW
-    branch); ``models`` = [absorption, rayleigh], on ``device``."""
+    branch); ``models`` = [absorption, rayleigh], on ``device``.
+    ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
+    or the mapping passed, raise ValueError (planck.spectral_for)."""
+    spectral = spectral_for("sw", models, entry="allsky_sw", accepts=(sw_spectral_g112,),
+                            spectral=spectral)
     device = torch.device(device)
     route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
                                    scan_mode=scan_mode)
     if route.kind == "refuse":
         raise NotImplementedError(f"allsky_sw: {route.reason}")
-    spectral = spectral or sw_spectral_g112()
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
     if solar_source is None:

@@ -38,6 +38,7 @@ from ..config import resolve_use_megakernel
 from ..gasoptics.planck import (
     PlanckTable,
     lw_spectral_g128,
+    spectral_for,
     sw_spectral_g112,
     sw_spectral_g224,
 )
@@ -384,18 +385,23 @@ def _run_jobs(jobs, ncol: int, width: int, mesh: Mesh, resident: bool, warmup: b
     return out, elapsed, nbytes / ncol
 
 
+# the reason the sweeps' refusals give for fixing the g-128 LW mapping
+_LW_BASIS = ("the sweep takes its LW spectral mapping, Planck table and emissivity from the "
+             "nets' outputs")
+
+
 def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: bool,
                  dtype, mesh: Mesh, device):
     """The per-block all-sky step of gcm_sweep_allsky on unpacked block
     tensors, with its routes taken (LW and SW each by
     ``resolve_use_megakernel``); returns (ncol, 3) [olr, surface LW down,
     surface SW down]."""
-    if sw_models[0].n_outputs not in (112, 224):
-        raise ValueError(f"gcm_sweep_allsky takes the g-112 or g-224 SW nets (112 or 224 "
-                         f"outputs), not {sw_models[0].n_outputs} outputs: the sweep takes its "
-                         "SW spectral mapping, solar source and albedo from the nets' outputs")
-    lw_spec = lw_spectral_g128()
-    sw_spec = sw_spectral_g112() if sw_models[0].n_outputs == 112 else sw_spectral_g224()
+    lw_spec = spectral_for("lw", lw_models, entry="gcm_sweep_allsky", accepts=(lw_spectral_g128,),
+                           basis=_LW_BASIS)
+    sw_spec = spectral_for("sw", sw_models, entry="gcm_sweep_allsky",
+                           accepts=(sw_spectral_g112, sw_spectral_g224),
+                           basis="the sweep takes its SW spectral mapping, solar source and "
+                                 "albedo from the nets' outputs")
     lw_route = _route("gcm_sweep_allsky (LW)", device, dtype, lw=True, models=lw_models)
     sw_route = _route("gcm_sweep_allsky (SW)", device, dtype, models=sw_models)
     if sw_route == "megakernel":
@@ -467,7 +473,9 @@ def gcm_sweep_allsky(
     devices): NN gas optics and the idealized clouds of the all-sky example
     (drivers.allsky.make_clouds, per block on the device), then LW
     no-scattering and SW two-stream, broadband. ``host``: the dict of
-    synthesize_gcm_columns. The models and cloud optics live on ``device``.
+    synthesize_gcm_columns. The models and cloud optics live on ``device``:
+    LW nets of the g-128 mapping, SW nets of the g-112 or g-224 one (others
+    are refused, planck.spectral_for).
     precision='mixed' quantizes the tolerant lanes (see gcm_sweep_lw); the
     grazing day columns (0 < mu0 <= 0.1) then take an exact-f32 side sweep.
     Returns throughput, the host -> device bytes per column and the
@@ -563,10 +571,8 @@ def gcm_sweep_allsky(
 def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):
     """The per-block step of gcm_sweep_lw on unpacked block tensors, with
     its route taken; returns (ncol, 2) [olr, surface LW down]."""
-    if models[0].n_outputs not in (256, 128):
-        raise ValueError(f"gcm_sweep_lw takes the g-128 LW nets (128 or 256 outputs), not "
-                         f"{models[0].n_outputs}")
-    spectral = lw_spectral_g128()
+    spectral = spectral_for("lw", models, entry="gcm_sweep_lw", accepts=(lw_spectral_g128,),
+                            basis=_LW_BASIS)
     route = _route("gcm_sweep_lw", device, dtype, lw=True, models=models)
     table = PlanckTable.compute(spectral.band_lims_wvn_array, device=mesh.devices[0],
                                 dtype=dtype)
@@ -609,7 +615,8 @@ def gcm_sweep_lw(
     """Streamed LW clear-sky sweep on ``device`` (or over ``mesh``'s
     devices); returns throughput, the host -> device bytes per column and
     the per-column diagnostics (ncol, 2) [olr, surface LW down]. The models
-    live on ``device``.
+    live on ``device``, LW nets of the g-128 mapping (others are refused,
+    planck.spectral_for).
 
     precision='mixed' halves the streamed bytes per column by uint16
     quantizing the tolerant lanes on the host (temperatures to ~0.002 K,

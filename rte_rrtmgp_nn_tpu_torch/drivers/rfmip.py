@@ -46,6 +46,7 @@ from ..gasoptics.planck import (
     gpt_weights_for,
     lw_spectral_g128,
     solar_band_fractions,
+    spectral_for,
     sw_spectral_g112,
 )
 from ..models.network import NNModel
@@ -575,14 +576,17 @@ def rfmip_clear_sky_lw(
     """End-to-end LW clear-sky fluxes with NN gas optics on ``device``
     (reference rrtmgp_rfmip_lw.F90 main loop), with ``n_gauss_angles``
     Gauss angles (1-4). ``models`` (one "lw_both" net, or an absorption
-    and a Planck-fraction net) must be on ``device``. Returns (ncol,
+    and a Planck-fraction net) must be on ``device``. ``spectral``
+    defaults to the g-128 mapping; nets that do not fit it, or the
+    mapping passed, raise ValueError (planck.spectral_for). Returns (ncol,
     nlay+1) fluxes on ``device``."""
+    spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
+                            accepts=(lw_spectral_g128,), spectral=spectral)
     device = torch.device(device)
     route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
                                    n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
     if route.kind == "refuse":
         raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
-    spectral = spectral or lw_spectral_g128()
     if planck_table is None:
         planck_table = PlanckTable.compute(spectral.band_lims_wvn_array,
                                            device=device, dtype=dtype)
@@ -611,13 +615,16 @@ def rfmip_clear_sky_sw(
 ) -> FluxesBroadband:
     """End-to-end SW clear-sky fluxes with NN gas optics on ``device``
     (reference rrtmgp_rfmip_sw.F90); ``models`` = [absorption, rayleigh],
-    on ``device``. Night columns (sza >= 90 deg) come back zero."""
+    on ``device``. Night columns (sza >= 90 deg) come back zero.
+    ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
+    or the mapping passed, raise ValueError (planck.spectral_for)."""
+    spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
+                            accepts=(sw_spectral_g112,), spectral=spectral)
     device = torch.device(device)
     route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
                                    scan_mode=scan_mode)
     if route.kind == "refuse":
         raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
-    spectral = spectral or sw_spectral_g112()
     if solar_source is None:
         solar_source = resolve_solar_source(spectral, kdist)
     solar = torch.as_tensor(solar_source, dtype=dtype, device=device)

@@ -82,6 +82,70 @@ def lw_spectral_g256() -> SpectralMapping:
     return _mapping_from_counts((16,) * 16, LW_BAND_LIMS_WVN)
 
 
+RUN_OTHER_NETS = (
+    "To run nets of another k-distribution, call the drivers (rfmip_clear_sky_lw / _sw, "
+    "allsky_lw / _sw) with spectral= the mapping of the nets' own k-distribution "
+    "(gasoptics.kdist.load_kdist(path, gases, device=...).spectral), as "
+    "testing.sw_pair_setup does.")
+
+
+def net_gpoints(band: str, models) -> int | None:
+    """The g-points that ``models`` predict, as gasoptics.nn_gas_optics
+    splits their outputs: LW one "both" net of 2*ngpt outputs (tau ||
+    pfrac) or two nets (absorption, Planck fraction) of ngpt each; SW the
+    absorption and Rayleigh nets of ngpt each. None where they fit no
+    count. Reads host integers only."""
+    outs = [m.n_outputs for m in models]
+    if band == "lw" and len(outs) == 1:
+        return outs[0] // 2 if outs[0] % 2 == 0 else None
+    return outs[0] if len(outs) == 2 and outs[0] == outs[1] else None
+
+
+def _outputs_text(band: str, counts) -> str:
+    """The outputs that nets of ``counts`` g-points (any one of them) have."""
+    ns = lambda k: " or ".join(str(k * n) for n in counts)
+    if band == "lw":
+        return f"{ns(2)} outputs in one net, or {ns(1)} in each of two"
+    return f"{ns(1)} outputs in each of the absorption and Rayleigh nets"
+
+
+def spectral_for(band: str, models, *, entry: str, accepts, spectral=None,
+                 basis: str | None = None) -> SpectralMapping:
+    """The spectral mapping that ``models`` fit (net_gpoints): the caller's
+    ``spectral`` when given, else the first of ``accepts`` (mapping
+    functions of this module, e.g. ``(sw_spectral_g112, sw_spectral_g224)``)
+    of as many g-points. Nets that fit none raise ValueError naming
+    ``entry``, the nets' outputs, the mappings expected and how to run such
+    nets; ``basis`` says what the entry builds on the mapping (default: its
+    inputs). Reads host integers only: callers check before any work."""
+    B = band.upper()
+    outs = [m.n_outputs for m in models]
+    if len(outs) == 1:
+        got = f"{outs[0]} outputs in one net"
+    elif len(set(outs)) == 1:
+        got = f"{outs[0]} outputs in each of {'two' if len(outs) == 2 else len(outs)} nets"
+    else:
+        got = f"{' and '.join(map(str, outs))} outputs in {len(outs)} nets"
+    n = net_gpoints(band, models)
+    if spectral is not None:
+        if n == spectral.ngpt:
+            return spectral
+        raise ValueError(
+            f"{entry}: the {B} nets ({got}) do not fit the spectral mapping passed "
+            f"({spectral.ngpt} g-points: {_outputs_text(band, [spectral.ngpt])}). "
+            + RUN_OTHER_NETS)
+    mappings = [make() for make in accepts]
+    for m in mappings:
+        if m.ngpt == n:
+            return m
+    names = " or ".join(f"g-{m.ngpt}" for m in mappings)
+    basis = basis or f"it builds its {B} inputs on that mapping"
+    raise ValueError(
+        f"{entry} takes the {names} {B} nets "
+        f"({_outputs_text(band, [m.ngpt for m in mappings])}), not {got}: {basis}. "
+        + RUN_OTHER_NETS)
+
+
 def gpt_weights_for(spectral: SpectralMapping) -> np.ndarray:
     """Per-g-point quadrature weights (normalized to 1 per band): canonical
     16-point weights for the unreduced distributions, calibrated weights for

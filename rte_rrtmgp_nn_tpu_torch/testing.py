@@ -686,7 +686,8 @@ def allsky_sw_optics64(play, plev, tlay, concs, cloud_col, sw_models, cloud_lw, 
                        spectral=None):
     """The optical properties of an all-sky SW problem, in float64 on the
     CPU, column-major: the gas optics of ``sw_models`` on ``spectral``
-    (default the g-112 mapping for 112 outputs, else the g-224 one), and
+    (default the g-112 or g-224 mapping by the nets' outputs, others
+    refused: gasoptics.planck.spectral_for), and
     the clouds of the all-sky placement (make_clouds with ``cloud_col``,
     radii from ``cloud_lw``) with ``cloud_sw``'s optics, delta-scaled and
     incremented. ``play``, ``plev``, ``tlay``, ``concs`` (each gas (ncol,
@@ -697,15 +698,15 @@ def allsky_sw_optics64(play, plev, tlay, concs, cloud_col, sw_models, cloud_lw, 
     from .extensions.cloud_optics import cloud_optics
     from .gas_concs import GasConcs
     from .gasoptics.nn_gas_optics import gas_optics_sw_nn
-    from .gasoptics.planck import sw_spectral_g112, sw_spectral_g224
+    from .gasoptics.planck import spectral_for, sw_spectral_g112, sw_spectral_g224
     from .optical_props import OpticalProps2str, delta_scale, increment
 
+    spectral = spectral_for("sw", sw_models, entry="allsky_sw_optics64",
+                            accepts=(sw_spectral_g112, sw_spectral_g224), spectral=spectral)
     f64 = torch.float64
     play, plev, tlay = _cpu64(play), _cpu64(plev), _cpu64(tlay)
     clouds = make_clouds(play, tlay, cloud_lw.to("cpu", f64), cloud_col=_cpu64(cloud_col))
     models = [float64_copy(m).to("cpu") for m in sw_models]
-    if spectral is None:
-        spectral = sw_spectral_g112() if models[0].n_outputs == 112 else sw_spectral_g224()
     tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay,
                                    GasConcs({k: _cpu64(v) for k, v in concs.items()}), spectral,
                                    torch.zeros(spectral.ngpt, dtype=f64))

@@ -280,6 +280,24 @@ def replicate_rfmip(data, mult: int):
         nexp=data.nexp * mult)
 
 
+def load_nets(entry: str, lw_path: str, sw_paths, device) -> tuple:
+    """The LW net and the two SW nets of these files (``--lw-model``,
+    ``--sw-models``) on ``device``, and the mappings the entries fix for
+    them as bench.py does, g-128 LW and g-112 SW: (lw_models, sw_models,
+    the mappings by "lw", "sw"). The nets are read on the CPU and checked
+    (gasoptics.planck.spectral_for) before they move: nets that fit no
+    mapping raise ValueError naming ``entry``, before the entry builds,
+    synthesizes or moves anything."""
+    from ..gasoptics.planck import lw_spectral_g128, spectral_for, sw_spectral_g112
+    from ..models.network import load_model_netcdf
+
+    lw = [load_model_netcdf(lw_path, device="cpu")]
+    sw = [load_model_netcdf(p, device="cpu") for p in sw_paths]
+    specs = {"lw": spectral_for("lw", lw, entry=entry, accepts=(lw_spectral_g128,)),
+             "sw": spectral_for("sw", sw, entry=entry, accepts=(sw_spectral_g112,))}
+    return [m.to(device) for m in lw], [m.to(device) for m in sw], specs
+
+
 def float64_models(lw_path: str, sw_paths) -> tuple[list, list]:
     """The LW net and the two SW nets of these files in float64 on the CPU
     (testing.float64_copy): the nets of the output check's reference."""

@@ -27,7 +27,9 @@ to a temporary directory and read back through the port's readers
 (``read_garand``, ``load_cloud_optics_checked``), with the in-repo demo
 nets; or the reference's files through ``--garand``,
 ``--lw-cloud-coeffs``, ``--sw-cloud-coeffs``, ``--lw-model`` and
-``--sw-models``.
+``--sw-models``. The entry runs the g-128 LW and g-112 SW mappings, as
+scripts/bench_allsky.py does: other nets are refused with a ValueError
+before any file is written (utils/bench.load_nets).
 
     python3 scripts/torch_bench_allsky.py                 # 1800 columns on the card
     python3 scripts/torch_bench_allsky.py --ncol 28800
@@ -50,9 +52,7 @@ if ROOT not in sys.path:
 
 from rte_rrtmgp_nn_tpu_torch import testing  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers import allsky  # noqa: E402
-from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (  # noqa: E402
-    PlanckTable, lw_spectral_g128, sw_spectral_g112)
-from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf  # noqa: E402
+from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils import bench, cli  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc  # noqa: E402
 
@@ -71,17 +71,18 @@ def parse(argv):
     return ap, ap.parse_args(argv)
 
 
-def input_files(args, directory: str) -> tuple[dict, str]:
+def input_files(args, specs: dict, directory: str) -> tuple[dict, str]:
     """The Garand and cloud-coefficient files by "garand", "lw", "sw": the
     ones the flags name, the others synthesized from the seed into
-    ``directory``; and "files" or "synthetic" (any of them synthetic)."""
+    ``directory`` (the cloud files on the mappings ``specs`` by "lw",
+    "sw"); and "files" or "synthetic" (any of them synthetic)."""
     paths = {"garand": args.garand, "lw": args.lw_cloud_coeffs, "sw": args.sw_cloud_coeffs}
     inputs = "files" if all(paths.values()) else "synthetic"
     if not paths["garand"]:
         paths["garand"] = os.path.join(directory, "garand-synthetic.nc")
         write_nc(paths["garand"], *testing.garand_nc_variables(
             testing.synthesize_garand(NLAY, args.seed)))
-    for band, spec in (("lw", lw_spectral_g128()), ("sw", sw_spectral_g112())):
+    for band, spec in specs.items():
         if not paths[band]:
             paths[band] = os.path.join(directory, f"cloud-coeffs-{band}-lut.nc")
             write_nc(paths[band], *testing.cloud_optics_nc_variables(
@@ -89,10 +90,11 @@ def input_files(args, directory: str) -> tuple[dict, str]:
     return paths, inputs
 
 
-def core_calls(routes, lw_models, sw_models, paths, ncol: int, dev) -> tuple:
-    """The all-sky LW and SW cores of ``routes`` as closures over
-    device-resident inputs read from ``paths``."""
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
+def core_calls(routes, lw_models, sw_models, specs: dict, paths, ncol: int, dev) -> tuple:
+    """The all-sky LW and SW cores of ``routes`` on the mappings ``specs``
+    ("lw", "sw") as closures over device-resident inputs read from
+    ``paths``."""
+    lw_spec, sw_spec = specs["lw"], specs["sw"]
     atm = allsky.read_garand(paths["garand"], ncol)
     top = bool(atm.play[0, 0] < atm.play[0, -1])
     co_lw = allsky.load_cloud_optics_checked(paths["lw"], device=dev)
@@ -144,14 +146,14 @@ def reference64(paths, ncol: int, lw_path: str, sw_paths) -> dict:
 def main(argv=None) -> int:
     ap, args = parse(argv)
     dev = cli.resolve_device(ap, args.device)
+    lw_models, sw_models, specs = bench.load_nets("torch_bench_allsky.py", args.lw_model,
+                                                  args.sw_models, dev)
     build_s = bench.build_seconds(dev)
     ncol = args.ncol
     with tempfile.TemporaryDirectory() as tmp:
-        paths, inputs = input_files(args, tmp)
-        lw_models = [load_model_netcdf(args.lw_model, device=dev)]
-        sw_models = [load_model_netcdf(p, device=dev) for p in args.sw_models]
+        paths, inputs = input_files(args, specs, tmp)
         routes = bench.routes(args.core, lw_models, sw_models, dev)
-        lw_core, sw_core = core_calls(routes, lw_models, sw_models, paths, ncol, dev)
+        lw_core, sw_core = core_calls(routes, lw_models, sw_models, specs, paths, ncol, dev)
         m = bench.measure_pair(
             lw_core, sw_core,
             bench.on_route(args.core, lambda: allsky.allsky_lw(

@@ -29,7 +29,9 @@ Inputs: ``testing.synthesize_rfmip(1800, 60, --seed)`` with the gases a
 Garand file carries, and synthetic lookup-table cloud-coefficient files,
 with the in-repo demo nets; or the reference's files through ``--rfmip``,
 ``--lw-cloud-coeffs``, ``--sw-cloud-coeffs``, ``--lw-model`` and
-``--sw-models``.
+``--sw-models``. The entry runs the g-128 LW and g-112 SW mappings, as
+scripts/bench_gcm.py does: other nets are refused with a ValueError before
+any column is synthesized (utils/bench.load_nets).
 
     python3 scripts/torch_bench_gcm.py                     # on the card
     python3 scripts/torch_bench_gcm.py --resident
@@ -55,8 +57,6 @@ from rte_rrtmgp_nn_tpu_torch.drivers import gcm  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers.allsky import load_cloud_optics_checked  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers.allsky_io import GARAND_GASES  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import read_rfmip, rfmip_data_from_arrays  # noqa: E402
-from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112  # noqa: E402
-from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils import bench, cli  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc  # noqa: E402
 
@@ -93,11 +93,12 @@ def gcm_columns(args):
     return gcm.synthesize_gcm_columns(base, args.ncol, seed=args.seed), base, inputs
 
 
-def cloud_files(args, directory: str) -> dict:
+def cloud_files(args, specs: dict, directory: str) -> dict:
     """The LW and SW cloud-coefficient files: the flags', else synthetic
-    lookup tables from the seed written into ``directory``."""
+    lookup tables from the seed on the mappings ``specs`` ("lw", "sw")
+    written into ``directory``."""
     paths = {"lw": args.lw_cloud_coeffs, "sw": args.sw_cloud_coeffs}
-    for band, spec in (("lw", lw_spectral_g128()), ("sw", sw_spectral_g112())):
+    for band, spec in specs.items():
         if not paths[band]:
             paths[band] = os.path.join(directory, f"cloud-coeffs-{band}-lut.nc")
             write_nc(paths[band], *testing.cloud_optics_nc_variables(
@@ -129,17 +130,17 @@ def run_sweep(sweep, args, host: dict, nets: tuple, nets64: tuple, dev, **kw) ->
 def main(argv=None) -> int:
     ap, args = parse(argv)
     dev = cli.resolve_device(ap, args.device)
+    lw_models, sw_models, specs = bench.load_nets("torch_bench_gcm.py", args.lw_model,
+                                                  args.sw_models, dev)
     build_s = bench.build_seconds(dev)
     host, base, inputs = gcm_columns(args)
-    lw_models = [load_model_netcdf(args.lw_model, device=dev)]
-    sw_models = [load_model_netcdf(p, device=dev) for p in args.sw_models]
     lw64, sw64 = bench.float64_models(args.lw_model, args.sw_models)
     routes = bench.routes("auto", lw_models, sw_models, dev)
     kw = dict(top_at_1=base.top_at_1, precision=args.precision)
     runs = {}
     if not args.lw_only:
         with tempfile.TemporaryDirectory() as tmp:
-            paths = cloud_files(args, tmp)
+            paths = cloud_files(args, specs, tmp)
             co = [load_cloud_optics_checked(paths[b], device=dev) for b in ("lw", "sw")]
             co64 = [load_cloud_optics_checked(paths[b], device="cpu", dtype=torch.float64)
                     for b in ("lw", "sw")]

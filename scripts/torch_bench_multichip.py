@@ -19,10 +19,13 @@ which host noise does not reach.
 
 The inputs are synthetic (``testing.synthesize_rfmip(1800, 60, 0)`` tiled
 to the column count as ``bench_multichip._replicate_block`` tiles the RFMIP
-file) with the in-repo demo nets, and the JSON says so. Each rank is pinned
-to its own disjoint set of host cores (``os.sched_setaffinity``, the
-host's cores split evenly over the largest count's ranks, the same share
-at every count; ``torch.set_num_threads`` to match). One pass: a barrier,
+file) with the in-repo demo nets, and the JSON says so; ``--lw-model`` and
+``--sw-models`` take other nets of the g-128 LW and g-112 SW mappings (as
+bench_multichip.py fixes them): nets that fit neither are refused with a
+ValueError before any rank is spawned (utils/bench.load_nets). Each rank
+is pinned to its own disjoint set of host cores (``os.sched_setaffinity``,
+the host's cores split evenly over the largest count's ranks, the same
+share at every count; ``torch.set_num_threads`` to match). One pass: a barrier,
 CUDA events around ``--iters`` back-to-back LW + SW calls, the best of
 ``--reps`` samples, the slowest rank's. Each count runs ``--passes``
 passes in one launch of its ranks; every pass's per-card rate and
@@ -54,6 +57,7 @@ import torch.distributed as dist
 from rte_rrtmgp_nn_tpu_torch.parallel import distributed
 from rte_rrtmgp_nn_tpu_torch.utils import bench
 
+ENTRY = "torch_bench_multichip.py"
 
 def _replicate_block(data, ncol_target: int):
     """Tile the base batch up or down to exactly ``ncol_target`` columns."""
@@ -104,19 +108,18 @@ def _clock(dev):
     return lambda: time.perf_counter() - t0
 
 
-def rank_bench(core: str, cols_per_device: int, iters: int, reps: int,
+def rank_bench(core: str, cols_per_device: int, iters: int, reps: int, nets: tuple,
                profile: bool = False, passes: int = 1, cores=None) -> dict:
     """This rank's part of one device count: pin to ``cores[rank]`` (when
     given), build the inputs, warm up, and time ``passes`` passes; returns
     each pass's slowest-rank best seconds per LW + SW call, and with
-    ``profile`` every rank's profiler window (``profile_window``)."""
+    ``profile`` every rank's profiler window (``profile_window``). ``nets``:
+    (the LW net's file, the two SW nets' files)."""
     if cores is not None:
         pin(cores[dist.get_rank()])
     from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
-        PlanckTable, lw_spectral_g128, sw_spectral_g112)
-    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable
     from rte_rrtmgp_nn_tpu_torch.parallel.sharding import column_sharding, make_mesh
     from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
 
@@ -125,10 +128,8 @@ def rank_bench(core: str, cols_per_device: int, iters: int, reps: int,
     dev = mesh.devices[0]
     ncol = cols_per_device * ndev
     data = _replicate_block(rfmip_data_from_arrays(synthesize_rfmip(1800, 60, 0)), ncol)
-    lw_spec, sw_spec = lw_spectral_g128(), sw_spectral_g112()
-    lw_models = [load_model_netcdf(bench.LW_MODEL, device=dev)]
-    sw = load_model_netcdf(bench.SW_MODEL, device=dev)
-    sw_models = [sw, sw]
+    lw_models, sw_models, specs = bench.load_nets(ENTRY, *nets, dev)
+    lw_spec, sw_spec = specs["lw"], specs["sw"]
     table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
     ((_, c0, n),) = column_sharding(mesh, 2).split(ncol)
@@ -213,11 +214,12 @@ def profile_window(call, iters: int, dev) -> dict:
 
 
 def bench_count(ndev: int, device: str, core: str, cols_per_device: int, iters: int,
-                reps: int, profile: bool = False, passes: int = 1, cores=None) -> dict:
+                reps: int, nets: tuple, profile: bool = False, passes: int = 1,
+                cores=None) -> dict:
     """One device count on ``ndev`` spawned ranks (one as well: every count
     is timed in processes of the same kind)."""
-    return distributed.launch(rank_bench, ndev, core, cols_per_device, iters, reps, profile,
-                              passes, cores, device=device, timeout_s=900)[0]
+    return distributed.launch(rank_bench, ndev, core, cols_per_device, iters, reps, nets,
+                              profile, passes, cores, device=device, timeout_s=900)[0]
 
 
 def main(argv=None) -> list:
@@ -232,9 +234,17 @@ def main(argv=None) -> list:
     ap.add_argument("--core", choices=["staged", "mega"], default="staged",
                     help="mega = the fused cores (K1, K2) split over 'col'")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (gloo ranks)")
+    ap.add_argument("--lw-model", default=bench.LW_MODEL,
+                    help="LW net, a g-128 one (default the demo net)")
+    ap.add_argument("--sw-models", nargs=2, default=[bench.SW_MODEL, bench.SW_MODEL],
+                    metavar=("ABSORPTION", "RAYLEIGH"),
+                    help="SW nets, a g-112 pair (default the SW demo net as both)")
     ap.add_argument("--profile", action="store_true",
                     help="after the timing, a torch.profiler window on every rank (CUDA only)")
     args = ap.parse_args(argv)
+    # the nets are checked against the mappings here, before any rank is spawned
+    bench.load_nets(ENTRY, args.lw_model, args.sw_models, "cpu")
+    nets = (args.lw_model, tuple(args.sw_models))
     if args.profile and args.device == "cpu":
         raise SystemExit("--profile reads the card's kernels: CUDA only")
     if args.device != "cpu" and not torch.cuda.is_available():
@@ -255,7 +265,7 @@ def main(argv=None) -> list:
     rows, rates, busy = [], {}, {}
     for ndev in counts:
         r = bench_count(ndev, args.device, args.core, args.cols_per_device, args.iters,
-                        args.reps, args.profile, args.passes, cores)
+                        args.reps, nets, args.profile, args.passes, cores)
         rates[ndev] = [args.cols_per_device / s for s in r["s_per_iter"]]
         row = {**r, "cols_per_s_per_chip": rates[ndev], "core": args.core,
                "inputs": "synthetic"}

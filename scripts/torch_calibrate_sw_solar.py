@@ -36,7 +36,7 @@ import numpy as np
 
 from rte_rrtmgp_nn_tpu_torch.drivers.allsky import allsky_sw
 from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
-    gpt_weights_for, solar_band_fractions, sw_spectral_g112)
+    gpt_weights_for, solar_band_fractions, spectral_for, sw_spectral_g112)
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 from rte_rrtmgp_nn_tpu_torch.utils import cli
 
@@ -84,9 +84,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = cli.resolve_device(ap, args.device)
 
-    spec = sw_spectral_g112()
     models = [load_model_netcdf(os.path.join(args.models_dir, f), device=dev)
               for f in cli.SW_MODEL_FILES]
+    spec = spectral_for("sw", models, entry="torch_calibrate_sw_solar.py",
+                        accepts=(sw_spectral_g112,))
     resp = band_responses(args.garand, args.sw_cloud_coeffs, models, spec, dev)
     f0 = solar_band_fractions(spec.band_lims_wvn_array, calibrated=False)
     f = band_fractions(resp, f0)

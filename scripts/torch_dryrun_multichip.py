@@ -113,7 +113,8 @@ def forward_stages(mesh, dev, ncol: int, nlay: int) -> dict:
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
     from rte_rrtmgp_nn_tpu_torch.gasoptics.nn_gas_optics import gas_optics_lw_nn
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g128
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        PlanckTable, lw_spectral_g128, spectral_for)
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.optical_props import OpticalProps1scl
     from rte_rrtmgp_nn_tpu_torch.parallel.sharding import column_sharding
@@ -122,7 +123,8 @@ def forward_stages(mesh, dev, ncol: int, nlay: int) -> dict:
 
     data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, 0))
     model = load_model_netcdf(LW_MODEL, device=dev)
-    spec = lw_spectral_g128()
+    spec = spectral_for("lw", [model], entry="torch_dryrun_multichip.py",
+                        accepts=(lw_spectral_g128,))
     table = PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     ((_, c0, nc),) = column_sharding(mesh, 2).split(ncol)
     g0, ng = column_sharding(mesh, 3, gpt_axis=2).gpt_slice(spec.ngpt)

@@ -126,7 +126,8 @@ def main() -> int:
     from rte_rrtmgp_nn_tpu_torch.drivers.allsky_io import GARAND_GASES
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
-    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
+        lw_spectral_g128, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.gasoptics.synthetic import generate_kdist_nc
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.utils import bench
@@ -145,8 +146,9 @@ def main() -> int:
     data = rfmip_data_from_arrays(testing.synthesize_rfmip(args.ncol, NLAY, SEED))
     sw_in = rfmip.sw_staged_inputs(data, dev)
     stand = load_model_netcdf(os.path.join(art, SW_MODEL), device=dev)
-    stand_solar = torch.as_tensor(rfmip.default_solar_source(sw_spectral_g112()), dtype=f32,
-                                  device=dev)
+    sw_spec = spectral_for("sw", [stand, stand], entry="torch_sw_staged_cost.py",
+                           accepts=(sw_spectral_g112,))
+    stand_solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=f32, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         kpath = os.path.join(tmp, "kdist-synthetic-sw-g4-nband14.nc")
         generate_kdist_nc(kpath, kind="sw", gases=testing.LUT_GASES, gpts_per_band=4, nband=14)
@@ -178,12 +180,14 @@ def main() -> int:
         base["gases"] = {g: v for g, v in base["gases"].items() if g in GARAND_GASES}
         host = gcm.synthesize_gcm_columns(rfmip_data_from_arrays(base), args.block, seed=SEED)
         co = {}
-        for band, spec in (("lw", lw_spectral_g128()), ("sw", sw_spectral_g112())):
+        lw = load_model_netcdf(os.path.join(art, LW_MODEL), device=dev)
+        lw_spec = spectral_for("lw", [lw], entry="torch_sw_staged_cost.py",
+                               accepts=(lw_spectral_g128,))
+        for band, spec in (("lw", lw_spec), ("sw", sw_spec)):
             path = os.path.join(tmp, f"{band}-lut.nc")
             write_nc(path, *testing.cloud_optics_nc_variables(
                 testing.synthesize_cloud_optics(spec, SEED, "lut")))
             co[band] = allsky.load_cloud_optics_checked(path, device=dev)
-        lw = load_model_netcdf(os.path.join(art, LW_MODEL), device=dev)
         with config_override(use_megakernel=False):
             ms, nbytes = peak(lambda: gcm.gcm_sweep_allsky(
                 host, [lw], [stand, stand], co["lw"], co["sw"], block_size=args.block,
