@@ -68,6 +68,7 @@ from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str, delta_scale, increment
 from ..rte import rte_lw, rte_sw
 from ..spectral import SpectralMapping
+from ..utils.timing import span
 from .allsky_io import GarandAtmosphere  # noqa: F401 (re-export)
 from .allsky_io import read_garand
 from .rfmip import _check_sw_scaling, _stack_lanes, _to_lay_major, resolve_solar_source
@@ -292,10 +293,14 @@ def _allsky_lw_core_mega(
     """All-sky LW through the fused kernel in a cloud mode, on canonical
     layer-major top-at-0 inputs (canonicalize_allsky_inputs); top_at_1 only
     flips the output. Same numbers as _allsky_lw_core_lay_major."""
-    args, cld_kw = allsky_lw_mega_args(
-        models, table, spectral, cloud_co, play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
-        lwp_t, iwp_t, rel_t, rei_t, concs_t)
-    up, dn = lw_clearsky_mega4(*args, **cld_kw)
+    with span("rte.prep"):
+        args, cld_kw = allsky_lw_mega_args(
+            models, table, spectral, cloud_co, play_t, plev_t, tlay_t, tlev_t, tsfc,
+            emis_band, lwp_t, iwp_t, rel_t, rei_t, concs_t)
+    with span("rte.kernel.lw"):
+        up, dn = lw_clearsky_mega4(*args, **cld_kw)
+    # the kernel's inputs are freed before its outputs are flipped and combined
+    del args, cld_kw
     if not top_at_1:
         up, dn = up.flip(1), dn.flip(1)
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
@@ -339,10 +344,14 @@ def _allsky_sw_core_mega(
     """All-sky SW through the fused kernel in a cloud mode, on canonical
     layer-major top-at-0 inputs. Same numbers as _allsky_sw_core_lay_major
     up to float32 rounding (and the float64 two-stream coefficients)."""
-    args, cld_kw = allsky_sw_mega_args(
-        models, spectral, solar, cloud_co, play_t, plev_t, tlay_t, mu0, sfc_alb_dir,
-        sfc_alb_dif, lwp_t, iwp_t, rel_t, rei_t, concs_t)
-    up, dn, dn_dir = sw_clearsky_megakernel(*args, **cld_kw)
+    with span("rte.prep"):
+        args, cld_kw = allsky_sw_mega_args(
+            models, spectral, solar, cloud_co, play_t, plev_t, tlay_t, mu0, sfc_alb_dir,
+            sfc_alb_dif, lwp_t, iwp_t, rel_t, rei_t, concs_t)
+    with span("rte.kernel.sw"):
+        up, dn, dn_dir = sw_clearsky_megakernel(*args, **cld_kw)
+    # the kernel's inputs are freed before its outputs are flipped and combined
+    del args, cld_kw
     if not top_at_1:
         up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)

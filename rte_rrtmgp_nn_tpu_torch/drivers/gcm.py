@@ -45,6 +45,7 @@ from ..gasoptics.planck import (
 from ..models.network import NNModel
 from ..parallel.sharding import Mesh, column_sharding, replicated
 from ..parallel.streaming import iter_blocks, stream_reduce
+from ..utils.timing import span
 from .allsky import (
     CLOUD_P_MAX,
     CLOUD_P_MIN,
@@ -275,9 +276,10 @@ def _block(a: np.ndarray, start: int, size: int, device) -> torch.Tensor:
 
 
 def _synchronize(devices) -> None:
-    for d in dict.fromkeys(torch.device(x) for x in devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
+    with span("rte.wait"):
+        for d in dict.fromkeys(torch.device(x) for x in devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 def _resident_reduce(step_fn, packed_list: Sequence[np.ndarray], block_size: int,
@@ -396,21 +398,25 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
     tensors, with its routes taken (LW and SW each by
     ``resolve_use_megakernel``); returns (ncol, 3) [olr, surface LW down,
     surface SW down]."""
-    lw_spec = spectral_for("lw", lw_models, entry="gcm_sweep_allsky", accepts=(lw_spectral_g128,),
-                           basis=_LW_BASIS)
-    sw_spec = spectral_for("sw", sw_models, entry="gcm_sweep_allsky",
-                           accepts=(sw_spectral_g112, sw_spectral_g224),
-                           basis="the sweep takes its SW spectral mapping, solar source and "
-                                 "albedo from the nets' outputs")
-    lw_route = _route("gcm_sweep_allsky (LW)", device, dtype, lw=True, models=lw_models)
-    sw_route = _route("gcm_sweep_allsky (SW)", device, dtype, models=sw_models)
-    if sw_route == "megakernel":
-        _check_sw_scaling(sw_models)
+    with span("rte.check"):
+        lw_spec = spectral_for("lw", lw_models, entry="gcm_sweep_allsky",
+                               accepts=(lw_spectral_g128,), basis=_LW_BASIS)
+        sw_spec = spectral_for("sw", sw_models, entry="gcm_sweep_allsky",
+                               accepts=(sw_spectral_g112, sw_spectral_g224),
+                               basis="the sweep takes its SW spectral mapping, solar source and "
+                                     "albedo from the nets' outputs")
+        lw_route = _route("gcm_sweep_allsky (LW)", device, dtype, lw=True, models=lw_models)
+        sw_route = _route("gcm_sweep_allsky (SW)", device, dtype, models=sw_models)
+        if sw_route == "megakernel":
+            _check_sw_scaling(sw_models)
     first = mesh.devices[0]
-    table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=first, dtype=dtype)
-    solar = torch.as_tensor(default_solar_source(sw_spec), dtype=dtype, device=first)
-    on = replicated(mesh).put((list(lw_models), list(sw_models), table, solar, cloud_lw,
-                               cloud_sw))
+    with span("rte.planck"):
+        table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=first, dtype=dtype)
+    with span("rte.solar"):
+        solar = torch.as_tensor(default_solar_source(sw_spec), dtype=dtype, device=first)
+    with span("rte.replicate"):
+        on = replicated(mesh).put((list(lw_models), list(sw_models), table, solar, cloud_lw,
+                                   cloud_sw))
     canon = _canon(top_at_1)
     # the cores return fluxes in the caller's orientation
     toa, sfc = (0, -1) if top_at_1 else (-1, 0)
@@ -453,39 +459,11 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
     return body
 
 
-def gcm_sweep_allsky(
-    host: dict,
-    lw_models: Sequence[NNModel],
-    sw_models: Sequence[NNModel],
-    cloud_lw,
-    cloud_sw,
-    block_size: int = 65536,
-    mesh=None,
-    top_at_1: bool = True,
-    dtype=torch.float32,
-    warmup: bool = False,
-    resident: bool = False,
-    precision: str = "f32",
-    *,
-    device,
-) -> dict:
-    """Full LW+SW ALL-SKY streamed sweep on ``device`` (or over ``mesh``'s
-    devices): NN gas optics and the idealized clouds of the all-sky example
-    (drivers.allsky.make_clouds, per block on the device), then LW
-    no-scattering and SW two-stream, broadband. ``host``: the dict of
-    synthesize_gcm_columns. The models and cloud optics live on ``device``:
-    LW nets of the g-128 mapping, SW nets of the g-112 or g-224 one (others
-    are refused, planck.spectral_for).
-    precision='mixed' quantizes the tolerant lanes (see gcm_sweep_lw); the
-    grazing day columns (0 < mu0 <= 0.1) then take an exact-f32 side sweep.
-    Returns throughput, the host -> device bytes per column and the
-    per-column diagnostics (ncol, 3) [olr, surface LW down, surface SW
-    down]."""
-    mesh = _mesh_for(mesh, device)
-    gas_names = [k.split(":", 1)[1] for k in host if k.startswith("gas:")]
-    body = _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1, dtype,
-                        mesh, device)
-
+def _allsky_jobs(host: dict, body, gas_names, block_size: int, precision: str, mesh: Mesh,
+                 dtype) -> list:
+    """gcm_sweep_allsky's host columns packed for the host link, with the
+    step that unpacks a block and runs ``body`` on it: the jobs of
+    ``_run_jobs``."""
     ncol = host["play"].shape[0]
     # signed mu0 (night <= 0): the body masks night SW to zero
     mu0 = np.cos(np.deg2rad(host["sza"])).astype(np.float32)
@@ -524,7 +502,8 @@ def gcm_sweep_allsky(
                  + [(host[f"gas:{g}"][ix], _gas_pack_kind(host[f"gas:{g}"]))
                     for g in gas_names])
         packed_f, packed_q, qmeta, layout = _pack_columns_mixed(specs)
-        qm = replicated(mesh).put(torch.from_numpy(qmeta))
+        with span("rte.replicate"):
+            qm = replicated(mesh).put(torch.from_numpy(qmeta))
 
         def step(blk_f, blk_q):
             fields = _unpack_with_levels(blk_f, blk_q, qm[blk_f.device], layout, dtype)
@@ -554,18 +533,58 @@ def gcm_sweep_allsky(
         # a small side job takes a block that fits it
         bs = min(block_size, max(256, -(-n_sub // 256) * 256))
         jobs.append((idx, *build(idx), bs))
-    diag, elapsed, bytes_per_column = _run_jobs(jobs, ncol, 3, mesh, resident, warmup, device)
-    olr, lw_sfc_dn, sw_sfc_dn = diag.T
-    return {
-        "ncol": ncol,
-        "elapsed_s": elapsed,
-        "columns_per_s": ncol / elapsed,
-        "mean_olr": float(olr.mean()),
-        "mean_lw_sfc_dn": float(lw_sfc_dn.mean()),
-        "mean_sw_sfc_dn": float(sw_sfc_dn.mean()),
-        "diagnostics": diag,  # (ncol, 3) per-column [olr, lw_dn, sw_dn]
-        "bytes_per_column": bytes_per_column,  # host -> device
-    }
+    return jobs
+
+
+def gcm_sweep_allsky(
+    host: dict,
+    lw_models: Sequence[NNModel],
+    sw_models: Sequence[NNModel],
+    cloud_lw,
+    cloud_sw,
+    block_size: int = 65536,
+    mesh=None,
+    top_at_1: bool = True,
+    dtype=torch.float32,
+    warmup: bool = False,
+    resident: bool = False,
+    precision: str = "f32",
+    *,
+    device,
+) -> dict:
+    """Full LW+SW ALL-SKY streamed sweep on ``device`` (or over ``mesh``'s
+    devices): NN gas optics and the idealized clouds of the all-sky example
+    (drivers.allsky.make_clouds, per block on the device), then LW
+    no-scattering and SW two-stream, broadband. ``host``: the dict of
+    synthesize_gcm_columns. The models and cloud optics live on ``device``:
+    LW nets of the g-128 mapping, SW nets of the g-112 or g-224 one (others
+    are refused, planck.spectral_for).
+    precision='mixed' quantizes the tolerant lanes (see gcm_sweep_lw); the
+    grazing day columns (0 < mu0 <= 0.1) then take an exact-f32 side sweep.
+    Returns throughput, the host -> device bytes per column and the
+    per-column diagnostics (ncol, 3) [olr, surface LW down, surface SW
+    down]."""
+    with span("rte.gcm.sweep"):
+        mesh = _mesh_for(mesh, device)
+        gas_names = [k.split(":", 1)[1] for k in host if k.startswith("gas:")]
+        body = _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1,
+                            dtype, mesh, device)
+        ncol = host["play"].shape[0]
+        with span("rte.pack"):
+            jobs = _allsky_jobs(host, body, gas_names, block_size, precision, mesh, dtype)
+        diag, elapsed, bytes_per_column = _run_jobs(jobs, ncol, 3, mesh, resident, warmup,
+                                                    device)
+        olr, lw_sfc_dn, sw_sfc_dn = diag.T
+        return {
+            "ncol": ncol,
+            "elapsed_s": elapsed,
+            "columns_per_s": ncol / elapsed,
+            "mean_olr": float(olr.mean()),
+            "mean_lw_sfc_dn": float(lw_sfc_dn.mean()),
+            "mean_sw_sfc_dn": float(sw_sfc_dn.mean()),
+            "diagnostics": diag,  # (ncol, 3) per-column [olr, lw_dn, sw_dn]
+            "bytes_per_column": bytes_per_column,  # host -> device
+        }
 
 
 def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):

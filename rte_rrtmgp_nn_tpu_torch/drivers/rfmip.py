@@ -58,6 +58,7 @@ from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str
 from ..rte import rte_lw, rte_sw
 from ..spectral import SpectralMapping
+from ..utils.timing import span
 from .rfmip_io import RFMIPData
 
 
@@ -164,9 +165,13 @@ def _lw_core_mega4_canon(
 ):
     """LW core through the fused kernel, on canonical layer-major top-at-0
     inputs (canonicalize_rfmip_inputs); top_at_1 only flips the output."""
-    up, dn = lw_clearsky_mega4(*lw_mega_args(
-        models, planck_table, spectral, play_t, plev_t, tlay_t, tlev_t, tsfc,
-        sfc_emis_band, concs_t))
+    with span("rte.prep"):
+        args = lw_mega_args(models, planck_table, spectral, play_t, plev_t, tlay_t, tlev_t,
+                            tsfc, sfc_emis_band, concs_t)
+    with span("rte.kernel.lw"):
+        up, dn = lw_clearsky_mega4(*args)
+    # the kernel's inputs are freed before its outputs are flipped and combined
+    del args
     if not top_at_1:
         up, dn = up.flip(1), dn.flip(1)
     return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
@@ -448,9 +453,13 @@ def _sw_core_mega_canon(
     """SW core through the fused kernel, on canonical layer-major top-at-0
     inputs. Night columns enter the kernel with mu0 = 1 and leave with
     zeroed fluxes."""
-    up, dn, dn_dir = sw_clearsky_megakernel(*sw_mega_args(
-        models, solar_source, play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi,
-        concs_t))
+    with span("rte.prep"):
+        args = sw_mega_args(models, solar_source, play_t, plev_t, tlay_t, sfc_alb, mu0,
+                            usecol, tsi, concs_t)
+    with span("rte.kernel.sw"):
+        up, dn, dn_dir = sw_clearsky_megakernel(*args)
+    # the kernel's inputs are freed before its outputs are flipped and combined
+    del args
     return _sw_masked(up, dn, dn_dir, usecol, top_at_1)
 
 
@@ -515,20 +524,24 @@ def lw_canonical_inputs(data: RFMIPData, spectral: SpectralMapping, device,
     """The fused LW core's inputs on ``device``: (play_t, plev_t, tlay_t,
     tlev_t, tsfc, sfc_emis_band, concs_t)."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    play_t, plev_t, tlay_t, tlev_t, concs_t = canonicalize_rfmip_inputs(data)
-    return (t(play_t), t(plev_t), t(tlay_t), t(tlev_t), t(data.tsfc),
-            _emis_band(data, spectral, device, dtype),
-            {k: t(v) for k, v in concs_t.items()})
+    with span("rte.canon"):
+        play_t, plev_t, tlay_t, tlev_t, concs_t = canonicalize_rfmip_inputs(data)
+    with span("rte.h2d"):
+        return (t(play_t), t(plev_t), t(tlay_t), t(tlev_t), t(data.tsfc),
+                _emis_band(data, spectral, device, dtype),
+                {k: t(v) for k, v in concs_t.items()})
 
 
 def sw_canonical_inputs(data: RFMIPData, device, dtype=torch.float32):
     """The fused SW core's inputs on ``device``: (play_t, plev_t, tlay_t,
     sfc_alb, mu0, usecol, tsi, concs_t)."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    play_t, plev_t, tlay_t, _, concs_t = canonicalize_rfmip_inputs(data)
-    mu0, usecol = _sun(data, device, dtype)
-    return (t(play_t), t(plev_t), t(tlay_t), t(data.sfc_alb), mu0, usecol,
-            t(data.tsi), {k: t(v) for k, v in concs_t.items()})
+    with span("rte.canon"):
+        play_t, plev_t, tlay_t, _, concs_t = canonicalize_rfmip_inputs(data)
+        mu0, usecol = _sun(data, device, dtype)
+    with span("rte.h2d"):
+        return (t(play_t), t(plev_t), t(tlay_t), t(data.sfc_alb), mu0, usecol,
+                t(data.tsi), {k: t(v) for k, v in concs_t.items()})
 
 
 def _check_sw_scaling(models):
@@ -547,9 +560,10 @@ def lw_staged_inputs(data: RFMIPData, spectral: SpectralMapping, device,
     caller's orientation: (play, plev, tlay, tlev, tsfc, sfc_emis_band,
     concs)."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    return (t(data.play), t(data.plev), t(data.tlay), t(data.tlev), t(data.tsfc),
-            _emis_band(data, spectral, device, dtype),
-            {k: t(v) for k, v in data.gas_concs.concs.items()})
+    with span("rte.h2d"):
+        return (t(data.play), t(data.plev), t(data.tlay), t(data.tlev), t(data.tsfc),
+                _emis_band(data, spectral, device, dtype),
+                {k: t(v) for k, v in data.gas_concs.concs.items()})
 
 
 def sw_staged_inputs(data: RFMIPData, device, dtype=torch.float32):
@@ -557,9 +571,11 @@ def sw_staged_inputs(data: RFMIPData, device, dtype=torch.float32):
     caller's orientation: (play, plev, tlay, sfc_alb, mu0, usecol, tsi,
     concs)."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    mu0, usecol = _sun(data, device, dtype)
-    return (t(data.play), t(data.plev), t(data.tlay), t(data.sfc_alb), mu0, usecol,
-            t(data.tsi), {k: t(v) for k, v in data.gas_concs.concs.items()})
+    with span("rte.canon"):
+        mu0, usecol = _sun(data, device, dtype)
+    with span("rte.h2d"):
+        return (t(data.play), t(data.plev), t(data.tlay), t(data.sfc_alb), mu0, usecol,
+                t(data.tsi), {k: t(v) for k, v in data.gas_concs.concs.items()})
 
 
 def rfmip_clear_sky_lw(
@@ -580,26 +596,29 @@ def rfmip_clear_sky_lw(
     defaults to the g-128 mapping; nets that do not fit it, or the
     mapping passed, raise ValueError (planck.spectral_for). Returns (ncol,
     nlay+1) fluxes on ``device``."""
-    spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
-                            accepts=(lw_spectral_g128,), spectral=spectral)
-    device = torch.device(device)
-    route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
-                                   n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
-    if route.kind == "refuse":
-        raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
-    if planck_table is None:
-        planck_table = PlanckTable.compute(spectral.band_lims_wvn_array,
-                                           device=device, dtype=dtype)
-    else:
-        planck_table = planck_table.to(device)
-    if route.kind == "megakernel":
-        return _lw_core_mega4_canon(
-            models, planck_table, spectral,
-            *lw_canonical_inputs(data, spectral, device, dtype), top_at_1=data.top_at_1)
-    return _lw_core(models, planck_table, spectral,
-                    *lw_staged_inputs(data, spectral, device, dtype),
-                    top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
-                    scan_mode=scan_mode)
+    with span("rte.rfmip.lw"):
+        with span("rte.check"):
+            spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
+                                    accepts=(lw_spectral_g128,), spectral=spectral)
+            device = torch.device(device)
+            route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
+                                           n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
+            if route.kind == "refuse":
+                raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
+        if planck_table is None:
+            with span("rte.planck"):
+                planck_table = PlanckTable.compute(spectral.band_lims_wvn_array,
+                                                   device=device, dtype=dtype)
+        else:
+            planck_table = planck_table.to(device)
+        if route.kind == "megakernel":
+            return _lw_core_mega4_canon(
+                models, planck_table, spectral,
+                *lw_canonical_inputs(data, spectral, device, dtype), top_at_1=data.top_at_1)
+        return _lw_core(models, planck_table, spectral,
+                        *lw_staged_inputs(data, spectral, device, dtype),
+                        top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
+                        scan_mode=scan_mode)
 
 
 def rfmip_clear_sky_sw(
@@ -618,22 +637,26 @@ def rfmip_clear_sky_sw(
     on ``device``. Night columns (sza >= 90 deg) come back zero.
     ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
     or the mapping passed, raise ValueError (planck.spectral_for)."""
-    spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
-                            accepts=(sw_spectral_g112,), spectral=spectral)
-    device = torch.device(device)
-    route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
-                                   scan_mode=scan_mode)
-    if route.kind == "refuse":
-        raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
-    if solar_source is None:
-        solar_source = resolve_solar_source(spectral, kdist)
-    solar = torch.as_tensor(solar_source, dtype=dtype, device=device)
-    if route.kind == "megakernel":
-        _check_sw_scaling(models)
-        return _sw_core_mega_canon(models, solar, *sw_canonical_inputs(data, device, dtype),
-                                   top_at_1=data.top_at_1)
-    if scan_mode == "sequential":
-        return _sw_core_lay_major(models, solar, *sw_staged_inputs(data, device, dtype),
-                                  top_at_1=data.top_at_1)
-    return _sw_core(models, spectral, solar, *sw_staged_inputs(data, device, dtype),
-                    top_at_1=data.top_at_1, scan_mode=scan_mode)
+    with span("rte.rfmip.sw"):
+        with span("rte.check"):
+            spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
+                                    accepts=(sw_spectral_g112,), spectral=spectral)
+            device = torch.device(device)
+            route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
+                                           scan_mode=scan_mode)
+            if route.kind == "refuse":
+                raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
+            if route.kind == "megakernel":
+                _check_sw_scaling(models)
+        with span("rte.solar"):
+            if solar_source is None:
+                solar_source = resolve_solar_source(spectral, kdist)
+            solar = torch.as_tensor(solar_source, dtype=dtype, device=device)
+        if route.kind == "megakernel":
+            return _sw_core_mega_canon(models, solar, *sw_canonical_inputs(data, device, dtype),
+                                       top_at_1=data.top_at_1)
+        if scan_mode == "sequential":
+            return _sw_core_lay_major(models, solar, *sw_staged_inputs(data, device, dtype),
+                                      top_at_1=data.top_at_1)
+        return _sw_core(models, spectral, solar, *sw_staged_inputs(data, device, dtype),
+                        top_at_1=data.top_at_1, scan_mode=scan_mode)

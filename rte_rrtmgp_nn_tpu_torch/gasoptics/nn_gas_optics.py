@@ -31,6 +31,7 @@ from ..models.network import NNModel
 from ..ops.cuda import mlp
 from ..sources import SourceFuncLW
 from ..spectral import SpectralMapping
+from ..utils.timing import span
 from .planck import PlanckTable, compute_planck_source_nn
 
 
@@ -211,7 +212,8 @@ def split_first_layer(model: NNModel, perm: Sequence[int], n2d: int):
     key = (tuple(perm), n2d)
     split = model.first_layer_splits.get(key)
     if split is None:
-        split = model.first_layer_splits[key] = _cut_first_layer(w1, key[0], n2d)
+        with span("rte.first_layer.miss"):
+            split = model.first_layer_splits[key] = _cut_first_layer(w1, key[0], n2d)
     return split
 
 

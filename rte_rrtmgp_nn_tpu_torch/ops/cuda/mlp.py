@@ -35,6 +35,7 @@ import torch
 from ...config import (MLP_KERNEL_MAX_LAYERS, MLP_KERNEL_MAX_WIDTH, mlp_kernel_refusal,
                        refuse_grad)
 from ...models.network import ACTIVATIONS, NNModel
+from ...utils.timing import span
 from . import build
 from .lw_megakernel import MAX_SLAB_FLOATS, MAX_SMEM, MIN_SLAB_ROWS, ROW_PAD, _check, _smem_limit
 
@@ -181,25 +182,26 @@ def kernel_net(name: str, m: NNModel, dev) -> build.MlpNet:
     kept = m.kernel_net
     if kept is not None and kept[0] == dev and kept[1] == key:
         return kept[2]
-    why = mlp_kernel_refusal([m])
-    if why:
-        raise ValueError(f"{name}: {why}")
-    n_out = m.n_outputs
-    for i, (w, b) in enumerate(zip(m.weights, m.biases)):
-        _check(f"weights[{i}]", w, (m.dims[i], m.dims[i + 1]), torch.float32, dev)
-        _check(f"biases[{i}]", b, (m.dims[i + 1],), torch.float32, dev)
-    for vname in ("output_mean", "output_std"):
-        v = getattr(m, vname)
-        if v is None:
-            raise ValueError(f"{name}: the model has no {vname}")
-        _check(vname, v, (n_out,), torch.float32, dev)
-    net = build.MlpNet(omean=m.output_mean.data_ptr(), ostd=m.output_std.data_ptr(),
-                       nlayers=m.n_layers)
-    for i, (w, b) in enumerate(zip(m.weights, m.biases)):
-        net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
-    net.dims[:m.n_layers + 1] = m.dims
-    net.act[:m.n_layers] = [ACT_CODES[a] for a in m.activations]
-    m.kernel_net = (dev, key, net)
+    with span("rte.kernel_net.miss"):
+        why = mlp_kernel_refusal([m])
+        if why:
+            raise ValueError(f"{name}: {why}")
+        n_out = m.n_outputs
+        for i, (w, b) in enumerate(zip(m.weights, m.biases)):
+            _check(f"weights[{i}]", w, (m.dims[i], m.dims[i + 1]), torch.float32, dev)
+            _check(f"biases[{i}]", b, (m.dims[i + 1],), torch.float32, dev)
+        for vname in ("output_mean", "output_std"):
+            v = getattr(m, vname)
+            if v is None:
+                raise ValueError(f"{name}: the model has no {vname}")
+            _check(vname, v, (n_out,), torch.float32, dev)
+        net = build.MlpNet(omean=m.output_mean.data_ptr(), ostd=m.output_std.data_ptr(),
+                           nlayers=m.n_layers)
+        for i, (w, b) in enumerate(zip(m.weights, m.biases)):
+            net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
+        net.dims[:m.n_layers + 1] = m.dims
+        net.act[:m.n_layers] = [ACT_CODES[a] for a in m.activations]
+        m.kernel_net = (dev, key, net)
     return net
 
 

@@ -32,6 +32,7 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from .sharding import ColumnSharding, Mesh, column_sharding
 
 
@@ -62,7 +63,7 @@ class _CudaStager:
     def __init__(self, device, host_arrays, rows: int, slots: int):
         self.device = device
         self.compute = torch.cuda.current_stream(device)
-        with torch.cuda.device(device):
+        with span("rte.ring"), torch.cuda.device(device):
             self.copy = torch.cuda.Stream(device)
             self.slots = [{
                 "pinned": [torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a),
@@ -76,19 +77,21 @@ class _CudaStager:
         """Copy ``parts`` (one row block per host array) into the next slot."""
         slot = self.slots[self.staged % len(self.slots)]
         self.staged += 1
-        if slot["copied"] is not None:
-            slot["copied"].synchronize()  # the pinned buffers' last copy has left them
-        n = parts[0].shape[0]
-        for p, a in zip(slot["pinned"], parts):
-            np.copyto(p[:n].numpy(), a)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.copy):
-            # the step that read the device buffers, and everything queued
-            # on the compute stream after it, was queued before this copy
-            self.copy.wait_stream(self.compute)
-            for d, p in zip(slot["dev"], slot["pinned"]):
-                d[:n].copy_(p[:n], non_blocking=True)
-            slot["copied"] = torch.cuda.Event()
-            slot["copied"].record(self.copy)
+        with span("rte.stage"):
+            if slot["copied"] is not None:
+                with span("rte.wait"):
+                    slot["copied"].synchronize()  # the pinned buffers' last copy has left them
+            n = parts[0].shape[0]
+            for p, a in zip(slot["pinned"], parts):
+                np.copyto(p[:n].numpy(), a)
+            with torch.cuda.device(self.device), torch.cuda.stream(self.copy):
+                # the step that read the device buffers, and everything queued
+                # on the compute stream after it, was queued before this copy
+                self.copy.wait_stream(self.compute)
+                for d, p in zip(slot["dev"], slot["pinned"]):
+                    d[:n].copy_(p[:n], non_blocking=True)
+                slot["copied"] = torch.cuda.Event()
+                slot["copied"].record(self.copy)
         slot["n"] = n
 
     def run(self, fn: Callable):
@@ -159,8 +162,9 @@ def stream_blocks(
 
     pending = [put(k) for k in range(min(prefetch, len(blocks)))]
     for k, (start, size) in enumerate(blocks):
-        results = [stagers[d].run(fn) if d.type == "cuda" else fn(*args)
-                   for d, args in pending.pop(0)]
+        with span("rte.step"):
+            results = [stagers[d].run(fn) if d.type == "cuda" else fn(*args)
+                       for d, args in pending.pop(0)]
         yield start, size, _join(results)
         if k + prefetch < len(blocks):
             pending.append(put(k + prefetch))
@@ -182,24 +186,30 @@ def stream_reduce(
     into pinned host memory without blocking, and the sweep synchronizes
     once at its end; only the results are kept, so fn should return
     per-column diagnostics, not whole profiles."""
-    ncol = host_arrays[0].shape[0]
-    outs = out_builder(ncol)
-    pinned, cuda_devices = None, set()
-    for start, size, res in stream_blocks(fn, host_arrays, block_size, sharding, device=device):
-        res = list(res) if isinstance(res, (tuple, list)) else [res]
-        if res[0].device.type == "cuda":
-            cuda_devices.add(res[0].device)
-            if pinned is None:
-                pinned = [torch.empty(o.shape, dtype=r.dtype, pin_memory=True)
-                          for o, r in zip(outs, res)]
-            for p, r in zip(pinned, res):
-                p[start:start + size].copy_(r, non_blocking=True)
-        else:
-            for o, r in zip(outs, res):
-                o[start:start + size] = r.numpy()
-    if pinned is not None:
-        for d in cuda_devices:
-            torch.cuda.synchronize(d)
-        for o, p in zip(outs, pinned):
-            o[...] = p.numpy()
-    return outs
+    with span("rte.stream"):
+        ncol = host_arrays[0].shape[0]
+        outs = out_builder(ncol)
+        pinned, cuda_devices = None, set()
+        for start, size, res in stream_blocks(fn, host_arrays, block_size, sharding,
+                                              device=device):
+            res = list(res) if isinstance(res, (tuple, list)) else [res]
+            if res[0].device.type == "cuda":
+                with span("rte.d2h"):
+                    cuda_devices.add(res[0].device)
+                    if pinned is None:
+                        pinned = [torch.empty(o.shape, dtype=r.dtype, pin_memory=True)
+                                  for o, r in zip(outs, res)]
+                    for p, r in zip(pinned, res):
+                        p[start:start + size].copy_(r, non_blocking=True)
+            else:
+                with span("rte.gather"):
+                    for o, r in zip(outs, res):
+                        o[start:start + size] = r.numpy()
+        if pinned is not None:
+            with span("rte.wait"):
+                for d in cuda_devices:
+                    torch.cuda.synchronize(d)
+            with span("rte.gather"):
+                for o, p in zip(outs, pinned):
+                    o[...] = p.numpy()
+        return outs

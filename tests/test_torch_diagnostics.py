@@ -1,5 +1,5 @@
 """The port's training diagnostics (training/diagnostics.py) against the
-JAX package's, the instrumentation of utils/timing.py, and the pieces of
+JAX package's, the spans and trace of utils/timing.py, and the pieces of
 the LUT training recipe (training/lut_recipe.py, testing's RFMIP
 experiments) against scripts/train_from_lut.py's.
 
@@ -67,32 +67,22 @@ def test_figures_run(flux_profiles, rng, tmp_path):
 
 
 def test_region_timers_trace_and_throughput(tmp_path):
-    t = timing.RegionTimers()
-    for _ in range(3):
-        with t.region("matmul", device="cpu"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    with t.region("bare", annotate=False):
-        pass
-    assert t.counts == {"matmul": 3, "bare": 1} and t.totals["matmul"] > 0
-    report = t.report().splitlines()
-    assert report[0].split() == ["region", "calls", "total_s", "per_call_ms"]
-    assert {line.split()[0] for line in report[1:]} == {"matmul", "bare"}
-    t.reset()
-    assert not t.totals and not t.counts
-    cps = timing.columns_per_second(100, lambda a: (a * 2, {"x": a}), torch.ones(100), n_iter=3)
-    assert cps > 0
-    from rte_rrtmgp_nn_tpu_torch.fluxes import FluxesBroadband
-    out = FluxesBroadband(flux_up=torch.ones(2), flux_dn=torch.zeros(2))
-    assert timing._first_tensor(out) is out.flux_up
-    assert timing._first_tensor(({"a": None}, [3, torch.ones(1)])).shape == (1,)
-    assert timing._first_tensor((None, 2.0)) is None
+    """utils/timing: an operator's trace (start_trace / stop_trace) holds
+    the spans run while it records; spans record nothing around it."""
     timing.start_trace(str(tmp_path))
     with pytest.raises(RuntimeError, match="already"):
         timing.start_trace(str(tmp_path))
-    with timing.trace("named-range"):
-        torch.ones(8).sum()
+    for _ in range(3):
+        with timing.span("rte.probe"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     timing.stop_trace()
-    assert os.listdir(tmp_path)
+    assert not torch.autograd._profiler_enabled()
+    with timing.span("rte.after"):
+        torch.ones(8).sum()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        text = f.read()
+    assert text.count('"rte.probe"') >= 3 and "rte.after" not in text
     with pytest.raises(RuntimeError, match="no trace"):
         timing.stop_trace()
 
