@@ -21,9 +21,11 @@ Each sweep takes its route once, by ``config.resolve_use_megakernel``:
     the two-stream sweeps in PyTorch);
   - "refuse": NotImplementedError with the reason.
 
-The host arrays travel packed: every field of a block in ONE float32 array
-(``_pack_columns``), or with ``precision="mixed"`` the tolerant fields as
-per-lane min-max uint16 codes beside an exact float32 block
+A block crosses the host link as one copy of one staging slot, in which
+each host array's rows of the block lie in a region of their own
+(``parallel/streaming.py``): with ``precision="f32"`` the fields themselves
+in float32 (``_f32_job``), with ``precision="mixed"`` the tolerant fields
+as per-lane min-max uint16 codes beside an exact float32 block
 (``_pack_columns_mixed``), which halves the bytes per column.
 """
 from __future__ import annotations
@@ -94,28 +96,6 @@ def synthesize_gcm_columns(base: RFMIPData, ncol_target: int, seed: int = 0) -> 
             out[f"gas:{g}"] = vi
         else:
             out[f"gas:{g}"] = np.broadcast_to(v, (ncol_target,)).copy()
-    return out
-
-
-def _pack_columns(arrays: Sequence[np.ndarray]) -> tuple[np.ndarray, list[int]]:
-    """Fuse column-leading host arrays into ONE (ncol, K) float32 block, so
-    a block crosses the host link as one copy; the step slices the lanes
-    back out on the device."""
-    parts = [a[:, None] if a.ndim == 1 else a for a in arrays]
-    widths = [p.shape[1] for p in parts]
-    return (np.concatenate([p.astype(np.float32, copy=False) for p in parts],
-                           axis=1),
-            widths)
-
-
-def _unpack_columns(blk: torch.Tensor, widths: Sequence[int]) -> list:
-    """Inverse of _pack_columns on the device: lane slices, width-1 lanes
-    squeezed back to (ncol,)."""
-    out, o = [], 0
-    for w in widths:
-        sl = blk[:, o:o + w]
-        out.append(sl[:, 0] if w == 1 else sl)
-        o += w
     return out
 
 
@@ -282,17 +262,17 @@ def _synchronize(devices) -> None:
                 torch.cuda.synchronize(d)
 
 
-def _resident_reduce(step_fn, packed_list: Sequence[np.ndarray], block_size: int,
+def _resident_reduce(step_fn, arrays: Sequence[np.ndarray], block_size: int,
                      out_builder, *, device) -> tuple[list, float]:
-    """Device-RESIDENT block sweep: every packed block is staged on
+    """Device-RESIDENT block sweep: every block of every array is staged on
     ``device`` first (and block 0 run once, which builds the kernels at
     first CUDA use), then the timer runs only around the compute and fetch
     loop, so it measures the compute pipeline without the host link.
     Returns (outs, elapsed_s)."""
-    ncol = packed_list[0].shape[0]
+    ncol = arrays[0].shape[0]
     outs = out_builder(ncol)
     blocks = list(iter_blocks(ncol, block_size))
-    dev = [[_block(p, start, size, device) for p in packed_list] for start, size in blocks]
+    dev = [[_block(a, start, size, device) for a in arrays] for start, size in blocks]
     step_fn(*dev[0])
     _synchronize([device])
     cuda = torch.device(device).type == "cuda"
@@ -355,7 +335,7 @@ def _full_concs(gas_names, gas_vals, ncol: int, nlay: int) -> dict:
 
 def _run_jobs(jobs, ncol: int, width: int, mesh: Mesh, resident: bool, warmup: bool,
               device) -> tuple[np.ndarray, float, float]:
-    """Sweep each job (column index or None for all, step, packed arrays,
+    """Sweep each job (column index or None for all, step, host arrays,
     block size) and stitch the diagnostics: (ncol, width), the seconds the
     sweeps took and the bytes per column that crossed the host link."""
     if resident and mesh.size > 1:
@@ -367,16 +347,16 @@ def _run_jobs(jobs, ncol: int, width: int, mesh: Mesh, resident: bool, warmup: b
     builder = lambda n: [np.zeros((n, width), np.float32)]
     out = builder(ncol)[0]
     elapsed, nbytes = 0.0, 0
-    for idx, step_fn, packed_list, bs in jobs:
-        nbytes += sum(p.nbytes for p in packed_list)
+    for idx, step_fn, arrays, bs in jobs:
+        nbytes += sum(a.nbytes for a in arrays)
         if resident:
-            sub, el = _resident_reduce(step_fn, packed_list, bs, builder, device=device)
+            sub, el = _resident_reduce(step_fn, arrays, bs, builder, device=device)
         else:
             if warmup:
                 for d in dict.fromkeys(mesh.devices):
-                    _warmup_stream(step_fn, packed_list, bs, device=d)
+                    _warmup_stream(step_fn, arrays, bs, device=d)
             t0 = time.perf_counter()
-            sub = stream_reduce(step_fn, packed_list, bs, builder,
+            sub = stream_reduce(step_fn, arrays, bs, builder,
                                 sharding=column_sharding(mesh, 2))
             el = time.perf_counter() - t0
         if idx is None:
@@ -392,9 +372,21 @@ _LW_BASIS = ("the sweep takes its LW spectral mapping, Planck table and emissivi
              "nets' outputs")
 
 
+def _f32_job(arrays: Sequence[np.ndarray], body, nfix: int, dtype) -> tuple:
+    """A ``precision="f32"`` sweep's (step, host arrays): the fields in
+    float32, column-leading, each crossing the host link in its own region
+    of a block's staging slot; the step hands a block's fields in ``dtype``
+    to ``body``, the first ``nfix`` one by one, then the gases as a list."""
+    def step(*fields):
+        fields = [x.to(dtype) for x in fields]
+        return body(*fields[:nfix], fields[nfix:])
+
+    return step, [a.astype(np.float32, copy=False) for a in arrays]
+
+
 def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: bool,
                  dtype, mesh: Mesh, device):
-    """The per-block all-sky step of gcm_sweep_allsky on unpacked block
+    """The per-block all-sky step of gcm_sweep_allsky on a block's field
     tensors, with its routes taken (LW and SW each by
     ``resolve_use_megakernel``); returns (ncol, 3) [olr, surface LW down,
     surface SW down]."""
@@ -461,9 +453,10 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
 
 def _allsky_jobs(host: dict, body, gas_names, block_size: int, precision: str, mesh: Mesh,
                  dtype) -> list:
-    """gcm_sweep_allsky's host columns packed for the host link, with the
-    step that unpacks a block and runs ``body`` on it: the jobs of
-    ``_run_jobs``."""
+    """gcm_sweep_allsky's host columns as they cross the host link, with the
+    step that runs ``body`` on a block of them: the jobs of ``_run_jobs``.
+    Beside the host's fields it makes mu0 and the cloud lane, and with
+    ``precision="mixed"`` the quantized block."""
     ncol = host["play"].shape[0]
     # signed mu0 (night <= 0): the body masks night SW to zero
     mu0 = np.cos(np.deg2rad(host["sza"])).astype(np.float32)
@@ -471,17 +464,10 @@ def _allsky_jobs(host: dict, body, gas_names, block_size: int, precision: str, m
 
     def build_f32(idx):
         sub = (lambda a: a) if idx is None else (lambda a: a[idx])
-        packed, widths = _pack_columns(
-            [sub(host["play"]), sub(host["plev"]), sub(host["tlay"]),
-             sub(host["tlev"]), sub(host["tsfc"]), sub(host["sfc_emis"]),
-             sub(host["sfc_alb"]), sub(mu0), sub(cloud_col)]
-            + [sub(host[f"gas:{g}"]) for g in gas_names])
-
-        def step(blk):
-            fields = [x.to(dtype) for x in _unpack_columns(blk, widths)]
-            return body(*fields[:9], fields[9:])
-
-        return step, [packed]
+        return _f32_job([sub(host["play"]), sub(host["plev"]), sub(host["tlay"]),
+                         sub(host["tlev"]), sub(host["tsfc"]), sub(host["sfc_emis"]),
+                         sub(host["sfc_alb"]), sub(mu0), sub(cloud_col)]
+                        + [sub(host[f"gas:{g}"]) for g in gas_names], body, 9, dtype)
 
     def build_mixed(idx):
         ix = slice(None) if idx is None else idx
@@ -588,7 +574,7 @@ def gcm_sweep_allsky(
 
 
 def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):
-    """The per-block step of gcm_sweep_lw on unpacked block tensors, with
+    """The per-block step of gcm_sweep_lw on a block's field tensors, with
     its route taken; returns (ncol, 2) [olr, surface LW down]."""
     spectral = spectral_for("lw", models, entry="gcm_sweep_lw", accepts=(lw_spectral_g128,),
                             basis=_LW_BASIS)
@@ -661,22 +647,15 @@ def gcm_sweep_lw(
             fields = _unpack_with_levels(blk_f, blk_q, qm[blk_f.device], layout, dtype)
             return body(*fields[:6], fields[6:])
 
-        packed_list = [packed_f, packed_q.view(np.int16)]
+        arrays = [packed_f, packed_q.view(np.int16)]
     elif precision == "f32":
-        packed, widths = _pack_columns(
-            [host["play"], host["plev"], host["tlay"], host["tlev"],
-             host["tsfc"], host["sfc_emis"]]
-            + [host[f"gas:{g}"] for g in gas_names])
-
-        def step(blk):
-            fields = [x.to(dtype) for x in _unpack_columns(blk, widths)]
-            return body(*fields[:6], fields[6:])
-
-        packed_list = [packed]
+        step, arrays = _f32_job([host["play"], host["plev"], host["tlay"], host["tlev"],
+                                 host["tsfc"], host["sfc_emis"]]
+                                + [host[f"gas:{g}"] for g in gas_names], body, 6, dtype)
     else:
         raise ValueError(f"precision {precision!r}: 'f32' or 'mixed'")
     ncol = host["play"].shape[0]
-    diag, elapsed, bytes_per_column = _run_jobs([(None, step, packed_list, block_size)], ncol,
+    diag, elapsed, bytes_per_column = _run_jobs([(None, step, arrays, block_size)], ncol,
                                                 2, mesh, resident, warmup, device)
     olr, sfc_dn = diag.T
     return {

@@ -3,19 +3,24 @@
 Port of rte_rrtmgp_nn_tpu/parallel/streaming.py (the reference's OpenMP
 block loop over columns held in host memory, rrtmgp_rfmip_lw.F90:364-446).
 
-On a CUDA device each block travels through a ring of ``prefetch`` pinned
-staging buffers: the host fills a buffer, a copy stream of the device's own
-copies it into the matching device buffer without blocking, and the compute
-stream (the device's current stream, on which the kernels launch) waits for
-that copy's event before it runs the step. A pinned buffer is refilled only
-after the event of its previous copy has completed, and a device buffer's
-next copy waits for the compute stream's work queued up to then (the step
-that read the buffer and its result's copy), so block k+1's copy overlaps
-block k's step and neither side overwrites data still in use. The device
-buffers are allocated once, before the sweep, so the caching allocator
-never hands the copy stream memory that the compute stream still reads.
-Each block's results come back as a non-blocking copy into pinned host
-memory; ``stream_reduce`` synchronizes once, at the end.
+On a CUDA device each block travels through a ring of ``prefetch`` staging
+slots, each one flat pinned host buffer and one flat device buffer. The
+host writes the block's rows of every host array into the slot field-major,
+one region after another (``_slot_layout``: each region starts on a
+256-byte boundary), one contiguous copy per array, since the arrays are
+column-leading; a copy stream of the device's own then copies the slot's
+used bytes into its device buffer as ONE copy without blocking, and the
+compute stream (the device's current stream, on which the kernels launch)
+waits for that copy's event before it runs the step on one view per array
+of the device buffer. A pinned buffer is refilled only after the event of
+its previous copy has completed, and a device buffer's next copy waits for
+the compute stream's work queued up to then (the step that read the buffer
+and its result's copy), so block k+1's copy overlaps block k's step and
+neither side overwrites data still in use. The device buffers are allocated
+once, before the sweep, so the caching allocator never hands the copy
+stream memory that the compute stream still reads. Each block's results
+come back as a non-blocking copy into pinned host memory; ``stream_reduce``
+synchronizes once, at the end.
 
 On the CPU it is a plain loop over blocks.
 
@@ -54,58 +59,94 @@ def _sharding(sharding, device) -> ColumnSharding:
     return column_sharding(Mesh((torch.device(device),)), 2)
 
 
+# bytes: every region of a staging slot starts on this boundary, so each
+# view keeps its dtype's alignment and its rows coalesce
+_SLOT_ALIGN = 256
+
+
+def _slot_layout(arrays: Sequence[np.ndarray], n: int) -> list[tuple[int, tuple, np.dtype]]:
+    """Where a block of ``n`` rows of each column-leading array lies in a flat
+    staging slot: (byte offset, shape (n,) + shape[1:], dtype) per array, in
+    order, each region right after the previous one, rounded up to
+    ``_SLOT_ALIGN`` bytes."""
+    layout, offset = [], 0
+    for a in arrays:
+        shape = (n,) + tuple(a.shape[1:])
+        layout.append((offset, shape, a.dtype))
+        offset += -(-_region_bytes(shape, a.dtype) // _SLOT_ALIGN) * _SLOT_ALIGN
+    return layout
+
+
+def _region_bytes(shape, dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+
+
+def _slot_bytes(layout) -> int:
+    """The bytes a slot's layout uses, up to the end of its last region."""
+    offset, shape, dtype = layout[-1]
+    return offset + _region_bytes(shape, dtype)
+
+
+def _slot_views(buf: torch.Tensor, layout) -> list[torch.Tensor]:
+    """One view per region of ``layout`` over the flat uint8 buffer ``buf``,
+    of the region's shape and dtype."""
+    return [buf[offset:offset + _region_bytes(shape, dtype)].view(_torch_dtype(dtype)).view(shape)
+            for offset, shape, dtype in layout]
+
+
 class _CudaStager:
-    """The staging ring of one CUDA device: ``slots`` pinned host buffers
-    and device buffers per host array, each with the event of its last
-    copy; blocks are staged and run in the same order, so a counter each
-    names the slot."""
+    """The staging ring of one CUDA device: ``slots`` flat pinned host
+    buffers, each with a flat device buffer and the event of its last copy,
+    sized for a block of ``rows`` rows of the host arrays laid out by
+    ``_slot_layout``; blocks are staged and run in the same order, so a
+    counter each names the slot."""
 
     def __init__(self, device, host_arrays, rows: int, slots: int):
         self.device = device
         self.compute = torch.cuda.current_stream(device)
+        nbytes = _slot_bytes(_slot_layout(host_arrays, rows))
         with span("rte.ring"), torch.cuda.device(device):
             self.copy = torch.cuda.Stream(device)
             self.slots = [{
-                "pinned": [torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a),
-                                       pin_memory=True) for a in host_arrays],
-                "dev": [torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a), device=device)
-                        for a in host_arrays],
-                "copied": None, "n": 0} for _ in range(slots)]
+                "pinned": torch.empty(nbytes, dtype=torch.uint8, pin_memory=True),
+                "dev": torch.empty(nbytes, dtype=torch.uint8, device=device),
+                "copied": None, "layout": None} for _ in range(slots)]
         self.staged = self.ran = 0
 
     def stage(self, parts: Sequence[np.ndarray]) -> None:
-        """Copy ``parts`` (one row block per host array) into the next slot."""
+        """Copy ``parts`` (one row block per host array) into the next slot,
+        field-major, and that slot to the device in one copy."""
         slot = self.slots[self.staged % len(self.slots)]
         self.staged += 1
         with span("rte.stage"):
             if slot["copied"] is not None:
                 with span("rte.wait"):
-                    slot["copied"].synchronize()  # the pinned buffers' last copy has left them
-            n = parts[0].shape[0]
-            for p, a in zip(slot["pinned"], parts):
-                np.copyto(p[:n].numpy(), a)
+                    slot["copied"].synchronize()  # the pinned buffer's last copy has left it
+            layout = _slot_layout(parts, parts[0].shape[0])
+            for region, a in zip(_slot_views(slot["pinned"], layout), parts):
+                np.copyto(region.numpy(), a)
+            used = _slot_bytes(layout)
             with torch.cuda.device(self.device), torch.cuda.stream(self.copy):
-                # the step that read the device buffers, and everything queued
+                # the step that read the device buffer, and everything queued
                 # on the compute stream after it, was queued before this copy
                 self.copy.wait_stream(self.compute)
-                for d, p in zip(slot["dev"], slot["pinned"]):
-                    d[:n].copy_(p[:n], non_blocking=True)
+                slot["dev"][:used].copy_(slot["pinned"][:used], non_blocking=True)
                 slot["copied"] = torch.cuda.Event()
                 slot["copied"].record(self.copy)
-        slot["n"] = n
+        slot["layout"] = layout
 
     def run(self, fn: Callable):
-        """fn on the oldest staged slot's device buffers, on the compute
-        stream."""
+        """fn on the oldest staged slot's views of its device buffer, one per
+        host array, on the compute stream."""
         slot = self.slots[self.ran % len(self.slots)]
         self.ran += 1
         with torch.cuda.device(self.device), torch.cuda.stream(self.compute):
             self.compute.wait_event(slot["copied"])
-            return fn(*[d[:slot["n"]] for d in slot["dev"]])
+            return fn(*_slot_views(slot["dev"], slot["layout"]))
 
 
-def _torch_dtype(a: np.ndarray) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 def _join(results: list):

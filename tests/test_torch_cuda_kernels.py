@@ -974,6 +974,52 @@ def test_cuda_mesh_streams_as_no_mesh(dev, devices):
     np.testing.assert_allclose(split, one, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtypes", [("float32",) * 4, ("float32", "int16")],
+                         ids=["f32_fields", "mixed_pair"])
+def test_stream_reduce_stages_each_block_in_one_copy(dev, dtypes):
+    """stream_reduce over three blocks, the last ragged, through the
+    field-major staging slot gives the CPU loop's result bit for bit: an
+    f32 field set (two profiles, two per-column fields, one a strided view)
+    and a mixed [float32, int16] pair, each field handed back whole beside
+    an elementwise mix of two. A profiler window over a second sweep shows
+    exactly one host-to-device copy a block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rte_rrtmgp_nn_tpu_torch.parallel.streaming import stream_reduce
+
+    rng = np.random.default_rng(21)
+    ncol, block = 2600, 1000  # blocks of 1000, 1000 and 600
+    widths = (60, None, 61, None) if len(dtypes) == 4 else (25, 40)
+    arrays = []
+    for w, dt in zip(widths, dtypes):
+        shape = (ncol,) if w is None else (ncol, w)
+        if dt == "int16":
+            arrays.append(rng.integers(-2 ** 15, 2 ** 15, shape).astype(np.int16))
+        else:
+            arrays.append(rng.standard_normal(shape).astype(np.float32))
+    if len(arrays) == 4:
+        arrays[3] = arrays[2][:, 5]  # a per-column field as a strided view
+
+    def step(*fields):
+        first = fields[0][:, 0]
+        return (*fields, first + fields[1].to(torch.float32).reshape(first.shape[0], -1)[:, 0])
+
+    def builder(n):
+        return [np.zeros((n,) + a.shape[1:], a.dtype) for a in arrays] + [np.zeros(n, np.float32)]
+
+    want = stream_reduce(step, arrays, block, builder, device="cpu")
+    got = stream_reduce(step, arrays, block, builder, device=dev)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    for g, a in zip(got, arrays):
+        np.testing.assert_array_equal(g, a)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stream_reduce(step, arrays, block, builder, device=dev)
+        torch.cuda.synchronize(dev)
+    assert sum("Memcpy HtoD" in e.name for e in prof.events()) == 3
+
+
 def _routes(dev):
     """The card's routes that keep a copy or a pointer of the weights:
     K1 (split), K2 (split), K3 (kernel net), as callables of the nets."""

@@ -1,6 +1,8 @@
 """The port's GCM sweep (drivers/gcm.py) against the JAX package on the same
-numpy inputs: the host synthesis and both packers bit for bit (every case
-of the JAX package's own packing tests), the dequantization to rtol 1e-6
+numpy inputs: the host synthesis, the mixed-precision packer (every case
+of the JAX package's own packing tests) and the fields an f32 sweep's step
+takes (the lanes of the JAX package's packed block) bit for bit, the
+dequantization to rtol 1e-6
 with every threshold side identical, and gcm_sweep_lw / gcm_sweep_allsky
 per column to LW 2e-3 and SW 2e-2 W/m2 for f32 and mixed precision, both
 vertical orientations, lookup-table and Pade cloud files, on the staged
@@ -105,7 +107,7 @@ def _hold_sw(port, ref, dist):
     assert np.all(err <= limit), (err.max(), dist[err.argmax()])
 
 
-# -- the host and the packers ----------------------------------------------------
+# -- the host, the f32 fields and the packer -----------------------------------
 
 @pytest.mark.parametrize("ncol", [17, NCOL])
 def test_synthesize_gcm_columns_matches_jax(ncol):
@@ -135,18 +137,61 @@ def test_synthesize_gcm_columns_takes_per_layer_profiles():
     np.testing.assert_array_equal(got["gas:ch4"], np.full(NCOL, d["gases"]["ch4"][0]))
 
 
-def test_pack_columns_matches_jax():
+class _Packed(Exception):
+    """Ends a JAX sweep once it has packed its host columns."""
+
+
+@pytest.mark.parametrize("kind", ["lw", "allsky"])
+def test_f32_sweep_steps_take_the_jax_packed_lanes(models, clouds, monkeypatch, kind):
+    """The fields a precision="f32" sweep's step receives, joined over its
+    blocks (two of 64 columns and a ragged 22), equal bit for bit the lanes
+    of the JAX package's packed block for the same host (its
+    _unpack_columns of the _pack_columns its sweep makes): the same fields
+    in the same order, shapes and float32 values. The host arrays are left
+    as they were."""
     host = _host()
-    arrays = [host["play"], host["tsfc"], host["gas:h2o"], host["gas:co2"]]
-    packed, widths = pgcm._pack_columns(arrays)
-    ref, ref_widths = jgcm._pack_columns(arrays)
-    assert widths == ref_widths and packed.dtype == ref.dtype == np.float32
-    np.testing.assert_array_equal(packed, ref)
-    got = pgcm._unpack_columns(torch.from_numpy(packed), widths)
-    want = jgcm._unpack_columns(jnp.asarray(ref), tuple(ref_widths))
-    for g, w, a in zip(got, want, arrays):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        np.testing.assert_array_equal(g.numpy(), a)
+    before = {k: v.copy() for k, v in host.items()}
+    (jcl, pcl), (jcs, pcs) = clouds["lut"]
+    pack = jgcm._pack_columns
+
+    def packed(arrays):
+        raise _Packed(pack(arrays))
+
+    monkeypatch.setattr(jgcm, "_pack_columns", packed)
+    with pytest.raises(_Packed) as stop:
+        if kind == "lw":
+            jgcm.gcm_sweep_lw(host, models["lw"][0], block_size=BLOCK)
+        else:
+            jgcm.gcm_sweep_allsky(host, models["lw"][0], models["sw"][0], jcl, jcs,
+                                  block_size=BLOCK)
+    ref, widths = stop.value.args[0]
+    want = [np.asarray(w) for w in jgcm._unpack_columns(jnp.asarray(ref), tuple(widths))]
+
+    blocks, job = [], pgcm._f32_job
+
+    def recorded_job(arrays, body, nfix, dtype):
+        step, arrays = job(arrays, body, nfix, dtype)
+
+        def recorded(*fields):
+            blocks.append([f.numpy().copy() for f in fields])
+            return step(*fields)
+
+        return recorded, arrays
+
+    monkeypatch.setattr(pgcm, "_f32_job", recorded_job)
+    if kind == "lw":
+        pgcm.gcm_sweep_lw(host, models["lw"][1], block_size=BLOCK, device=CPU)
+    else:
+        pgcm.gcm_sweep_allsky(host, models["lw"][1], models["sw"][1], pcl, pcs,
+                              block_size=BLOCK, device=CPU)
+    assert [len(b) for b in blocks] == [len(want)] * 3
+    assert [b[0].shape[0] for b in blocks] == [BLOCK, BLOCK, NCOL - 2 * BLOCK]
+    for i, w in enumerate(want):
+        got = np.concatenate([b[i] for b in blocks])
+        assert got.dtype == w.dtype == np.float32 and got.shape == w.shape, i
+        np.testing.assert_array_equal(got, w, err_msg=str(i))
+    for k, v in before.items():
+        np.testing.assert_array_equal(host[k], v, err_msg=k)
 
 
 def _mixed_cases():
@@ -417,9 +462,9 @@ def test_gcm_block_off_the_cpu_launches_its_kernels_never_twins(models, clouds, 
     fields = [host[k][:BLOCK] for k in ("play", "plev", "tlay", "tlev", "tsfc", "sfc_emis")]
 
     def unpacked(arrays):
-        """The arrays as a sweep's step has them: lanes of one packed block."""
-        packed, widths = pgcm._pack_columns(arrays)
-        return pgcm._unpack_columns(torch.from_numpy(packed).to(meta), widths)
+        """The arrays as a sweep's step has them: each field its own
+        contiguous block on the device."""
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(meta) for a in arrays]
 
     with pco(use_megakernel=mega):
         body = pgcm._allsky_body(lw, sw, pcl.to(meta), pcs.to(meta), names, True, torch.float32,

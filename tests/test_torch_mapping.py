@@ -12,7 +12,8 @@ or sweep fixes (gasoptics/planck.spectral_for) on the CPU, in seconds.
   the entry, the nets' outputs, the mapping expected and how to run such
   nets, and it comes before anything past the check runs (every later step
   armed to fail the test: the kernels' build, input synthesis, file
-  writes, the ranks' spawn, a net's move, the route, file reads, packing).
+  writes, the ranks' spawn, a net's move, the route, file reads, the
+  sweeps' f32 fields and mixed packing).
 - A mapping the caller passes is checked the same way.
 - The shapes the mappings take still pass: one LW net of 2*ngpt outputs
   or two of ngpt each, and the g-224 SW pair in gcm_sweep_allsky (the
@@ -50,7 +51,7 @@ TRIPWIRES = ((bench, "build_seconds"), (build, "library"), (T, "synthesize_rfmip
              (T, "synthesize_garand"), (T, "synthesize_cloud_optics"), (ncio, "write_nc"),
              (distributed, "launch"), (NNModel, "to"), (prfmip, "resolve_use_megakernel"),
              (pallsky, "resolve_use_megakernel"), (pallsky, "read_garand"),
-             (pgcm, "_route"), (pgcm, "_pack_columns"), (pgcm, "_pack_columns_mixed"))
+             (pgcm, "_route"), (pgcm, "_f32_job"), (pgcm, "_pack_columns_mixed"))
 
 SCRIPTS = {"bench_torch": ("bench_torch.py", ["--ncol", "16"]),
            "torch_bench_allsky": ("scripts/torch_bench_allsky.py", ["--ncol", "16"]),

@@ -65,6 +65,34 @@ def test_stream_reduce_matches_jax():
         list(pst.stream_blocks(_fn, arrays, 5))
 
 
+@pytest.mark.parametrize("n", [37, 64], ids=["ragged", "full"])
+def test_slot_layout_holds_each_array_of_a_block_bit_for_bit(n):
+    """A block of mixed column-leading arrays, written through _slot_layout's
+    views into a flat byte buffer as the CUDA staging slot takes it, reads
+    back bit for bit; every region starts on a multiple of 256 bytes, none
+    overlaps the next, and none passes the end of a slot sized for a full
+    block of 64 rows."""
+    rng = np.random.default_rng(11)
+    ncol, rows = 150, 64
+    arrays = [rng.standard_normal((ncol, 60)).astype(np.float32),
+              rng.standard_normal(ncol).astype(np.float32),
+              rng.standard_normal((ncol, 61)).astype(np.float32),
+              rng.integers(-2 ** 15, 2 ** 15, (ncol, 7)).astype(np.int16)]
+    buf = np.zeros(pst._slot_bytes(pst._slot_layout(arrays, rows)), np.uint8)
+    parts = [a[ncol - n:] for a in arrays]  # the sweep's last block
+    layout = pst._slot_layout(parts, n)
+    for region, a in zip(pst._slot_views(torch.from_numpy(buf), layout), parts):
+        np.copyto(region.numpy(), a)
+    ends = []
+    for (offset, shape, dtype), a in zip(layout, parts):
+        assert offset % 256 == 0 and shape == a.shape and dtype == a.dtype
+        ends.append(offset + a.nbytes)
+        got = buf[offset:ends[-1]].view(dtype).reshape(shape)
+        np.testing.assert_array_equal(got.view(np.uint8), a.view(np.uint8))
+    assert all(end <= offset for end, (offset, _, _) in zip(ends, layout[1:]))
+    assert ends[-1] == pst._slot_bytes(layout) <= buf.size
+
+
 @pytest.mark.parametrize("ndev,ncol", [(2, 8), (4, 12), (8, 16)])
 def test_column_sharding_splits_as_jax(ndev, ncol):
     """Each device's share of the columns is the one the JAX sharding gives
