@@ -6,7 +6,15 @@ gas optics then the RTE solver; SW renormalizes the TOA source to the TSI
 (:407-427), masks night columns by sza >= 90 deg and zeroes their fluxes
 after the solve (:455-459)).
 
-The route is taken once per call by ``config.resolve_use_megakernel``:
+Handed a k-distribution (``gasoptics.kdist.KDist``) in place of the nets,
+both drivers take the upstream driver's lookup-table route
+(rrtmgp_rfmip_lw.F90 without the NN files: ``gas_optics_int`` with no
+``neural_nets``) on the k-distribution's own mapping: ``gas_optics_lw_lut``
+-> ``rte_lw`` (its own Planck data; K7 on CUDA), ``gas_optics_sw_lut`` ->
+``rte_sw`` (its own solar source, scaled to each column's TSI). The gases
+it does not name are not read. ``lut_kdist`` checks such a call.
+
+Otherwise the route is taken once per call by ``config.resolve_use_megakernel``:
   - "megakernel": the fused-kernel cores (``_lw_core_mega4_canon``,
     ``_sw_core_mega_canon``) on canonical layer-major inputs, which launch
     the fused CUDA kernels K1/K2 for CUDA tensors (and run their plain
@@ -24,14 +32,17 @@ The route is taken once per call by ``config.resolve_use_megakernel``:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..config import resolve_use_megakernel
+from ..config import cuda_dtype_refusal, resolve_use_megakernel
 from ..fluxes import FluxesBroadband
 from ..gas_concs import GasConcs
+from ..gasoptics.kdist import KDist
+from ..gasoptics.lut_gas_optics import gas_optics_lw_lut, gas_optics_sw_lut
 from ..gasoptics.nn_gas_optics import (
     compute_nn_inputs,
     compute_nn_inputs_split,
@@ -359,14 +370,21 @@ def _lw_core(
     n_gauss_angles: int,
     scan_mode: str = "sequential",
 ):
-    """General LW core: column-major NN gas optics, then rte_lw with
-    ``n_gauss_angles`` Gauss angles and broadband output. As in the JAX
-    package the broadband solve reduces inside its layer sweeps and does
-    not read ``scan_mode``."""
-    tau, sources = gas_optics_lw_nn(models, play, plev, tlay, tsfc, GasConcs(concs_dict),
-                                    spectral, planck_table, tlev=tlev, top_at_1=top_at_1)
-    sol = rte_lw(OpticalProps1scl(tau, spectral), top_at_1, sources, sfc_emis_band,
-                 n_gauss_angles=n_gauss_angles, scan_mode=scan_mode, broadband=True)
+    """General LW core: column-major gas optics, NN or from a KDist in
+    ``models`` (which carries its own Planck data: ``planck_table`` unused),
+    then rte_lw with ``n_gauss_angles`` Gauss angles and broadband output.
+    As in the JAX package the broadband solve reduces inside its layer
+    sweeps and does not read ``scan_mode``."""
+    gases = GasConcs(concs_dict)
+    if isinstance(models, KDist):
+        optics, sources = gas_optics_lw_lut(models, play, plev, tlay, tsfc, gases, tlev=tlev,
+                                            top_at_1=top_at_1)
+    else:
+        tau, sources = gas_optics_lw_nn(models, play, plev, tlay, tsfc, gases, spectral,
+                                        planck_table, tlev=tlev, top_at_1=top_at_1)
+        optics = OpticalProps1scl(tau, spectral)
+    sol = rte_lw(optics, top_at_1, sources, sfc_emis_band, n_gauss_angles=n_gauss_angles,
+                 scan_mode=scan_mode, broadband=True)
     return FluxesBroadband(flux_up=sol.flux_up, flux_dn=sol.flux_dn,
                            flux_net=sol.flux_dn - sol.flux_up)
 
@@ -492,16 +510,20 @@ def _sw_core(
     top_at_1: bool,
     scan_mode: str = "sequential",
 ):
-    """General SW core: column-major NN gas optics, then rte_sw with
-    two-stream optical properties (g = 0) and broadband output.
-    rfmip_clear_sky_sw takes it for parallel-scan requests, as the JAX one
-    does; the broadband two-stream solve sweeps sequentially in either
-    mode."""
-    tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay, GasConcs(concs_dict),
-                                   spectral, solar_source)
+    """General SW core: column-major gas optics, NN or from a KDist in
+    ``models``, then rte_sw with two-stream optical properties (g = 0) and
+    broadband output. rfmip_clear_sky_sw takes it for parallel-scan
+    requests, as the JAX one does, and for a k-distribution; the broadband
+    two-stream solve sweeps sequentially in either mode."""
+    gases = GasConcs(concs_dict)
+    if isinstance(models, KDist):
+        optics, _ = gas_optics_sw_lut(models, play, plev, tlay, gases)
+    else:
+        tau, ssa, _ = gas_optics_sw_nn(models, play, plev, tlay, gases, spectral, solar_source)
+        optics = OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral)
     toa_src, alb_gpt, mu0_safe = _sw_boundary(solar_source, tsi, sfc_alb, mu0, usecol)
-    sol = rte_sw(OpticalProps2str(tau, ssa, torch.zeros_like(tau), spectral), top_at_1,
-                 mu0_safe, toa_src, alb_gpt, alb_gpt, scan_mode=scan_mode, broadband=True)
+    sol = rte_sw(optics, top_at_1, mu0_safe, toa_src, alb_gpt, alb_gpt, scan_mode=scan_mode,
+                 broadband=True)
     # rte_sw returns the caller's orientation: nothing to flip
     return _sw_masked(sol.flux_up, sol.flux_dn, sol.flux_dn_dir, usecol, top_at_1=True)
 
@@ -578,6 +600,45 @@ def sw_staged_inputs(data: RFMIPData, device, dtype=torch.float32):
                 t(data.tsi), {k: t(v) for k, v in data.gas_concs.concs.items()})
 
 
+def lut_kdist(entry: str, band: str, models, data: RFMIPData, device, dtype,
+              **unused) -> Optional[KDist]:
+    """The k-distribution that ``models`` is, or None for nets. Refuses in
+    words a k-distribution beside nets, one of the other band, float64 on
+    CUDA, tables on another device or in another dtype than the call's, a
+    gas it names that ``data`` lacks, and any of ``unused`` given (the
+    driver's arguments the route does not read, by name, None where not
+    given). Reads host values and tensor metadata only."""
+    if not isinstance(models, KDist):
+        if any(isinstance(m, KDist) for m in models):
+            raise ValueError(f"{entry}: takes nets or a k-distribution, not both")
+        return None
+    kd = models
+    if kd.is_internal_source != (band == "lw"):
+        other = "LW" if kd.is_internal_source else "SW"
+        raise ValueError(f"{entry}: an {other} k-distribution ({kd.ngpt} g-points) handed to "
+                         f"the {band.upper()} driver")
+    refusal = cuda_dtype_refusal(device, dtype)
+    if refusal:
+        raise NotImplementedError(f"{entry}: {refusal}")
+    if kd.kmajor.device != device or kd.kmajor.dtype != dtype:
+        raise ValueError(f"{entry}: the k-distribution's tables are {kd.kmajor.dtype} on "
+                         f"{kd.kmajor.device}, the call {dtype} on {device}")
+    missing = [g for g in kd.gas_names if g not in data.gas_concs.concs]
+    if missing:
+        raise ValueError(f"{entry}: the k-distribution's gases {missing} are not in the data")
+    given = [name for name, v in unused.items() if v is not None]
+    if given:
+        raise ValueError(f"{entry}: a k-distribution brings its own spectral mapping and "
+                         f"sources; {', '.join(given)} cannot be given with it")
+    return kd
+
+
+def _lut_data(data: RFMIPData, kd: KDist) -> RFMIPData:
+    """``data`` with only the gases ``kd`` reads."""
+    return dataclasses.replace(data, gas_concs=GasConcs(
+        {g: v for g, v in data.gas_concs.concs.items() if g in kd.gas_names}))
+
+
 def rfmip_clear_sky_lw(
     data: RFMIPData,
     models: Sequence[NNModel],
@@ -594,17 +655,28 @@ def rfmip_clear_sky_lw(
     Gauss angles (1-4). ``models`` (one "lw_both" net, or an absorption
     and a Planck-fraction net) must be on ``device``. ``spectral``
     defaults to the g-128 mapping; nets that do not fit it, or the
-    mapping passed, raise ValueError (planck.spectral_for). Returns (ncol,
+    mapping passed, raise ValueError (planck.spectral_for). ``models`` may
+    instead be an LW KDist on ``device`` in ``dtype`` (the lookup-table
+    route; no ``spectral`` or ``planck_table`` then). Returns (ncol,
     nlay+1) fluxes on ``device``."""
     with span("rte.rfmip.lw"):
         with span("rte.check"):
-            spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
-                                    accepts=(lw_spectral_g128,), spectral=spectral)
             device = torch.device(device)
-            route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
-                                           n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
-            if route.kind == "refuse":
-                raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
+            kd = lut_kdist("rfmip_clear_sky_lw", "lw", models, data, device, dtype,
+                           spectral=spectral, planck_table=planck_table)
+            if kd is None:
+                spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
+                                        accepts=(lw_spectral_g128,), spectral=spectral)
+                route = resolve_use_megakernel(lw=True, models=models, device=device,
+                                               dtype=dtype, n_gauss_angles=n_gauss_angles,
+                                               scan_mode=scan_mode)
+                if route.kind == "refuse":
+                    raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
+        if kd is not None:
+            return _lw_core(kd, None, kd.spectral,
+                            *lw_staged_inputs(_lut_data(data, kd), kd.spectral, device, dtype),
+                            top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
+                            scan_mode=scan_mode)
         if planck_table is None:
             with span("rte.planck"):
                 planck_table = PlanckTable.compute(spectral.band_lims_wvn_array,
@@ -636,18 +708,30 @@ def rfmip_clear_sky_sw(
     (reference rrtmgp_rfmip_sw.F90); ``models`` = [absorption, rayleigh],
     on ``device``. Night columns (sza >= 90 deg) come back zero.
     ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
-    or the mapping passed, raise ValueError (planck.spectral_for)."""
+    or the mapping passed, raise ValueError (planck.spectral_for).
+    ``models`` may instead be an SW KDist on ``device`` in ``dtype`` (the
+    lookup-table route, with the k-distribution's solar source; no
+    ``spectral``, ``solar_source`` or ``kdist`` then)."""
     with span("rte.rfmip.sw"):
         with span("rte.check"):
-            spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
-                                    accepts=(sw_spectral_g112,), spectral=spectral)
             device = torch.device(device)
-            route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
-                                           scan_mode=scan_mode)
-            if route.kind == "refuse":
-                raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
-            if route.kind == "megakernel":
-                _check_sw_scaling(models)
+            kd = lut_kdist("rfmip_clear_sky_sw", "sw", models, data, device, dtype,
+                           spectral=spectral, solar_source=solar_source, kdist=kdist)
+            if kd is None:
+                spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
+                                        accepts=(sw_spectral_g112,), spectral=spectral)
+                route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
+                                               scan_mode=scan_mode)
+                if route.kind == "refuse":
+                    raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
+                if route.kind == "megakernel":
+                    _check_sw_scaling(models)
+        if kd is not None:
+            with span("rte.solar"):
+                solar = kd.solar_source()
+            return _sw_core(kd, kd.spectral, solar,
+                            *sw_staged_inputs(_lut_data(data, kd), device, dtype),
+                            top_at_1=data.top_at_1, scan_mode=scan_mode)
         with span("rte.solar"):
             if solar_source is None:
                 solar_source = resolve_solar_source(spectral, kdist)

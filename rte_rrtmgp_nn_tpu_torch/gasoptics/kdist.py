@@ -162,6 +162,33 @@ class KDist:
         device: [:, 0] the lower atmosphere's flavor, [:, 1] the upper's."""
         return torch.tensor(self.gpoint_flavor, dtype=torch.long, device=self.kmajor.device)
 
+    @functools.cached_property
+    def kernel_tables(self) -> dict:
+        """The index tables the fused lookup-table kernel (K10,
+        ``ops/cuda/lut_gas_optics.py``) reads, on the tables' device, made
+        once: ``temp_ref``, int32 ``flavor`` (nflav, 2) and ``gflav`` (ngpt,
+        2), ``minor`` (nminor, 8) int32 rows of both atmospheres' minor
+        intervals, the lower first: atmosphere (0 lower, 1 upper), first and
+        end g-point, kminor start, flavor, gas, scaling gas (-1 none), flags
+        (1 scales with density, 2 by complement); and the tables it reads,
+        contiguous (``vmr_ref`` is a transposed copy of the file's)."""
+        dev = self.kmajor.device
+        rows = []
+        for upper, m in enumerate((self.minor_lower, self.minor_upper)):
+            for i in range(m.n_minor):
+                s, e = m.limits_gpt[i]
+                rows.append((upper, s, e, m.kminor_start[i], self.gpoint_flavor[s][upper],
+                             m.idx_minor[i], m.idx_minor_scaling[i],
+                             int(m.scales_with_density[i]) | 2 * int(m.scale_by_complement[i])))
+        i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+        tables = {n: getattr(self, n).contiguous()
+                  for n in ("kmajor", "vmr_ref", "pfracin", "krayl") if getattr(self, n) is not None}
+        return {"temp_ref": torch.tensor(self.temp_ref, dtype=self.kmajor.dtype, device=dev),
+                "flavor": i32(self.flavor), "gflav": i32(self.gpoint_flavor),
+                "minor": i32(rows).reshape(-1, 8),
+                "kminor_lower": self.minor_lower.kminor.contiguous(),
+                "kminor_upper": self.minor_upper.kminor.contiguous(), **tables}
+
     def to(self, device) -> "KDist":
         """The same k-distribution with its tables on ``device``."""
         moved = {n: getattr(self, n).to(device) for n in _TABLES if getattr(self, n) is not None}

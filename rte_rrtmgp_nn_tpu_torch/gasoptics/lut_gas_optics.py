@@ -5,7 +5,12 @@ Port of rte_rrtmgp_nn_tpu/gasoptics/lut_gas_optics.py. Reference parity:
 compute_gas_optics :803-1042) and ``gas_optics_ext`` (:433-602):
 interpolation -> tau_absorption -> [tau_rayleigh -> combine] -> Planck
 source (LW) or solar source broadcast (SW). Everything runs on the device
-of the inputs, which must be the k-distribution's.
+of the inputs, which must be the k-distribution's. The stages carry
+``utils/timing.span`` ranges: ``rte.lut.interp`` (column amounts),
+``rte.lut.optics`` (the interpolation, the absorbers and the Planck fraction
+or Rayleigh: one launch of K10 off the CPU, ``ops/cuda/lut_gas_optics.py``,
+and on the CPU its twin, in which ``rte.lut.major``, ``rte.lut.minor`` and
+``rte.lut.rayleigh`` nest) and ``rte.lut.planck`` (LW sources).
 """
 from __future__ import annotations
 
@@ -14,17 +19,22 @@ from typing import Optional
 import torch
 
 from ..gas_concs import GasConcs
-from ..ops.gas_optics_lut import (
-    compute_col_gas,
-    compute_planck_source,
-    compute_tau_absorption,
-    compute_tau_rayleigh,
-    interpolation,
-)
+from ..ops.cuda.lut_gas_optics import lut_optics_lw, lut_optics_sw
+from ..ops.gas_optics_lut import compute_col_gas
 from ..optical_props import OpticalProps1scl, OpticalProps2str
 from ..sources import SourceFuncLW, SourceFuncSW
+from ..utils.timing import span
 from .kdist import KDist
 from .nn_gas_optics import get_col_dry, interp_tlev
+from .planck import compute_planck_source_nn
+
+
+def _col_gas(kd: KDist, play, plev, gas_desc: GasConcs, col_dry):
+    """The column amounts, dry air first (from the h2o VMR where
+    ``col_dry`` is None)."""
+    if col_dry is None:
+        col_dry = get_col_dry(gas_desc.get_vmr("h2o", *play.shape), plev)
+    return compute_col_gas(kd, gas_desc, col_dry)
 
 
 def gas_optics_lw_lut(kd: KDist, play, plev, tlay, tsfc, gas_desc: GasConcs,
@@ -32,19 +42,18 @@ def gas_optics_lw_lut(kd: KDist, play, plev, tlay, tsfc, gas_desc: GasConcs,
                       tlev: Optional[torch.Tensor] = None, top_at_1: bool = True,
                       save_pfrac: bool = False):
     """LW LUT gas optics -> (OpticalProps1scl, SourceFuncLW)."""
-    ncol, nlay = play.shape
-    if tlev is None:
-        tlev = interp_tlev(tlay, play, plev)
-    if col_dry is None:
-        col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev)
-    col_gas = compute_col_gas(kd, gas_desc, col_dry)
-    ic = interpolation(kd, play, tlay, col_gas)
-    tau = compute_tau_absorption(kd, ic, play, tlay, col_gas)
-    lay, lev, sfc, sfc_jac, *pfrac = compute_planck_source(kd, ic, tlay, tlev, tsfc, top_at_1,
-                                                           save_pfrac=save_pfrac)
+    with span("rte.lut.interp"):
+        if tlev is None:
+            tlev = interp_tlev(tlay, play, plev)
+        col_gas = _col_gas(kd, play, plev, gas_desc, col_dry)
+    with span("rte.lut.optics"):
+        tau, pfrac = lut_optics_lw(kd, play, tlay, col_gas)
+    with span("rte.lut.planck"):
+        lay, lev, sfc, sfc_jac = compute_planck_source_nn(pfrac, tlay, tlev, tsfc, kd.spectral,
+                                                          kd.planck, top_at_1=top_at_1)
     sources = SourceFuncLW(lay_source=lay, lev_source=lev, sfc_source=sfc,
                            sfc_source_jac=sfc_jac, spectral=kd.spectral,
-                           planck_frac=pfrac[0] if pfrac else None)
+                           planck_frac=pfrac if save_pfrac else None)
     return OpticalProps1scl(tau, kd.spectral), sources
 
 
@@ -53,17 +62,12 @@ def gas_optics_sw_lut(kd: KDist, play, plev, tlay, gas_desc: GasConcs,
     """SW LUT gas optics -> (OpticalProps2str, SourceFuncSW): tau =
     absorption + Rayleigh, ssa = Rayleigh / total, g = 0 (reference
     combine_2str, mo_gas_optics_kernels.F90:1170-1272)."""
-    ncol, nlay = play.shape
-    if col_dry is None:
-        col_dry = get_col_dry(gas_desc.get_vmr("h2o", ncol, nlay), plev)
-    col_gas = compute_col_gas(kd, gas_desc, col_dry)
-    ic = interpolation(kd, play, tlay, col_gas)
-    tau_abs = compute_tau_absorption(kd, ic, play, tlay, col_gas)
-    tau_ray = compute_tau_rayleigh(kd, ic, col_gas, col_dry)
-    tau_tot = tau_abs + tau_ray
-    pos = tau_tot > 0
-    ssa = torch.where(pos, tau_ray / torch.where(pos, tau_tot, 1.0), 0.0)
-    props = OpticalProps2str(tau_tot, ssa, torch.zeros_like(tau_tot), kd.spectral)
+    ncol = play.shape[0]
+    with span("rte.lut.interp"):
+        col_gas = _col_gas(kd, play, plev, gas_desc, col_dry)
+    with span("rte.lut.optics"):
+        tau, ssa = lut_optics_sw(kd, play, tlay, col_gas)
+    props = OpticalProps2str(tau, ssa, torch.zeros_like(tau), kd.spectral)
     toa_src = kd.solar_source(tsi=tsi)[None, :].expand(ncol, kd.ngpt)
     return props, SourceFuncSW(toa_source=toa_src, spectral=kd.spectral)
 

@@ -197,6 +197,20 @@ class NoscatPlan(ctypes.Structure):  # csrc/lw_noscat.cu
     _fields_ = _fields(I, "threads seg_layers segments kept_tiers angles smem_bytes")
 
 
+class LutArgs(ctypes.Structure):  # csrc/lut_gas_optics.cu
+    _fields_ = (_fields(P, "play tlay col_gas kmajor ktab vmr_ref temp_ref flavor gflav "
+                           "kminor_lo kminor_up minor tau out2")
+                + _fields(I, "nrow ngpt ncg ntemp npres neta nminor ncontrib_lo ncontrib_up "
+                             "idx_h2o")
+                + _fields(F, "t_shift t_delta p_log0 p_log_delta p_trop_log mix_min"))
+
+
+class Sw2StreamArgs(ctypes.Structure):  # csrc/sw_2stream.cu
+    _fields_ = (_fields(P, "tau ssa g mu0 inc_flux alb_dir alb_dif inc_dif scratch up dn dir")
+                + _fields(I, "ncol nlay ngpt top_at_1")
+                + _fields(ctypes.c_double, "k_min eps"))
+
+
 def mlp3(w1a, w1c, model) -> Mlp3:
     """The Mlp3 of a 3-layer model whose first layer is split into the
     lanes' rows ``w1a`` and the const block's rows ``w1c``."""
@@ -236,6 +250,12 @@ def _declare(lib) -> None:
     # (args, plan, mode, device, stream)
     lib.lw_noscat_broadband_launch.argtypes = [P, P, I, I, P]
     lib.lw_noscat_broadband_launch.restype = I
+    # (args, mode, device, stream)
+    lib.lut_gas_optics_launch.argtypes = [P, I, I, P]
+    lib.lut_gas_optics_launch.restype = I
+    # (args, device, stream)
+    lib.sw_2stream_launch.argtypes = [P, I, P]
+    lib.sw_2stream_launch.restype = I
     lib.rte_cuda_error_string.argtypes = [I]
     lib.rte_cuda_error_string.restype = ctypes.c_char_p
 

@@ -25,6 +25,7 @@ import torch
 
 from ..gasoptics.kdist import KDist, MinorGasData
 from ..gasoptics.planck import compute_planck_source_nn
+from ..utils.timing import span
 
 PA_TO_HPA = 0.01
 
@@ -185,11 +186,16 @@ def tau_minor_one_atmos(kd: KDist, minor: MinorGasData, atmos_is_lower: bool, ic
 def compute_tau_absorption(kd: KDist, ic: InterpCoeffs, play: torch.Tensor, tlay: torch.Tensor,
                            col_gas: torch.Tensor) -> torch.Tensor:
     """Major + minor-lower + minor-upper absorption optical depth
-    (reference compute_tau_absorption :150-295)."""
+    (reference compute_tau_absorption :150-295), in the spans
+    ``rte.lut.major`` and ``rte.lut.minor``."""
     idx_h2o = 1 + kd.gas_names.index("h2o")
-    tau = tau_major(kd, ic)
-    tau = tau_minor_one_atmos(kd, kd.minor_lower, True, ic, play, tlay, col_gas, idx_h2o, tau)
-    return tau_minor_one_atmos(kd, kd.minor_upper, False, ic, play, tlay, col_gas, idx_h2o, tau)
+    with span("rte.lut.major"):
+        tau = tau_major(kd, ic)
+    with span("rte.lut.minor"):
+        tau = tau_minor_one_atmos(kd, kd.minor_lower, True, ic, play, tlay, col_gas, idx_h2o,
+                                  tau)
+        return tau_minor_one_atmos(kd, kd.minor_upper, False, ic, play, tlay, col_gas, idx_h2o,
+                                   tau)
 
 
 def compute_tau_rayleigh(kd: KDist, ic: InterpCoeffs, col_gas: torch.Tensor,

@@ -239,9 +239,16 @@ def sw_solver_2stream(tau, ssa, g, mu0, inc_flux, sfc_alb_dir, sfc_alb_dif,
     tau/ssa/g (ncol, nlay, ngpt), mu0 (ncol,), inc_flux (ncol, ngpt) TOA
     direct flux before the mu0 weighting, per-g-point surface albedos
     (ncol, ngpt). Spectral (ncol, nlay+1, ngpt) fluxes, or broadband
-    (ncol, nlay+1) with ``broadband=True``."""
+    (ncol, nlay+1) with ``broadband=True``: off the CPU one launch of K11
+    (``ops/cuda/sw_2stream.py``), except under ``config.fast_exponential``."""
     if scan_mode not in ("sequential", "parallel"):
         raise ValueError(f"unknown scan mode {scan_mode!r}")
+    if broadband and tau.device.type != "cpu" and not config.fast_exponential:
+        from .cuda.sw_2stream import sw_2stream_broadband_kernel
+
+        return SWSolution(*sw_2stream_broadband_kernel(
+            tau, ssa, g, mu0, inc_flux, sfc_alb_dir, sfc_alb_dif, inc_flux_dif,
+            top_at_1=top_at_1))
     if inc_flux_dif is None:
         inc_flux_dif = torch.zeros_like(inc_flux)
     if not top_at_1:

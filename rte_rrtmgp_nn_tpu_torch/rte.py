@@ -5,7 +5,8 @@ consistency and value checks, band-emissivity expansion, dispatch by
 optical-properties type; rte/mo_rte_sw.F90: 1scl -> direct beam only,
 2str -> two-stream + adding, with per-g-point albedos from the caller).
 Arrays are (ncol, nlay, ngpt). On CUDA both take float32 only, like the
-drivers (the kernels are float32).
+drivers (the kernels are float32). The solves, after the checks, run in the
+``utils/timing.span`` ranges ``rte.solve.lw`` and ``rte.solve.sw``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from .ops.lw_solver import LWSolution, lw_solver_2stream, lw_solver_noscat
 from .ops.sw_solver import SWSolution, sw_solver_2stream, sw_solver_noscat
 from .optical_props import OpticalProps1scl, OpticalProps2str, OpticalPropsNstr, validate
 from .sources import SourceFuncLW
+from .utils.timing import span
 from .utils.validation import any_vals_less_than, any_vals_outside
 
 
@@ -117,39 +119,40 @@ def rte_lw(
     if config.check_values:
         _check_values_lw(optical_props, sfc_emis, inc_flux, lw_ds, n_gauss_angles)
 
-    sfc_emis_gpt = spectral.expand(sfc_emis)
-    jac = sources.sfc_source_jac if want_jac else None
+    with span("rte.solve.lw"):
+        sfc_emis_gpt = spectral.expand(sfc_emis)
+        jac = sources.sfc_source_jac if want_jac else None
 
-    def with_dn_jac(sol: LWSolution) -> LWSolution:
-        # the reference accepts flux_dn_Jac but never computes it
-        # (mo_rte_lw.F90:85); in the no-scattering solver it is exactly 0
-        if jac is None or sol.flux_up_jac is None:
-            return sol
-        return sol._replace(flux_dn_jac=torch.zeros_like(sol.flux_dn))
+        def with_dn_jac(sol: LWSolution) -> LWSolution:
+            # the reference accepts flux_dn_Jac but never computes it
+            # (mo_rte_lw.F90:85); in the no-scattering solver it is exactly 0
+            if jac is None or sol.flux_up_jac is None:
+                return sol
+            return sol._replace(flux_dn_jac=torch.zeros_like(sol.flux_dn))
 
-    if isinstance(optical_props, OpticalProps1scl):
-        return with_dn_jac(lw_solver_noscat(
-            optical_props.tau, sources.lay_source, sources.lev_source,
-            sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
-            top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, lw_ds=lw_ds,
-            sfc_source_jac=jac, scan_mode=scan_mode, broadband=broadband))
-    if isinstance(optical_props, OpticalProps2str):
-        if use_2stream:
-            return lw_solver_2stream(
-                optical_props.tau, optical_props.ssa, optical_props.g, sources.lay_source,
-                sources.lev_source, sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
-                top_at_1=top_at_1, scan_mode=scan_mode)
-        # Tang-2018 rescaled no-scattering solution (reference :357-389)
-        return with_dn_jac(lw_solver_noscat(
-            optical_props.tau, sources.lay_source, sources.lev_source,
-            sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
-            top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, sfc_source_jac=jac,
-            ssa=optical_props.ssa, g=optical_props.g, do_rescaling=True,
-            scan_mode=scan_mode))
-    if isinstance(optical_props, OpticalPropsNstr):
-        # parity: the reference raises the same (mo_rte_lw.F90:391-395)
-        raise NotImplementedError("rte_lw(...nstr...) not yet implemented")
-    raise TypeError(f"rte_lw: unknown optical props {type(optical_props)}")
+        if isinstance(optical_props, OpticalProps1scl):
+            return with_dn_jac(lw_solver_noscat(
+                optical_props.tau, sources.lay_source, sources.lev_source,
+                sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
+                top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, lw_ds=lw_ds,
+                sfc_source_jac=jac, scan_mode=scan_mode, broadband=broadband))
+        if isinstance(optical_props, OpticalProps2str):
+            if use_2stream:
+                return lw_solver_2stream(
+                    optical_props.tau, optical_props.ssa, optical_props.g, sources.lay_source,
+                    sources.lev_source, sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
+                    top_at_1=top_at_1, scan_mode=scan_mode)
+            # Tang-2018 rescaled no-scattering solution (reference :357-389)
+            return with_dn_jac(lw_solver_noscat(
+                optical_props.tau, sources.lay_source, sources.lev_source,
+                sfc_emis_gpt, sources.sfc_source, inc_flux=inc_flux,
+                top_at_1=top_at_1, n_gauss_angles=n_gauss_angles, sfc_source_jac=jac,
+                ssa=optical_props.ssa, g=optical_props.g, do_rescaling=True,
+                scan_mode=scan_mode))
+        if isinstance(optical_props, OpticalPropsNstr):
+            # parity: the reference raises the same (mo_rte_lw.F90:391-395)
+            raise NotImplementedError("rte_lw(...nstr...) not yet implemented")
+        raise TypeError(f"rte_lw: unknown optical props {type(optical_props)}")
 
 
 def rte_sw(
@@ -178,14 +181,15 @@ def rte_sw(
     if config.check_values:
         _check_values_sw(optical_props, mu0, inc_flux, sfc_alb_dir, sfc_alb_dif, inc_flux_dif)
 
-    if isinstance(optical_props, OpticalProps1scl):
-        flux_dir = sw_solver_noscat(optical_props.tau, mu0, inc_flux, top_at_1=top_at_1)
-        if broadband:
-            flux_dir = flux_dir.sum(-1)
-        return SWSolution(torch.zeros_like(flux_dir), flux_dir, flux_dir)
-    if isinstance(optical_props, OpticalProps2str):
-        return sw_solver_2stream(
-            optical_props.tau, optical_props.ssa, optical_props.g, mu0, inc_flux,
-            sfc_alb_dir, sfc_alb_dif, inc_flux_dif=inc_flux_dif, top_at_1=top_at_1,
-            scan_mode=scan_mode, broadband=broadband)
-    raise TypeError(f"rte_sw: unsupported optical props {type(optical_props)}")
+    with span("rte.solve.sw"):
+        if isinstance(optical_props, OpticalProps1scl):
+            flux_dir = sw_solver_noscat(optical_props.tau, mu0, inc_flux, top_at_1=top_at_1)
+            if broadband:
+                flux_dir = flux_dir.sum(-1)
+            return SWSolution(torch.zeros_like(flux_dir), flux_dir, flux_dir)
+        if isinstance(optical_props, OpticalProps2str):
+            return sw_solver_2stream(
+                optical_props.tau, optical_props.ssa, optical_props.g, mu0, inc_flux,
+                sfc_alb_dir, sfc_alb_dif, inc_flux_dif=inc_flux_dif, top_at_1=top_at_1,
+                scan_mode=scan_mode, broadband=broadband)
+        raise TypeError(f"rte_sw: unsupported optical props {type(optical_props)}")

@@ -8,8 +8,8 @@ the JAX package's rtol 2e-5; K7 (lw_noscat_broadband) to 2e-3 W/m2; K6
 (lw_prep) elementwise by the MLP kernel's rule and through the sweeps. And
 the CUDA drivers, RFMIP and all-sky, fused and general (multi-angle LW,
 staged SW, parallel scans), the prep LW core and the lookup-table gas
-optics with the solvers behind it, against the same paths in float64 on
-the CPU. The sharded fused cores (drivers.rfmip lw_mega_core_sharded /
+optics with the solvers behind it (alone and as the RFMIP drivers' route
+for a k-distribution), against the same paths in float64 on the CPU. The sharded fused cores (drivers.rfmip lw_mega_core_sharded /
 sw_mega_core_sharded) at world size 1 on NCCL and on two gloo ranks
 sharing the card, against the unsharded cores bit for bit.
 
@@ -846,6 +846,185 @@ def test_lut_gas_optics_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
             # is the yardstick (testing.FLOAT32_SPREAD)
             own = float((cpu32[name].double() - ref[name]).abs().max())
             assert float(err.max()) <= max(LW_ATOL, testing.FLOAT32_SPREAD * own), name
+
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_lut_route_of_the_rfmip_drivers_on_cuda_matches_float64_cpu(dev, tmp_path, top_at_1):
+    """rfmip_clear_sky_lw / _sw handed the synthetic 256 / 224 g-point
+    k-distributions: on CUDA one K7 launch for LW, night SW exactly 0,
+    against the same drivers in float64 on the CPU (the two-stream floor at
+    config.dtype float64) to LW 2e-3 and SW 2e-2 W/m2, at 60 layers."""
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.config import config_override
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+
+    paths = testing.write_lut_files(str(tmp_path), gpts_per_band=16, seed=65)
+    a = testing.synthesize_rfmip_experiments(3, 4, 60, 66)
+    a["sza"][::5] = 100.0  # night columns
+    if not top_at_1:
+        for f in ("play", "plev", "tlay", "tlev"):
+            a[f] = np.ascontiguousarray(a[f][:, ::-1])
+        a["gases"] = {g: np.ascontiguousarray(v[..., ::-1]) if v.ndim else v
+                      for g, v in a["gases"].items()}
+        a["top_at_1"] = False
+    data = rfmip_data_from_arrays(a)
+
+    def run(device, dtype):
+        kd = {b: load_kdist(p, testing.LUT_GASES, dtype, device=device) for b, p in paths.items()}
+        with config_override(dtype=dtype):
+            return (rfmip.rfmip_clear_sky_lw(data, kd["lw"], dtype=dtype, device=device),
+                    rfmip.rfmip_clear_sky_sw(data, kd["sw"], dtype=dtype, device=device))
+
+    ref = run(torch.device("cpu"), torch.float64)
+    n7 = k7.LAUNCHES
+    got = run(dev, torch.float32)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == n7 + 1
+    night = torch.as_tensor(a["sza"] >= 90.0)
+    assert float(got[1].flux_dn[night.to(dev)].abs().max()) == 0.0
+    for g, r, atol in ((got[0], ref[0], LW_ATOL), (got[1], ref[1], SW_ATOL)):
+        for n in ("flux_up", "flux_dn"):
+            assert getattr(g, n).is_cuda and _maxabs(getattr(g, n), getattr(r, n)) <= atol, n
+
+
+def _lut_setup(tmp_path, dev, ncol, nlay, seed):
+    """The synthetic 256 / 224 g-point k-distributions on ``dev`` (float32)
+    and on the CPU (float64), and RFMIP columns' lookup-table inputs."""
+    from rte_rrtmgp_nn_tpu_torch import testing
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+
+    paths = testing.write_lut_files(str(tmp_path), gpts_per_band=16, seed=seed)
+    data = synthesize_rfmip(ncol, nlay, seed + 1)
+    out = {}
+    for where, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        kd = {b: load_kdist(p, testing.LUT_GASES, dtype, device=where) for b, p in paths.items()}
+        out[where.type] = (kd, testing.lut_inputs(data, where, dtype))
+    return out
+
+
+@pytest.mark.parametrize("band", ["lw", "sw"])
+def test_lut_optics_kernel_matches_twins(dev, tmp_path, band):
+    """K10 (the lookup-table gas optics in one launch) against its twin on
+    the same CUDA tensors and in float64 on the CPU, element by element, on
+    the synthetic 256 / 224 g-point k-distributions at 60 layers: tau, and
+    the Planck fraction (LW) or the single-scattering albedo (SW). Bound:
+    2e-5 of each value plus 1e-6 of the field's largest (float32's rounding
+    of ~40 operations; an index that two codes round apart at a grid edge
+    moves a value continuously, by its weight's rounding)."""
+    from rte_rrtmgp_nn_tpu_torch.gasoptics.lut_gas_optics import _col_gas
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import lut_gas_optics as k10
+
+    setup = _lut_setup(tmp_path, dev, 37, 60, seed=71)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        kd, (play, plev, tlay, _, _, _, gases) = setup[where]
+        col_gas = _col_gas(kd[band], play, plev, gases, None)
+        fn = {"lw": k10.lut_optics_lw, "sw": k10.lut_optics_sw}[band]
+        twin = {"lw": k10.lut_optics_lw_plain, "sw": k10.lut_optics_sw_plain}[band]
+        if where == "cuda":
+            n = k10.LAUNCHES[band]
+            outs["kernel"] = fn(kd[band], play, tlay, col_gas)
+            torch.cuda.synchronize()
+            assert k10.LAUNCHES[band] == n + 1
+            outs["twin32"] = twin(kd[band], play, tlay, col_gas)
+        else:
+            outs["twin64"] = twin(kd[band], play, tlay, col_gas)
+    for got, ref in zip(outs["kernel"], outs["twin64"]):
+        assert got.is_cuda and bool(torch.isfinite(got).all())
+        ref = ref.to(torch.float64)
+        bound = 2e-5 * ref.abs() + 1e-6 * float(ref.abs().max())
+        assert bool(((got.double().cpu() - ref).abs() <= bound).all())
+    for got, twin in zip(outs["kernel"], outs["twin32"]):
+        ref = twin.double().cpu()
+        bound = 2e-5 * ref.abs() + 1e-6 * float(ref.abs().max())
+        assert bool(((got.double().cpu() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_sw_2stream_kernel_matches_twins(dev, top_at_1):
+    """K11 (the broadband SW two-stream + adding solve) against its twin,
+    ops/sw_solver.sw_2stream_broadband, on the same CUDA tensors and in
+    float64 on the CPU, to the suite's SW bound 2e-2 W/m2: scattering layers
+    (g up to 0.9), diffuse light at the top, both orientations, 224
+    g-points, 60 layers, and columns at the k * mu0 = 1 resonance's side."""
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_2stream as k11
+
+    gen = torch.Generator().manual_seed(72)
+    ncol, nlay, ngpt = 41, 60, 224
+    u = lambda *shape: torch.rand(*shape, generator=gen, dtype=torch.float64)
+    tau = u(ncol, nlay, ngpt) ** 3 * 2.0
+    ssa, g = u(ncol, nlay, ngpt), 0.9 * u(ncol, nlay, ngpt)
+    mu0 = 0.05 + 0.95 * u(ncol)
+    inc, alb_dir, alb_dif, inc_dif = 5.0 * u(ncol, ngpt), u(ncol, ngpt), u(ncol, ngpt), u(ncol, ngpt)
+    args = (tau, ssa, g, mu0, inc, alb_dir, alb_dif, inc_dif)
+    ref = k11.sw_2stream_broadband_kernel(*args, top_at_1=top_at_1)
+    on_dev = [a.float().to(dev) for a in args]
+    n = k11.LAUNCHES
+    got = k11.sw_2stream_broadband_kernel(*on_dev, top_at_1=top_at_1)
+    torch.cuda.synchronize()
+    assert k11.LAUNCHES == n + 1
+    twin32 = k11.sw_2stream_broadband_kernel(*[a.float() for a in args], top_at_1=top_at_1)
+    for name, gt, r, t in zip(("up", "dn", "dir"), got, ref, twin32):
+        assert gt.is_cuda and gt.shape == (ncol, nlay + 1), name
+        assert _maxabs(gt, r) <= SW_ATOL, name
+        assert _maxabs(gt, t) <= SW_ATOL, name
+
+
+_LUT_LAUNCH_PROBE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from rte_rrtmgp_nn_tpu_torch import testing
+from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
+from rte_rrtmgp_nn_tpu_torch.ops.cuda import lut_gas_optics as k10
+from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
+from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_2stream as k11
+
+dev = torch.device("cuda", 0)
+paths = testing.write_lut_files(sys.argv[1], gpts_per_band=16, seed=73)
+kd = {b: load_kdist(p, testing.LUT_GASES, torch.float32, device=dev) for b, p in paths.items()}
+data = rfmip_data_from_arrays(testing.synthesize_rfmip_experiments(18, 5, 60, 74))
+
+def call():
+    lw = rfmip.rfmip_clear_sky_lw(data, kd["lw"], device=dev)
+    sw = rfmip.rfmip_clear_sky_sw(data, kd["sw"], device=dev)
+    return lw.flux_up.cpu(), sw.flux_up.cpu()
+
+call()
+torch.cuda.synchronize()
+before = (dict(k10.LAUNCHES), k11.LAUNCHES, k7.LAUNCHES)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps({
+    "launches": [k10.LAUNCHES["lw"] - before[0]["lw"], k10.LAUNCHES["sw"] - before[0]["sw"],
+                 k11.LAUNCHES - before[1], k7.LAUNCHES - before[2]],
+    "device_ops": sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())}))
+"""
+
+
+def test_lut_route_of_the_rfmip_drivers_launches_few_device_operations(dev, tmp_path):
+    """One rfmip_clear_sky_lw then _sw call on the lookup-table route, at
+    the benchmark's 60 layers and 256 / 224 g-points: K10 twice, K11 once,
+    K7 once, and fewer than 300 device operations (kernels, copies and
+    memsets) in all, so that a profiled window of such calls stays
+    readable; the per-layer tensor ops took some 2,800. Profiled in a
+    process of its own: a profiler session here keeps a later test's
+    session in this process from seeing the card's copies."""
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _LUT_LAUNCH_PROBE, str(tmp_path)], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["launches"] == [1, 1, 1, 1]
+    assert 4 <= got["device_ops"] < 300, got
 
 
 # -- the GCM sweep ------------------------------------------------------------------------

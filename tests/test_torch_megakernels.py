@@ -197,8 +197,8 @@ def test_ctypes_declarations_match_the_c_entry_points():
                          "sw_clearsky_megakernel_blocks_per_sm", "lw_prep_launch",
                          "lw_prep_blocks_per_sm", "mlp_predict_launch",
                          "mlp_predict_blocks_per_sm", "lw_noscat_broadband_launch",
-                         "lw_noscat_broadband_blocks_per_sm",
-                         "rte_cuda_error_string"}
+                         "lw_noscat_broadband_blocks_per_sm", "lut_gas_optics_launch",
+                         "sw_2stream_launch", "rte_cuda_error_string"}
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
     build._declare(lib)
     restypes = {"int": ctypes.c_int, "size_t": ctypes.c_size_t, "const char*": ctypes.c_char_p}
@@ -221,9 +221,10 @@ def _c_struct_fields(name):
     for decl in re.sub(r"//[^\n]*", "", body).split(";"):
         if not decl.strip():
             continue
-        base, star, names = re.fullmatch(r"(?:const\s+)?(float|int)(\*?)\s+(.*)", decl.strip(),
-                                         re.S).groups()
-        ctype = ctypes.c_void_p if star else {"float": ctypes.c_float, "int": ctypes.c_int}[base]
+        base, star, names = re.fullmatch(r"(?:const\s+)?(float|int|double)(\*?)\s+(.*)",
+                                         decl.strip(), re.S).groups()
+        ctype = ctypes.c_void_p if star else {"float": ctypes.c_float, "int": ctypes.c_int,
+                                              "double": ctypes.c_double}[base]
         sizes = {"kMaxLanes": build.MAX_LANES, "kMaxLayers": build.MAX_LAYERS,
                  "kMaxDims": build.MAX_LAYERS + 1, "kMaxAngles": build.MAX_ANGLES}
         for n in names.split(","):
@@ -234,7 +235,7 @@ def _c_struct_fields(name):
 
 @pytest.mark.parametrize("name", ["Mlp3", "PlanckTab", "CloudLut", "LaneList", "LwArgs", "SwArgs",
                                   "LwPrepArgs", "MegaPlan", "MlpNet", "MlpPlan", "NoscatArgs",
-                                  "NoscatPlan"])
+                                  "NoscatPlan", "LutArgs", "Sw2StreamArgs"])
 def test_ctypes_structs_mirror_the_c_structs(name):
     """The fused kernels' launch entries read their arguments from structs;
     build.py's ctypes mirror of each has the C declaration's fields, in its

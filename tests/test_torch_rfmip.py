@@ -339,7 +339,8 @@ _OFF_CPU = {
     "lw_parallel": (dict(lw=True, scan_mode="parallel"), {}, {"fused_predict_lw_both": 1, "k7": 1}, 0),
     "lw_parallel_2_angles": (dict(lw=True, scan_mode="parallel", n_gauss_angles=2), {},
                              {"fused_predict_lw_both": 1, "k7": 1}, 0),
-    "sw_parallel": (dict(scan_mode="parallel"), {}, {"fused_predict_sw": 1}, 0),
+    # the general SW core's broadband two-stream solve is K11 off the CPU
+    "sw_parallel": (dict(scan_mode="parallel"), {}, {"fused_predict_sw": 1, "k11": 1}, 0),
 }
 
 
@@ -354,6 +355,7 @@ def test_staged_drivers_off_the_cpu_launch_kernels_never_twins(models, monkeypat
     from rte_rrtmgp_nn_tpu_torch.ops import lw_solver as plw
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
+    from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_2stream as k11
 
     meta = torch.device("meta")
     launched, fused = {}, []
@@ -366,12 +368,17 @@ def test_staged_drivers_off_the_cpu_launch_kernels_never_twins(models, monkeypat
         launched["k7"] = launched.get("k7", 0) + 1
         return [torch.empty((tau.shape[0], tau.shape[1] + 1), device=tau.device)] * 2
 
+    def k11_launch(tau, *args):
+        launched["k11"] = launched.get("k11", 0) + 1
+        return [torch.empty((tau.shape[0], tau.shape[1] + 1), device=tau.device)] * 3
+
     def twin(*args, **kwargs):
         raise AssertionError("a kernel's plain twin ran off the CPU")
 
     fused_solve = plw._lw_noscat_broadband_fused
     monkeypatch.setattr(mlp, "_launch", launch)
     monkeypatch.setattr(k7, "_launch", k7_launch)
+    monkeypatch.setattr(k11, "_launch", k11_launch)
     monkeypatch.setattr(plw, "_lw_noscat_broadband_fused",
                         lambda *a, **k: fused.append(1) or fused_solve(*a, **k))
     for name in ("fused_predict_lw_both_plain", "fused_predict_tau_plain",
