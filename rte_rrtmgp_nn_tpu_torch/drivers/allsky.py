@@ -71,7 +71,8 @@ from ..spectral import SpectralMapping
 from ..utils.timing import span
 from .allsky_io import GarandAtmosphere  # noqa: F401 (re-export)
 from .allsky_io import read_garand
-from .rfmip import _check_sw_scaling, _stack_lanes, _to_lay_major, resolve_solar_source
+from .rfmip import _check_sw_scaling, _stack_lanes, _to_lay_major, solar_source_on
+from .rfmip import resolve_solar_source  # noqa: F401 (re-export)
 
 # Idealized cloud-placement thresholds (reference rrtmgp_allsky.F90:329-350).
 CLOUD_P_MIN = 100.0 * 100.0   # Pa
@@ -390,8 +391,9 @@ def allsky_lw(
     """Full all-sky LW run on ``device`` (reference rrtmgp_allsky LW
     branch); ``models`` must be on ``device``. ``spectral`` defaults to
     the g-128 mapping; nets that do not fit it, or the mapping passed,
-    raise ValueError (planck.spectral_for). Returns (ncol, nlay+1)
-    fluxes on ``device``."""
+    raise ValueError (planck.spectral_for). The mapping's Planck table is
+    kept per band limits, device and dtype (``PlanckTable.kept``).
+    Returns (ncol, nlay+1) fluxes on ``device``."""
     spectral = spectral_for("lw", models, entry="allsky_lw", accepts=(lw_spectral_g128,),
                             spectral=spectral)
     device = torch.device(device)
@@ -401,7 +403,7 @@ def allsky_lw(
         raise NotImplementedError(f"allsky_lw: {route.reason}")
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
-    table = PlanckTable.compute(spectral.band_lims_wvn_array, device=device, dtype=dtype)
+    table = PlanckTable.kept(spectral.band_lims_wvn_array, device=device, dtype=dtype)
     clouds = make_clouds(atm.play, atm.tlay, co)
 
     top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])
@@ -438,7 +440,10 @@ def allsky_sw(
     """Full all-sky SW run on ``device`` (reference rrtmgp_allsky SW
     branch); ``models`` = [absorption, rayleigh], on ``device``.
     ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
-    or the mapping passed, raise ValueError (planck.spectral_for)."""
+    or the mapping passed, raise ValueError (planck.spectral_for). The
+    solar source is ``solar_source`` when given, else the ``kdist``'s,
+    both made at every call, else the mapping's default source kept per
+    mapping, device and dtype (``rfmip.solar_source_on``)."""
     spectral = spectral_for("sw", models, entry="allsky_sw", accepts=(sw_spectral_g112,),
                             spectral=spectral)
     device = torch.device(device)
@@ -448,9 +453,7 @@ def allsky_sw(
         raise NotImplementedError(f"allsky_sw: {route.reason}")
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
-    if solar_source is None:
-        solar_source = resolve_solar_source(spectral, kdist)
-    solar = torch.as_tensor(solar_source, dtype=dtype, device=device)
+    solar = solar_source_on(spectral, kdist, solar_source, device, dtype)
     clouds = make_clouds(atm.play, atm.tlay, co)
 
     top_at_1 = bool(atm.play[0, 0] < atm.play[0, -1])

@@ -59,7 +59,7 @@ from .allsky import (
     _allsky_sw_core_mega,
     make_clouds,
 )
-from .rfmip import _check_sw_scaling, _lw_core, _lw_core_mega4_canon, default_solar_source
+from .rfmip import _check_sw_scaling, _lw_core, _lw_core_mega4_canon, kept_solar_source
 from .rfmip_io import RFMIPData
 
 
@@ -402,10 +402,8 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
         if sw_route == "megakernel":
             _check_sw_scaling(sw_models)
     first = mesh.devices[0]
-    with span("rte.planck"):
-        table = PlanckTable.compute(lw_spec.band_lims_wvn_array, device=first, dtype=dtype)
-    with span("rte.solar"):
-        solar = torch.as_tensor(default_solar_source(sw_spec), dtype=dtype, device=first)
+    table = PlanckTable.kept(lw_spec.band_lims_wvn_array, device=first, dtype=dtype)
+    solar = kept_solar_source(sw_spec, device=first, dtype=dtype)
     with span("rte.replicate"):
         on = replicated(mesh).put((list(lw_models), list(sw_models), table, solar, cloud_lw,
                                    cloud_sw))
@@ -579,8 +577,8 @@ def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):
     spectral = spectral_for("lw", models, entry="gcm_sweep_lw", accepts=(lw_spectral_g128,),
                             basis=_LW_BASIS)
     route = _route("gcm_sweep_lw", device, dtype, lw=True, models=models)
-    table = PlanckTable.compute(spectral.band_lims_wvn_array, device=mesh.devices[0],
-                                dtype=dtype)
+    table = PlanckTable.kept(spectral.band_lims_wvn_array, device=mesh.devices[0],
+                             dtype=dtype)
     on = replicated(mesh).put((list(models), table))
     canon = _canon(top_at_1)
     toa, sfc = (0, -1) if top_at_1 else (-1, 0)

@@ -53,9 +53,11 @@ from ..gasoptics.nn_gas_optics import (
     split_first_layer,
 )
 from ..gasoptics.planck import (
+    KeptTables,
     PlanckTable,
     gpt_weights_for,
     lw_spectral_g128,
+    placed,
     solar_band_fractions,
     spectral_for,
     sw_spectral_g112,
@@ -84,6 +86,36 @@ def default_solar_source(spectral: SpectralMapping, tsi: float = 1360.85) -> np.
     for ib, (s, e) in enumerate(spectral.band_lims_gpt):
         out[s:e] = tsi * frac[ib] * w[s:e]
     return out
+
+
+# kept_solar_source's tensors
+SOLAR_SOURCES = KeptTables("rte.solar")
+
+
+def kept_solar_source(spectral: SpectralMapping, *, device, dtype=torch.float32) -> torch.Tensor:
+    """``default_solar_source(spectral)`` on ``device`` in ``dtype``, kept in
+    ``SOLAR_SOURCES`` per mapping, device and dtype: the first call of a key
+    makes it under the span ``rte.solar``, every later one returns the same
+    tensor. Shared by every caller of the key, so read-only."""
+    device = placed(device)
+    return SOLAR_SOURCES.get((spectral, device, dtype), lambda: torch.as_tensor(
+        default_solar_source(spectral), dtype=dtype, device=device))
+
+
+def solar_source_on(spectral: SpectralMapping, kdist, solar_source, device,
+                    dtype) -> torch.Tensor:
+    """The SW drivers' per-g-point solar source on ``device`` in ``dtype``:
+    ``solar_source`` when given, else ``resolve_solar_source(spectral,
+    kdist)``. With neither a ``solar_source`` nor a ``kdist`` that carries
+    NRLSSI2 terms that is the default source, read kept
+    (``kept_solar_source``); the others are made at every call (a kdist's
+    terms change with its solar variability) under the span ``rte.solar``."""
+    if solar_source is None and getattr(kdist, "solar_quiet", None) is None:
+        return kept_solar_source(spectral, device=device, dtype=dtype)
+    with span("rte.solar"):
+        if solar_source is None:
+            solar_source = resolve_solar_source(spectral, kdist)
+        return torch.as_tensor(solar_source, dtype=dtype, device=device)
 
 
 def resolve_solar_source(spectral: SpectralMapping, kdist=None, tsi: Optional[float] = None,
@@ -655,7 +687,10 @@ def rfmip_clear_sky_lw(
     Gauss angles (1-4). ``models`` (one "lw_both" net, or an absorption
     and a Planck-fraction net) must be on ``device``. ``spectral``
     defaults to the g-128 mapping; nets that do not fit it, or the
-    mapping passed, raise ValueError (planck.spectral_for). ``models`` may
+    mapping passed, raise ValueError (planck.spectral_for). Without a
+    ``planck_table`` the call reads the mapping's table kept per band
+    limits, device and dtype (``PlanckTable.kept``); a table passed is
+    moved to ``device`` and used as it is, never kept. ``models`` may
     instead be an LW KDist on ``device`` in ``dtype`` (the lookup-table
     route; no ``spectral`` or ``planck_table`` then). Returns (ncol,
     nlay+1) fluxes on ``device``."""
@@ -678,9 +713,8 @@ def rfmip_clear_sky_lw(
                             top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
                             scan_mode=scan_mode)
         if planck_table is None:
-            with span("rte.planck"):
-                planck_table = PlanckTable.compute(spectral.band_lims_wvn_array,
-                                                   device=device, dtype=dtype)
+            planck_table = PlanckTable.kept(spectral.band_lims_wvn_array, device=device,
+                                            dtype=dtype)
         else:
             planck_table = planck_table.to(device)
         if route.kind == "megakernel":
@@ -708,8 +742,11 @@ def rfmip_clear_sky_sw(
     (reference rrtmgp_rfmip_sw.F90); ``models`` = [absorption, rayleigh],
     on ``device``. Night columns (sza >= 90 deg) come back zero.
     ``spectral`` defaults to the g-112 mapping; nets that do not fit it,
-    or the mapping passed, raise ValueError (planck.spectral_for).
-    ``models`` may instead be an SW KDist on ``device`` in ``dtype`` (the
+    or the mapping passed, raise ValueError (planck.spectral_for). The
+    solar source is ``solar_source`` when given, else the ``kdist``'s,
+    both made at every call, else the mapping's default source kept per
+    mapping, device and dtype (``solar_source_on``). ``models`` may
+    instead be an SW KDist on ``device`` in ``dtype`` (the
     lookup-table route, with the k-distribution's solar source; no
     ``spectral``, ``solar_source`` or ``kdist`` then)."""
     with span("rte.rfmip.sw"):
@@ -732,10 +769,7 @@ def rfmip_clear_sky_sw(
             return _sw_core(kd, kd.spectral, solar,
                             *sw_staged_inputs(_lut_data(data, kd), device, dtype),
                             top_at_1=data.top_at_1, scan_mode=scan_mode)
-        with span("rte.solar"):
-            if solar_source is None:
-                solar_source = resolve_solar_source(spectral, kdist)
-            solar = torch.as_tensor(solar_source, dtype=dtype, device=device)
+        solar = solar_source_on(spectral, kdist, solar_source, device, dtype)
         if route.kind == "megakernel":
             return _sw_core_mega_canon(models, solar, *sw_canonical_inputs(data, device, dtype),
                                        top_at_1=data.top_at_1)

@@ -17,6 +17,7 @@ import torch
 
 from ..constants import constants
 from ..spectral import SpectralMapping
+from ..utils.timing import span
 
 # Standard RRTMGP longwave band limits [cm-1], 16 bands.
 LW_BAND_LIMS_WVN = np.array(
@@ -245,10 +246,29 @@ class PlanckTable:
     def compute(band_lims_wvn: np.ndarray, *, device, t_min: float = 160.0,
                 t_max: float = 355.0, dt: float = 1.0,
                 dtype=torch.float32) -> "PlanckTable":
+        """The table on [t_min, t_max] every ``dt`` K, made anew: the float64
+        quadrature on the host (planck_band_radiance), rounded once to
+        ``dtype`` and copied to ``device``. The drivers read it through
+        ``kept``, which makes it once per key."""
         temps = np.arange(t_min, t_max + 0.5 * dt, dt)
         tbl = planck_band_radiance(temps, band_lims_wvn)
         return PlanckTable.from_table(
             torch.as_tensor(tbl, dtype=dtype, device=device), t_min, dt)
+
+    @staticmethod
+    def kept(band_lims_wvn: np.ndarray, *, device, t_min: float = 160.0,
+             t_max: float = 355.0, dt: float = 1.0,
+             dtype=torch.float32) -> "PlanckTable":
+        """``compute``'s table, kept in ``PLANCK_TABLES`` per band limits,
+        grid (``t_min``, ``t_max``, ``dt``), device and dtype: the first call
+        of a key computes it under the span ``rte.planck``, every later one
+        returns the same object with no host work and no copy. Shared by
+        every caller of the key, so read-only."""
+        device = placed(device)
+        lims = tuple(map(tuple, np.asarray(band_lims_wvn, np.float64).tolist()))
+        key = (lims, float(t_min), float(t_max), float(dt), device, dtype)
+        return PLANCK_TABLES.get(key, lambda: PlanckTable.compute(
+            band_lims_wvn, device=device, t_min=t_min, t_max=t_max, dt=dt, dtype=dtype))
 
     def to(self, device) -> "PlanckTable":
         return PlanckTable(self.totplnk.to(device), self.totplnk_diff.to(device),
@@ -265,6 +285,46 @@ class PlanckTable:
         idx0 = torch.clamp(itr, 0, ntab - 2).long()
         frac = val0 - itr.to(val0.dtype)
         return self.totplnk[idx0] + frac[..., None] * self.totplnk_diff[idx0]
+
+
+def placed(device) -> torch.device:
+    """``device`` as a key: a CUDA device without an index is the current
+    card's, named with its index, so that a key never stands for two cards."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class KeptTables:
+    """Device tables that depend on constants alone, made once per key and
+    kept, as the reference keeps ``totplnk`` and the solar source in its
+    k-distribution object (mo_gas_optics_rrtmgp.F90:144-152). A miss makes
+    the table under the span ``name``, so that span counts misses; a hit
+    opens none. Past ``size`` keys the oldest is dropped. A kept table is
+    shared by every caller of its key: read-only by contract."""
+
+    def __init__(self, name: str, size: int = 8):
+        self.name, self.size = name, size
+        self._tables: dict = {}
+
+    def get(self, key, make):
+        """The table kept under ``key``, or ``make()``'s, kept."""
+        table = self._tables.get(key)
+        if table is None:
+            with span(self.name):
+                table = make()
+            self._tables[key] = table
+            if len(self._tables) > self.size:
+                self._tables.pop(next(iter(self._tables)))
+        return table
+
+    def clear(self) -> None:
+        self._tables.clear()
+
+
+# PlanckTable.kept's tables
+PLANCK_TABLES = KeptTables("rte.planck")
 
 
 def compute_planck_source_nn(

@@ -1,8 +1,9 @@
 """The port's named spans (utils/timing.span) under a CPU-only
 ``torch.profiler``: the RFMIP drivers and the GCM all-sky sweep emit the
-spans of their host stages, nested as the stages call each other; a kept
-weight split counts a miss only when it is cut anew; the outputs are the
-same bits with the profiler on; and with no profiler a span makes no
+spans of their host stages, nested as the stages call each other, the
+Planck table's and the solar source's only on a miss of their kept tables;
+a kept weight split counts a miss only when it is cut anew; the outputs are
+the same bits with the profiler on; and with no profiler a span makes no
 profiler range at all."""
 import json
 
@@ -12,11 +13,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rte_rrtmgp_nn_tpu_torch import testing as T
+from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
 from rte_rrtmgp_nn_tpu_torch.drivers.allsky import load_cloud_optics_checked
 from rte_rrtmgp_nn_tpu_torch.drivers.gcm import gcm_sweep_allsky, synthesize_gcm_columns
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip import rfmip_clear_sky_lw, rfmip_clear_sky_sw
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
 from rte_rrtmgp_nn_tpu_torch.gasoptics.nn_gas_optics import split_first_layer
+from rte_rrtmgp_nn_tpu_torch.gasoptics import planck
 from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import lw_spectral_g128, sw_spectral_g112
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 from rte_rrtmgp_nn_tpu_torch.utils import timing
@@ -26,7 +29,9 @@ CPU = torch.device("cpu")
 SW_NET = "sw-g112-demo_absorption_48_48_HR_3.64e-02_FRC_2.14e+00.nc"
 NCOL, NLAY, SEED = 30, 10, 11
 
-# span -> the span it runs under (None: outermost), on the CPU's routes
+# span -> the span it runs under (None: outermost), on the CPU's routes;
+# the KEPT spans open only on a miss of their kept tables
+KEPT = ("rte.planck", "rte.solar")
 RFMIP_LW = {"rte.rfmip.lw": None, "rte.check": "rte.rfmip.lw", "rte.planck": "rte.rfmip.lw",
             "rte.h2d": "rte.rfmip.lw"}
 RFMIP_SW = {"rte.rfmip.sw": None, "rte.check": "rte.rfmip.sw", "rte.solar": "rte.rfmip.sw",
@@ -51,8 +56,8 @@ def problem(tmp_path_factory):
         co[band] = load_cloud_optics_checked(path, device=CPU)
     host = synthesize_gcm_columns(data, 3 * NCOL, seed=SEED)
     return {
-        "lw": lambda: rfmip_clear_sky_lw(data, [lw], device=CPU),
-        "sw": lambda: rfmip_clear_sky_sw(data, [sw, sw], device=CPU),
+        "lw": lambda **kw: rfmip_clear_sky_lw(data, [lw], device=CPU, **kw),
+        "sw": lambda **kw: rfmip_clear_sky_sw(data, [sw, sw], device=CPU, **kw),
         "sweep": lambda: gcm_sweep_allsky(host, [lw], [sw, sw], co["lw"], co["sw"],
                                           block_size=32, device=CPU),
         "lw_model": lw,
@@ -91,15 +96,36 @@ def _leaves(out):
     return {k: v.numpy() for k, v in vars(out).items() if torch.is_tensor(v)}
 
 
-@pytest.mark.parametrize("path, nesting", [("lw", RFMIP_LW), ("sw", RFMIP_SW),
-                                           ("sweep", SWEEP)])
-def test_driver_spans_nest_as_the_stages_call(problem, tmp_path, path, nesting):
+def _assert_nesting(problem, tmp_path, path, nesting, warm: bool):
+    """path's spans nest as ``nesting`` says, on a miss of the kept tables
+    (cleared first) or, ``warm``, on a hit, where no KEPT span opens."""
+    planck.PLANCK_TABLES.clear()
+    rfmip.SOLAR_SOURCES.clear()
+    if warm:
+        with torch.no_grad():
+            problem[path]()
+        nesting = {k: v for k, v in nesting.items() if k not in KEPT}
     _, spans = _profiled(problem[path], tmp_path)
     parents = _parents(spans)
+    if warm:
+        assert not set(KEPT) & set(parents), parents
     for name, parent in nesting.items():
         assert parents.get(name) == {parent}, (name, parents.get(name))
     outermost = [n for n, p in parents.items() if None in p]
     assert outermost == [next(n for n, p in nesting.items() if p is None)]
+
+
+NESTINGS = [("lw", RFMIP_LW), ("sw", RFMIP_SW), ("sweep", SWEEP)]
+
+
+@pytest.mark.parametrize("path, nesting", NESTINGS)
+def test_driver_spans_nest_as_the_stages_call(problem, tmp_path, path, nesting):
+    _assert_nesting(problem, tmp_path, path, nesting, warm=False)
+
+
+@pytest.mark.parametrize("path, nesting", NESTINGS)
+def test_a_hit_of_the_kept_tables_opens_no_rebuild_span(problem, tmp_path, path, nesting):
+    _assert_nesting(problem, tmp_path, path, nesting, warm=True)
 
 
 @pytest.mark.parametrize("path", ["lw", "sw", "sweep"])
