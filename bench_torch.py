@@ -29,7 +29,7 @@ every column on either route: both take float64 two-stream coefficients,
 
 Routes (``--core``): ``auto`` is the drivers' dispatch
 (config.resolve_use_megakernel): on CUDA the fused cores
-``_lw_core_mega4_canon`` / ``_sw_core_mega_canon`` (K1 and K2 once a
+``fused.lw_core`` / ``rfmip._sw_core_mega_canon`` (K1 and K2 once a
 call), on the CPU the staged ones; ``mega`` the fused cores anywhere (their
 plain twins on the CPU); ``staged`` ``_lw_core`` (K3 + K7) and
 ``_sw_core_lay_major`` (K5 + the two-stream sweeps in PyTorch, about 2,000
@@ -59,7 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 if HERE not in sys.path:
     sys.path.insert(0, HERE)
 
-from rte_rrtmgp_nn_tpu_torch.drivers import rfmip  # noqa: E402
+from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import read_rfmip, rfmip_data_from_arrays  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch import testing  # noqa: E402
@@ -91,7 +91,7 @@ def core_calls(routes, lw_models, sw_models, specs: dict, data, dev) -> tuple:
     top = data.top_at_1
     if routes[0] == "mega":
         lw_in = rfmip.lw_canonical_inputs(data, lw_spec, dev)
-        lw = lambda: rfmip._lw_core_mega4_canon(lw_models, table, lw_spec, *lw_in, top_at_1=top)
+        lw = lambda: fused.lw_core(lw_models, table, lw_spec, *lw_in, top_at_1=top)
     else:
         lw_in = rfmip.lw_staged_inputs(data, lw_spec, dev)
         lw = lambda: rfmip._lw_core(lw_models, table, lw_spec, *lw_in, top_at_1=top,

@@ -774,7 +774,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     timing closures)."""
     import torch
 
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
 
@@ -795,11 +795,10 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     play_t, plev_t, tlay_t, _, _, _, _, concs_t = sw_in
     mu0 = torch.full((NCOL,), ALLSKY_MU0, device=dev)
     alb = torch.full((NCOL, sw_spec.nband), 0.06, device=dev)
-    clear_dn = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in))[1]
+    clear_dn = k1.lw_clearsky_mega4(*fused.lw_args([lw_model], table, lw_spec, *lw_in)[0])[1]
     for flavour, mode in (("lut", "cld_lut"), ("pade", "cld_bands")):
         # K1 in the cloud mode
-        args, kw = allsky.allsky_lw_mega_args([lw_model], table, lw_spec, lw_co[flavour],
-                                              *lw_in[:6], *cld, lw_in[6])
+        args, kw = fused.lw_args([lw_model], table, lw_spec, *lw_in, (lw_co[flavour], cld))
         got = k1.lw_clearsky_mega4(*args, **kw)
         torch.cuda.synchronize()
         ref = k1.lw_clearsky_mega4_plain(*args, **kw)
@@ -825,8 +824,9 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
         timers[f"k1_{mode}_plain"] = lambda a=args, k=kw: k1.lw_clearsky_mega4_plain(*a, **k)
 
         # K2 in the cloud mode
-        args, kw = allsky.allsky_sw_mega_args([sw_model, sw_model], sw_spec, solar, sw_co[flavour],
-                                              play_t, plev_t, tlay_t, mu0, alb, alb, *cld, concs_t)
+        args, kw = fused.sw_args([sw_model, sw_model], sw_spec, play_t, plev_t, tlay_t, mu0,
+                                 *fused.sw_boundary(sw_spec, solar, alb, alb), concs_t,
+                                 (sw_co[flavour], cld))
         got = k2.sw_clearsky_megakernel(*args, **kw)
         torch.cuda.synchronize()
         ref = k2.sw_clearsky_megakernel_plain(*args, **kw)
@@ -857,7 +857,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     got = k8_out = k1.lw_clearsky_mega5(*args5)
     torch.cuda.synchronize()
     ref = k1.lw_clearsky_mega5_plain(*args5)
-    stacked = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in))
+    stacked = k1.lw_clearsky_mega4(*fused.lw_args([lw_model], table, lw_spec, *lw_in)[0])
     e = max(maxabs(a, b) for a, b in zip(got, ref))
     e_st = max(maxabs(a, b) for a, b in zip(got, stacked))
     print(f"K8 lw_clearsky_mega5 (raw lanes, codes {args5[2]}) {NCOL}x{NLAY}: max|kernel-plain| "
@@ -883,7 +883,7 @@ def modes_phase(dev, lw_model, sw_model, table, lw_spec, sw_spec, solar, data,
     timers["k8_plain"] = lambda: k1.lw_clearsky_mega5_plain(*args5)
 
     # K9: the SW kernel with one array per feature
-    sargs = rfmip.sw_mega_args([sw_model, sw_model], solar, *sw_in)
+    sargs, _ = fused.sw_args([sw_model, sw_model], None, *rfmip.sw_fused_inputs(solar, *sw_in))
     lanes = [l.contiguous() for l in sargs[2].unbind(-1)]
     largs = sargs[:2] + (lanes,) + sargs[3:]
     got = k2.sw_clearsky_megakernel(*largs, input_mode="lanes")
@@ -960,7 +960,7 @@ def allsky_core_closures(dev, lw_model, sw_models, paths, ncol=NCOL, sw_spec=Non
     and ``solar_source`` (default the mapping's)."""
     import torch
 
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
         PlanckTable, lw_spectral_g128, spectral_for, sw_spectral_g112)
 
@@ -984,12 +984,12 @@ def allsky_core_closures(dev, lw_model, sw_models, paths, ncol=NCOL, sw_spec=Non
         atm, clouds, True, dev, torch.float32)
     (play, plev, tlay, tlev, *cld), concs = allsky._staged_tensors(atm, clouds, dev, torch.float32)
     return {
-        "allsky_lw_core_fused": lambda: allsky._allsky_lw_core_mega(
-            [lw_model], table, lw_spec, lw_co, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t,
-            concs_t, top_at_1=True),
-        "allsky_sw_core_fused": lambda: allsky._allsky_sw_core_mega(
-            sw_models, sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
-            *cld_t, concs_t, top_at_1=True),
+        "allsky_lw_core_fused": lambda: fused.lw_core(
+            [lw_model], table, lw_spec, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t,
+            (lw_co, cld_t), top_at_1=True),
+        "allsky_sw_core_fused": lambda: fused.sw_core(
+            sw_models, sw_spec, play_t, plev_t, tlay_t, mu0,
+            *fused.sw_boundary(sw_spec, solar, alb, alb), concs_t, (sw_co, cld_t), top_at_1=True),
         "allsky_lw_core_staged": lambda: allsky._allsky_lw_core(
             [lw_model], table, lw_spec, lw_co, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
             top_at_1=True, n_gauss_angles=1),
@@ -1162,7 +1162,7 @@ def mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec, sw_spec, sol
     atmosphere synthesized from SEED, with the all-sky driver's clouds."""
     import torch
 
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
@@ -1176,10 +1176,10 @@ def mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec, sw_spec, sol
     alb = torch.full((ncol, sw_spec.nband), 0.06, device=dev)
     lw, lwp = k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain
     sw, swp = k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain
-    sargs = rfmip.sw_mega_args([sw_model, sw_model], solar, *sw_in)
+    sargs, _ = fused.sw_args([sw_model, sw_model], None, *rfmip.sw_fused_inputs(solar, *sw_in))
     lanes = [l.contiguous() for l in sargs[2].unbind(-1)]
     cases = {
-        "k1": (lw, lwp, rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in), {}, LW_ATOL),
+        "k1": (lw, lwp, fused.lw_args([lw_model], table, lw_spec, *lw_in)[0], {}, LW_ATOL),
         "k2": (sw, swp, sargs, {}, SW_ATOL),
         "k8": (k1.lw_clearsky_mega5, k1.lw_clearsky_mega5_plain,
                rfmip.lw_mega5_args([lw_model], table, lw_spec, *lw_in), {}, LW_ATOL),
@@ -1189,11 +1189,11 @@ def mode_cases(dev, ncol, nlay, lw_model, sw_model, table, lw_spec, sw_spec, sol
         lw_co = synthetic_cloud_optics(lw_spec, flavour, dev)
         sw_co = synthetic_cloud_optics(sw_spec, flavour, dev)
         cld = allsky.cloud_fields_lay_major(data.play, data.tlay, lw_co, True, dev)
-        cases[f"k1_{mode}"] = (lw, lwp, *allsky.allsky_lw_mega_args(
-            [lw_model], table, lw_spec, lw_co, *lw_in[:6], *cld, lw_in[6]), LW_ATOL)
-        cases[f"k2_{mode}"] = (sw, swp, *allsky.allsky_sw_mega_args(
-            [sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t, tlay_t, mu0, alb, alb,
-            *cld, concs_t), SW_ATOL)
+        cases[f"k1_{mode}"] = (lw, lwp, *fused.lw_args(
+            [lw_model], table, lw_spec, *lw_in, (lw_co, cld)), LW_ATOL)
+        cases[f"k2_{mode}"] = (sw, swp, *fused.sw_args(
+            [sw_model, sw_model], sw_spec, play_t, plev_t, tlay_t, mu0,
+            *fused.sw_boundary(sw_spec, solar, alb, alb), concs_t, (sw_co, cld)), SW_ATOL)
     return cases
 
 
@@ -1917,7 +1917,7 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
     import torch
 
     from rte_rrtmgp_nn_tpu_torch.config import config_override
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, gcm, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused, gcm
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_solver as k7
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import mlp
@@ -1927,7 +1927,7 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
     nblocks = -(-GCM_NCOL // GCM_BLOCK)
     sw_pair = [sw_model, sw_model]
     # where the GCM step calls each kernel's wrapper (kept_calls)
-    fused_sites = {"k1": (allsky, "lw_clearsky_mega4"), "k2": (allsky, "sw_clearsky_megakernel")}
+    fused_sites = {"k1": (fused, "lw_clearsky_mega4"), "k2": (fused, "sw_clearsky_megakernel")}
     staged_sites = {"k3": (mlp, "fused_predict_lw_both"), "k7": (k7, "lw_noscat_broadband_angles"),
                     "k5": (mlp, "fused_predict_sw")}
     first = lambda i: i == 0
@@ -2012,7 +2012,7 @@ def gcm_phase(dev, lw_model, sw_model, card) -> None:
         line("LW streamed f32 (K1 clear)", lw_s)
         require(c == {"k1": nblocks, "k1_clear": nblocks},
                 f"the LW GCM sweep did not launch K1 once a block and nothing else: {c}")
-        with kept_calls({"k1:clear": (rfmip, "lw_clearsky_mega4")}, first) as kept:
+        with kept_calls({"k1:clear": (fused, "lw_clearsky_mega4")}, first) as kept:
             lw_r = gcm.gcm_sweep_lw(host, [lw_model], block_size=GCM_BLOCK, resident=True,
                                     device=dev)
         line("LW resident f32", lw_r)
@@ -2143,7 +2143,7 @@ def training_phase(dev, card) -> None:
     import torch
 
     from rte_rrtmgp_nn_tpu_torch import testing
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.kdist import load_kdist
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import compute_planck_source_nn
@@ -2316,8 +2316,8 @@ def training_phase(dev, card) -> None:
             fl = lw_driver(live)
             counts = read_counts()
             require(counts == {"k1": 1}, f"rfmip_clear_sky_lw on the trained net launched {counts}")
-            args = rfmip.lw_mega_args([live], kd.planck, kd.spectral,
-                                      *rfmip.lw_canonical_inputs(data, kd.spectral, dev))
+            args, _ = fused.lw_args([live], kd.planck, kd.spectral,
+                                    *rfmip.lw_canonical_inputs(data, kd.spectral, dev))
             up_p, dn_p = k1.lw_clearsky_mega4_plain(*args)
             e1 = max(maxabs(fl.flux_up, up_p), maxabs(fl.flux_dn, dn_p))
             adjudicate_lazy("training K1", e1, LW_ATOL, (fl.flux_up, fl.flux_dn), (up_p, dn_p),
@@ -2451,7 +2451,7 @@ def sharded_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar,
     import torch
     import torch.distributed as dist
 
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
     from rte_rrtmgp_nn_tpu_torch.testing import synthesize_rfmip
 
@@ -2462,7 +2462,7 @@ def sharded_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar,
     t_phase = time.perf_counter()
     times = {}
     # ---- (a) world size 1 ----
-    fl = rfmip._lw_core_mega4_canon([lw_model], table, lw_spec, *lw_in, top_at_1=True)
+    fl = fused.lw_core([lw_model], table, lw_spec, *lw_in, top_at_1=True)
     fs = rfmip._sw_core_mega_canon([sw_model, sw_model], solar, *sw_in, top_at_1=True)
     want = {"lw": (fl.flux_up, fl.flux_dn), "sw": (fs.flux_up, fs.flux_dn, fs.flux_dn_dir)}
     pdist.initialize(f"127.0.0.1:{pdist.free_port()}", 1, 0, device=dev)
@@ -2486,7 +2486,7 @@ def sharded_phase(dev, card, lw_model, sw_model, table, lw_spec, sw_spec, solar,
         with torch.no_grad():
             times = {"lw_sharded": cuda_ms(lambda: lw_fn(*lw_in)),
                      "sw_sharded": cuda_ms(lambda: sw_fn(*sw_in)),
-                     "lw_unsharded": cuda_ms(lambda: rfmip._lw_core_mega4_canon(
+                     "lw_unsharded": cuda_ms(lambda: fused.lw_core(
                          [lw_model], table, lw_spec, *lw_in, top_at_1=True)),
                      "sw_unsharded": cuda_ms(lambda: rfmip._sw_core_mega_canon(
                          [sw_model, sw_model], solar, *sw_in, top_at_1=True))}
@@ -3077,7 +3077,7 @@ def demos_phase(dev, card) -> None:
     import torch
 
     from rte_rrtmgp_nn_tpu_torch import testing
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
         SW_SOLAR_BAND_FRAC_CAL, spectral_for, sw_spectral_g112)
     from rte_rrtmgp_nn_tpu_torch.models.network import (
@@ -3213,7 +3213,7 @@ def demos_phase(dev, card) -> None:
                     ["--garand", paths["garand"], "--sw-cloud-coeffs", paths["sw_lut"],
                      "--models-dir", j("models")], lambda tag: [],
                     consts={"TARGET_DN": target[0], "TARGET_UP": target[1]},
-                    around=lambda: kept_calls({"k2": (allsky, "sw_clearsky_megakernel")},
+                    around=lambda: kept_calls({"k2": (fused, "sw_clearsky_megakernel")},
                                               lambda i: True))
         require(runs["card"][2] == {"k2": SOLAR_NBAND, "k2_cld_lut": SOLAR_NBAND},
                 f"torch_calibrate_sw_solar did not launch K2 cld_lut once a band: "
@@ -3346,7 +3346,7 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
 
     from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.config import config_override
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import spectral_for, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -3377,7 +3377,7 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
     ref = rfmip.rfmip_clear_sky_sw(data, pair64["models"], dtype=f64, device=cpu, **kw)
 
     reset_counts()
-    fused = rfmip.rfmip_clear_sky_sw(data, models, device=dev, **kw)
+    fb_fused = rfmip.rfmip_clear_sky_sw(data, models, device=dev, **kw)
     c_fused = read_counts()
     reset_counts()
     with config_override(use_megakernel=False):
@@ -3386,19 +3386,20 @@ def sw_pair_phase(dev, card) -> tuple[dict, dict, dict]:
     print(f"sw-pair launches: fused rfmip_clear_sky_sw {c_fused}, staged {c_staged}")
     require(c_fused == {"k2": 1} and c_staged == {"fused_predict_sw": 1},
             "the pair's SW requests did not launch K2 once (fused) or K5 once (staged)")
-    for fb in (fused, staged):
+    for fb in (fb_fused, staged):
         for n in ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"):
             v = getattr(fb, n)
             require(tuple(v.shape) == (NCOL, NLAY + 1) and bool(torch.isfinite(v).all()),
                     f"sw-pair {n}: {tuple(v.shape)} or not finite")
-    e_fused = hold_sw(fused, ref, "sw-pair fused SW (K2) vs float64")
+    e_fused = hold_sw(fb_fused, ref, "sw-pair fused SW (K2) vs float64")
     e_staged = hold_sw(staged, ref, "sw-pair staged SW (K5) vs float64")
-    e_routes = hold_sw(staged, fused, "sw-pair staged vs fused SW")
+    e_routes = hold_sw(staged, fb_fused, "sw-pair staged vs fused SW")
     print(f"sw-pair vs float64 on the CPU, in every column: fused (K2) {e_fused:.3e}, staged (K5) "
           f"{e_staged:.3e}; staged vs fused {e_routes:.3e} W/m2 (tol {SW_ATOL}) | {card}")
 
     solar = torch.as_tensor(pair["solar"], dtype=torch.float32, device=dev)
-    args = rfmip.sw_mega_args(models, solar, *rfmip.sw_canonical_inputs(data, dev))
+    args, _ = fused.sw_args(models, None,
+                            *rfmip.sw_fused_inputs(solar, *rfmip.sw_canonical_inputs(data, dev)))
     outs_k = k2.sw_clearsky_megakernel(*args)
     torch.cuda.synchronize()
     outs_p = k2.sw_clearsky_megakernel_plain(*args)
@@ -3503,7 +3504,7 @@ def allsky_pair_phase(dev, card) -> tuple[dict, dict, dict]:
 
     from rte_rrtmgp_nn_tpu_torch import testing
     from rte_rrtmgp_nn_tpu_torch.config import config_override
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
+    from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
     from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
     from rte_rrtmgp_nn_tpu_torch.ops.sw_solver import pifm_eigenvalue
@@ -3588,10 +3589,8 @@ def allsky_pair_phase(dev, card) -> tuple[dict, dict, dict]:
 
             # the kernels against their twins on the same CUDA tensors
             cld = p["lw_canon"][6:10]
-            sargs, skw = allsky.allsky_sw_mega_args(pair["models"], sw_spec, p["solar"],
-                                                    p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
-            largs, lkw = allsky.allsky_lw_mega_args(p["lw_models"], p["table"], lw_spec,
-                                                    p["cloud"][f"lw_{flavour}"], *p["lw_canon"])
+            sargs, skw = fused.sw_args(*testing.allsky_pair_fused(p, "sw", flavour))
+            largs, lkw = fused.lw_args(*testing.allsky_pair_fused(p, "lw", flavour))
             cases = {
                 f"k2_{mode}_pair": (k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain,
                                     sargs, skw, SW_ATOL),
@@ -3717,7 +3716,7 @@ def run() -> dict:
     except ImportError as e:
         raise SmokeFailure(f"the port package is not beside this script: {e}")
     from rte_rrtmgp_nn_tpu_torch.config import config_override
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import (
         PlanckTable, lw_spectral_g128, spectral_for, sw_spectral_g112)
@@ -3766,8 +3765,8 @@ def run() -> dict:
     data = rfmip_data_from_arrays(synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=True))
     lw_in = rfmip.lw_canonical_inputs(data, lw_spec, dev)
     sw_in = rfmip.sw_canonical_inputs(data, dev)
-    lw_args = rfmip.lw_mega_args([lw_model], table, lw_spec, *lw_in)
-    sw_args = rfmip.sw_mega_args([sw_model, sw_model], solar, *sw_in)
+    lw_args = fused.lw_args([lw_model], table, lw_spec, *lw_in)[0]
+    sw_args = fused.sw_args([sw_model, sw_model], None, *rfmip.sw_fused_inputs(solar, *sw_in))[0]
     results = {}
 
     def model64(m: NNModel) -> NNModel:
@@ -3862,7 +3861,7 @@ def run() -> dict:
     require(flip <= 1e-6, "the two vertical orientations disagree")
 
     # ---- 6. timing of the fused path, before the general phases -------------
-    lw_core = lambda: rfmip._lw_core_mega4_canon([lw_model], table, lw_spec, *lw_in, top_at_1=True)
+    lw_core = lambda: fused.lw_core([lw_model], table, lw_spec, *lw_in, top_at_1=True)
     sw_core = lambda: rfmip._sw_core_mega_canon([sw_model, sw_model], solar, *sw_in,
                                                 top_at_1=True)
     timed = {
@@ -4143,7 +4142,7 @@ def main() -> int:
            "source": "rte_rrtmgp_nn_tpu_torch/csrc/sw_megakernel.cu",
            "replaces": f"rte_rrtmgp_nn_tpu/ops/pallas/sw_megakernel.py:{line}",
            **r[f"k2_{mode}_pair"],
-           "counted_around": "_allsky_sw_core_mega on the all-sky problem of the real pair "
+           "counted_around": "fused.sw_core on the all-sky problem of the real pair "
                              "(sw-synth56-lut 128_128, 56 g-points, 1800 x 60 varied "
                              "columns), once a call (phase 28); also launched, not counted "
                              "here: allsky_sw on the pair, once a call (phase 28)"}
@@ -4152,7 +4151,7 @@ def main() -> int:
            "source": "rte_rrtmgp_nn_tpu_torch/csrc/lw_megakernel.cu",
            "replaces": f"rte_rrtmgp_nn_tpu/ops/pallas/lw_megakernel.py:{line}",
            **r[f"k1_{mode}_64"],
-           "counted_around": "_allsky_lw_core_mega on the all-sky problem with the 18 -> 64 "
+           "counted_around": "fused.lw_core on the all-sky problem with the 18 -> 64 "
                              "-> 64 -> 256 LW net (1800 x 60 varied columns), once a call "
                              "(phase 28); also launched, not counted here: allsky_lw on that "
                              "net, once a call (phase 28)"}

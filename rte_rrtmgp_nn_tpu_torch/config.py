@@ -4,7 +4,8 @@ Extent and value checking, the missing-gas scenario index for the NN input
 packing, the working precision, the numerics choices the reference exposes
 as preprocessor macros (``FAST_EXPONENTIAL``, ``use_Pade_source``,
 ``compute_Jac``), and the switch for the fused clear-sky kernels; plus the one
-dispatch rule the drivers follow (``resolve_use_megakernel``).
+dispatch rule the drivers follow (``resolve_use_megakernel``, and
+``driver_route``, which raises its refusals in the driver's name).
 """
 from __future__ import annotations
 
@@ -191,6 +192,16 @@ def resolve_use_megakernel(lw: bool = False, models=None, device=None,
         if refusal:
             return Route("refuse", f"{why}, and {refusal}")
     return Route("staged", why)
+
+
+def driver_route(entry: str, **kw) -> str:
+    """The kind of ``resolve_use_megakernel(**kw)``'s route for the driver
+    ``entry``: "megakernel" or "staged". A refusal raises
+    NotImplementedError with its reason after the entry's name."""
+    route = resolve_use_megakernel(**kw)
+    if route.kind == "refuse":
+        raise NotImplementedError(f"{entry}: {route.reason}")
+    return route.kind
 
 
 def set_checks(check_extents: bool | None = None, check_values: bool | None = None):

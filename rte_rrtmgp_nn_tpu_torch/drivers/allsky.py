@@ -9,14 +9,15 @@ cloud optics -> (SW) delta-scale -> increment into the gas optical props ->
 solver; SW albedo 0.06, mu0 = 0.86, LW emissivity 0.98, :280-304). Gas
 optics is the NN path.
 
-The route is taken once per call by ``config.resolve_use_megakernel``:
+The route is taken once per call by ``config.driver_route``:
   - "megakernel" (one angle, float32, nets the fused kernels take):
-    ``_allsky_lw_core_mega`` / ``_allsky_sw_core_mega`` on canonical
-    layer-major inputs. With lookup-table cloud optics the cloud fields
-    (lwp, iwp, rel, rei) go into the fused kernel, which does the table
-    interpolation, the delta scaling, the band -> g-point expansion and the
-    increment itself; with Pade cloud optics the band-resolved cloud
-    properties are computed here and go in as band lanes. On CUDA tensors
+    ``fused.lw_core`` / ``fused.sw_core`` (``drivers/fused.py``) in a
+    cloud mode, on canonical layer-major inputs. With lookup-table cloud
+    optics the cloud fields (lwp, iwp, rel, rei) go into the fused kernel,
+    which does the table interpolation, the delta scaling, the band ->
+    g-point expansion and the increment itself; with Pade cloud optics the
+    band-resolved cloud properties are computed by the front and go in as
+    band lanes. On CUDA tensors
     that is one launch of K1 or K2 in a cloud mode; on CPU tensors their
     plain twins;
   - "staged" LW: on CUDA, and for more than one angle or a parallel-scan
@@ -40,7 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import resolve_use_megakernel
+from ..config import driver_route
 from ..extensions.cloud_optics import CloudOptics, cloud_optics, load_cloud_optics
 from ..fluxes import FluxesBroadband, reduce_broadband
 from ..gas_concs import GasConcs
@@ -51,7 +52,6 @@ from ..gasoptics.nn_gas_optics import (
     get_col_dry_lay_major,
     predict_nn_lw,
     predict_nn_sw,
-    split_first_layer,
 )
 from ..gasoptics.planck import (
     PlanckTable,
@@ -61,17 +61,15 @@ from ..gasoptics.planck import (
     sw_spectral_g112,
 )
 from ..models.network import NNModel
-from ..ops.cuda.lw_megakernel import lw_clearsky_mega4
-from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
 from ..ops.lw_solver import lw_solver_noscat_lay_major
 from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str, delta_scale, increment
 from ..rte import rte_lw, rte_sw
 from ..spectral import SpectralMapping
-from ..utils.timing import span
+from . import fused
 from .allsky_io import GarandAtmosphere  # noqa: F401 (re-export)
 from .allsky_io import read_garand
-from .rfmip import _check_sw_scaling, _stack_lanes, _to_lay_major, solar_source_on
+from .rfmip import _check_sw_scaling, _to_lay_major, solar_source_on
 from .rfmip import resolve_solar_source  # noqa: F401 (re-export)
 
 # Idealized cloud-placement thresholds (reference rrtmgp_allsky.F90:329-350).
@@ -111,11 +109,7 @@ def cloud_fields_lay_major(play, tlay, co: CloudOptics, top_at_1: bool, device,
     """make_clouds on host arrays play/tlay (ncol, nlay), as the fused
     cores take the fields: four contiguous (nlay, ncol) top-at-0 tensors on
     ``device``."""
-    def canon(a):
-        a = np.asarray(a, np.float32)
-        return np.ascontiguousarray((a if top_at_1 else a[:, ::-1]).T)
-
-    return tuple(torch.as_tensor(canon(a), dtype=dtype, device=device)
+    return tuple(torch.as_tensor(fused.lay_major_host(a, top_at_1), dtype=dtype, device=device)
                  for a in make_clouds(np.asarray(play), np.asarray(tlay), co))
 
 
@@ -194,10 +188,7 @@ def _allsky_lw_core_lay_major(
     cld = cloud_optics(cloud_co, lwp.T, iwp.T, rel.T, rei.T, as_2str=False)
     tau = tau + spectral.expand(cld.tau)
     sol = lw_solver_noscat_lay_major(tau, lay_src, lev_src, spectral.expand(emis_band), sfc_src)
-    up, dn = sol.flux_up, sol.flux_dn
-    if not top_at_1:
-        up, dn = up.flip(1), dn.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+    return fused.fluxes(top_at_1, sol.flux_up, sol.flux_dn, None)
 
 
 def _allsky_sw_core_lay_major(
@@ -232,10 +223,7 @@ def _allsky_sw_core_lay_major(
     sol = sw_solver_2stream_lay_major(
         tau12, ssa12, g12, mu0, toa_src, spectral.expand(sfc_alb_dir),
         spectral.expand(sfc_alb_dif))
-    up, dn, dn_dir = sol.flux_up, sol.flux_dn, sol.flux_dn_dir
-    if not top_at_1:
-        up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
+    return fused.fluxes(top_at_1, sol.flux_up, sol.flux_dn, sol.flux_dn_dir)
 
 
 def canonicalize_allsky_inputs(
@@ -247,115 +235,12 @@ def canonicalize_allsky_inputs(
     numpy array, and every gas VMR is materialized to layer-major 2-D.
     Returns ((play_t, plev_t, tlay_t, tlev_t, lwp_t, iwp_t, rel_t, rei_t),
     concs_t)."""
-    def canon(a):
-        a = np.asarray(a, dtype)
-        if not top_at_1:
-            a = a[:, ::-1]
-        return np.ascontiguousarray(a.T)
-
+    canon = lambda a: fused.lay_major_host(a, top_at_1, dtype)
     ncol, nlay = np.asarray(play).shape
     fields = tuple(canon(a) for a in (play, plev, tlay, tlev, lwp, iwp, rel, rei))
     concs_t = {name: canon(gas_concs.get_vmr(name, ncol, nlay).cpu().numpy())
                for name in gas_concs.concs}
     return fields, concs_t
-
-
-def allsky_lw_mega_args(
-    models, table, spectral, cloud_co,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-):
-    """The fused LW kernel's positional and cloud arguments
-    (lw_clearsky_mega4) from canonical layer-major top-at-0 inputs: (args,
-    cloud keywords). Lookup-table cloud optics goes in as the four cloud
-    fields and the packed tables; Pade cloud optics as the band absorption
-    tau computed here."""
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gas_desc, models[0])
-    w1a, w1c = split_first_layer(models[0], perm, x2d.shape[-1])
-    if cloud_co.is_lut:
-        cld_kw = dict(cld_fields=(lwp_t, iwp_t, rel_t, rei_t), cld_lut=cloud_co.lut_pack)
-    else:
-        cld = cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t, as_2str=False)
-        cld_kw = dict(cld_tau_band=cld.tau.contiguous())
-    args = (models[0], x2d, const_feats, w1a, w1c, col_dry, tlay_t, tlev_t, tsfc, table,
-            spectral.gpt2band_tensor(play_t.device), spectral.expand(emis_band).contiguous())
-    return args, cld_kw
-
-
-def _allsky_lw_core_mega(
-    models, table, spectral, cloud_co,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, emis_band,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-    top_at_1,
-):
-    """All-sky LW through the fused kernel in a cloud mode, on canonical
-    layer-major top-at-0 inputs (canonicalize_allsky_inputs); top_at_1 only
-    flips the output. Same numbers as _allsky_lw_core_lay_major."""
-    with span("rte.prep"):
-        args, cld_kw = allsky_lw_mega_args(
-            models, table, spectral, cloud_co, play_t, plev_t, tlay_t, tlev_t, tsfc,
-            emis_band, lwp_t, iwp_t, rel_t, rei_t, concs_t)
-    with span("rte.kernel.lw"):
-        up, dn = lw_clearsky_mega4(*args, **cld_kw)
-    # the kernel's inputs are freed before its outputs are flipped and combined
-    del args, cld_kw
-    if not top_at_1:
-        up, dn = up.flip(1), dn.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
-
-
-def allsky_sw_mega_args(
-    models, spectral, solar, cloud_co,
-    play_t, plev_t, tlay_t, mu0, sfc_alb_dir, sfc_alb_dif,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-):
-    """The fused SW kernel's positional and cloud arguments
-    (sw_clearsky_megakernel) from canonical layer-major top-at-0 inputs:
-    (args, cloud keywords). Lookup-table cloud optics goes in as the four
-    cloud fields and the packed tables (the kernel delta-scales); Pade cloud
-    optics as the three delta-scaled band products computed here."""
-    gd_t = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry_t = get_col_dry_lay_major(gd_t.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gd_t, models[0])
-    cld_kw = dict(gpt2band=spectral.gpt2band_tensor(play_t.device))
-    if cloud_co.is_lut:
-        cld_kw.update(cld_fields=(lwp_t, iwp_t, rel_t, rei_t), cld_lut=cloud_co.lut_pack)
-    else:
-        cld = delta_scale(cloud_optics(cloud_co, lwp_t, iwp_t, rel_t, rei_t, as_2str=True))
-        tauscat_c = cld.tau * cld.ssa
-        cld_kw.update(cld_bands=(cld.tau.contiguous(), tauscat_c.contiguous(),
-                                 (tauscat_c * cld.g).contiguous()))
-    toa_src = solar[None, :].expand(ncol, spectral.ngpt)
-    args = (models[0], models[1], x2d, const_feats, perm, col_dry_t, mu0,
-            (toa_src * mu0[:, None]).contiguous(), spectral.expand(sfc_alb_dir).contiguous(),
-            spectral.expand(sfc_alb_dif).contiguous())
-    return args, cld_kw
-
-
-def _allsky_sw_core_mega(
-    models, spectral, solar, cloud_co,
-    play_t, plev_t, tlay_t, mu0, sfc_alb_dir, sfc_alb_dif,
-    lwp_t, iwp_t, rel_t, rei_t, concs_t,
-    top_at_1,
-):
-    """All-sky SW through the fused kernel in a cloud mode, on canonical
-    layer-major top-at-0 inputs. Same numbers as _allsky_sw_core_lay_major
-    up to float32 rounding (and the float64 two-stream coefficients)."""
-    with span("rte.prep"):
-        args, cld_kw = allsky_sw_mega_args(
-            models, spectral, solar, cloud_co, play_t, plev_t, tlay_t, mu0, sfc_alb_dir,
-            sfc_alb_dif, lwp_t, iwp_t, rel_t, rei_t, concs_t)
-    with span("rte.kernel.sw"):
-        up, dn, dn_dir = sw_clearsky_megakernel(*args, **cld_kw)
-    # the kernel's inputs are freed before its outputs are flipped and combined
-    del args, cld_kw
-    if not top_at_1:
-        up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=dn_dir)
 
 
 def _canonical_tensors(atm, clouds, top_at_1, device, dtype):
@@ -397,10 +282,8 @@ def allsky_lw(
     spectral = spectral_for("lw", models, entry="allsky_lw", accepts=(lw_spectral_g128,),
                             spectral=spectral)
     device = torch.device(device)
-    route = resolve_use_megakernel(lw=True, models=models, device=device, dtype=dtype,
-                                   n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
-    if route.kind == "refuse":
-        raise NotImplementedError(f"allsky_lw: {route.reason}")
+    route = driver_route("allsky_lw", lw=True, models=models, device=device, dtype=dtype,
+                         n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
     table = PlanckTable.kept(spectral.band_lims_wvn_array, device=device, dtype=dtype)
@@ -410,11 +293,11 @@ def allsky_lw(
     tsfc = torch.as_tensor(atm.tlev[:, -1 if top_at_1 else 0], dtype=dtype, device=device)
     emis = torch.full((ncol, spectral.nband), 0.98, dtype=dtype, device=device)
 
-    if route.kind == "megakernel":
+    if route == "megakernel":
         (play_t, plev_t, tlay_t, tlev_t, *cld_t), concs_t = _canonical_tensors(
             atm, clouds, top_at_1, device, dtype)
-        return _allsky_lw_core_mega(models, table, spectral, co, play_t, plev_t, tlay_t,
-                                    tlev_t, tsfc, emis, *cld_t, concs_t, top_at_1=top_at_1)
+        return fused.lw_core(models, table, spectral, play_t, plev_t, tlay_t, tlev_t, tsfc,
+                             emis, concs_t, (co, cld_t), top_at_1=top_at_1)
     (play, plev, tlay, tlev, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
     if n_gauss_angles == 1 and scan_mode == "sequential" and device.type == "cpu":
         return _allsky_lw_core_lay_major(models, table, spectral, co, play, plev, tlay, tlev,
@@ -447,10 +330,8 @@ def allsky_sw(
     spectral = spectral_for("sw", models, entry="allsky_sw", accepts=(sw_spectral_g112,),
                             spectral=spectral)
     device = torch.device(device)
-    route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
-                                   scan_mode=scan_mode)
-    if route.kind == "refuse":
-        raise NotImplementedError(f"allsky_sw: {route.reason}")
+    route = driver_route("allsky_sw", models=models, device=device, dtype=dtype,
+                         scan_mode=scan_mode)
     atm = read_garand(garand_path, ncol)
     co = load_cloud_optics_checked(cloud_optics_path, device=device, dtype=dtype)
     solar = solar_source_on(spectral, kdist, solar_source, device, dtype)
@@ -460,12 +341,13 @@ def allsky_sw(
     mu0 = torch.full((ncol,), 0.86, dtype=dtype, device=device)
     alb = torch.full((ncol, spectral.nband), 0.06, dtype=dtype, device=device)
 
-    if route.kind == "megakernel":
+    if route == "megakernel":
         _check_sw_scaling(models)
         (play_t, plev_t, tlay_t, _, *cld_t), concs_t = _canonical_tensors(
             atm, clouds, top_at_1, device, dtype)
-        return _allsky_sw_core_mega(models, spectral, solar, co, play_t, plev_t, tlay_t, mu0,
-                                    alb, alb, *cld_t, concs_t, top_at_1=top_at_1)
+        return fused.sw_core(models, spectral, play_t, plev_t, tlay_t, mu0,
+                             *fused.sw_boundary(spectral, solar, alb, alb), concs_t, (co, cld_t),
+                             top_at_1=top_at_1)
     (play, plev, tlay, _, *cld), concs = _staged_tensors(atm, clouds, device, dtype)
     if scan_mode == "sequential":
         return _allsky_sw_core_lay_major(models, spectral, solar, co, play, plev, tlay, mu0,

@@ -10,11 +10,12 @@ block's host -> device copy with the previous block's step, and a mesh
 per-column diagnostics come back: [olr, surface LW down] (LW) and
 [olr, surface LW down, surface SW down] (all-sky).
 
-Each sweep takes its route once, by ``config.resolve_use_megakernel``:
+Each sweep takes its route once, by ``config.driver_route``:
   - "megakernel": each block is transposed on the device into canonical
-    layer-major top-at-0 form and goes through the fused cores: K1
-    (``_lw_core_mega4_canon``, or ``_allsky_lw_core_mega`` in its cloud
-    mode) and K2 (``_allsky_sw_core_mega``), one launch of each per block;
+    layer-major top-at-0 form and goes through the fused cores
+    (``drivers/fused.py``): K1 (``fused.lw_core``, clear or in its cloud
+    mode) and K2 (``fused.sw_core`` in its cloud mode), one launch of each
+    per block;
   - "staged": the cores the RFMIP and all-sky drivers take: ``_lw_core`` /
     ``_allsky_lw_core`` (on CUDA the MLP kernel K3, then the transport
     kernel K7) and ``_allsky_sw_core_lay_major`` (the MLP kernel K5, then
@@ -26,7 +27,7 @@ each host array's rows of the block lie in a region of their own
 (``parallel/streaming.py``): with ``precision="f32"`` the fields themselves
 in float32 (``_f32_job``), with ``precision="mixed"`` the tolerant fields
 as per-lane min-max uint16 codes beside an exact float32 block
-(``_pack_columns_mixed``), which halves the bytes per column.
+(``_mixed_job``), which halves the bytes per column.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import resolve_use_megakernel
+from ..config import driver_route
 from ..gasoptics.planck import (
     PlanckTable,
     lw_spectral_g128,
@@ -54,12 +55,11 @@ from .allsky import (
     CLOUD_T_ICE,
     CLOUD_T_LIQ,
     _allsky_lw_core,
-    _allsky_lw_core_mega,
     _allsky_sw_core_lay_major,
-    _allsky_sw_core_mega,
     make_clouds,
 )
-from .rfmip import _check_sw_scaling, _lw_core, _lw_core_mega4_canon, kept_solar_source
+from . import fused
+from .rfmip import _check_sw_scaling, _lw_core, kept_solar_source
 from .rfmip_io import RFMIPData
 
 
@@ -314,20 +314,6 @@ def _mesh_for(mesh, device) -> Mesh:
     return mesh
 
 
-def _route(what: str, device, dtype, **kw) -> str:
-    route = resolve_use_megakernel(device=device, dtype=dtype, **kw)
-    if route.kind == "refuse":
-        raise NotImplementedError(f"{what}: {route.reason}")
-    return route.kind
-
-
-def _canon(top_at_1: bool):
-    """(ncol, nlay) -> contiguous (nlay, ncol) top-at-0, on the device."""
-    if top_at_1:
-        return lambda a: a.T.contiguous()
-    return lambda a: a.flip(1).T.contiguous()
-
-
 def _full_concs(gas_names, gas_vals, ncol: int, nlay: int) -> dict:
     return {g: (v if v.ndim == 2 else v[:, None].expand(ncol, nlay))
             for g, v in zip(gas_names, gas_vals)}
@@ -384,12 +370,29 @@ def _f32_job(arrays: Sequence[np.ndarray], body, nfix: int, dtype) -> tuple:
     return step, [a.astype(np.float32, copy=False) for a in arrays]
 
 
+def _mixed_job(specs, body, nfix: int, mesh: Mesh, dtype) -> tuple:
+    """A ``precision="mixed"`` sweep's (step, host arrays): ``specs``
+    packed by ``_pack_columns_mixed`` (an exact float32 block and a block
+    of uint16 codes), the codes' [mn; step] rows replicated on the mesh;
+    the step dequantizes a block on its device (``_unpack_with_levels``)
+    and hands the fields to ``body`` as ``_f32_job`` does."""
+    packed_f, packed_q, qmeta, layout = _pack_columns_mixed(specs)
+    with span("rte.replicate"):
+        qm = replicated(mesh).put(torch.from_numpy(qmeta))
+
+    def step(blk_f, blk_q):
+        fields = _unpack_with_levels(blk_f, blk_q, qm[blk_f.device], layout, dtype)
+        return body(*fields[:nfix], fields[nfix:])
+
+    # the codes travel as their int16 bits (the same two bytes)
+    return step, [packed_f, packed_q.view(np.int16)]
+
+
 def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: bool,
                  dtype, mesh: Mesh, device):
     """The per-block all-sky step of gcm_sweep_allsky on a block's field
-    tensors, with its routes taken (LW and SW each by
-    ``resolve_use_megakernel``); returns (ncol, 3) [olr, surface LW down,
-    surface SW down]."""
+    tensors, with its routes taken (LW and SW each by ``driver_route``);
+    returns (ncol, 3) [olr, surface LW down, surface SW down]."""
     with span("rte.check"):
         lw_spec = spectral_for("lw", lw_models, entry="gcm_sweep_allsky",
                                accepts=(lw_spectral_g128,), basis=_LW_BASIS)
@@ -397,8 +400,10 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
                                accepts=(sw_spectral_g112, sw_spectral_g224),
                                basis="the sweep takes its SW spectral mapping, solar source and "
                                      "albedo from the nets' outputs")
-        lw_route = _route("gcm_sweep_allsky (LW)", device, dtype, lw=True, models=lw_models)
-        sw_route = _route("gcm_sweep_allsky (SW)", device, dtype, models=sw_models)
+        lw_route = driver_route("gcm_sweep_allsky (LW)", device=device, dtype=dtype, lw=True,
+                                models=lw_models)
+        sw_route = driver_route("gcm_sweep_allsky (SW)", device=device, dtype=dtype,
+                                models=sw_models)
         if sw_route == "megakernel":
             _check_sw_scaling(sw_models)
     first = mesh.devices[0]
@@ -407,7 +412,7 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
     with span("rte.replicate"):
         on = replicated(mesh).put((list(lw_models), list(sw_models), table, solar, cloud_lw,
                                    cloud_sw))
-    canon = _canon(top_at_1)
+    canon = lambda a: fused.lay_major(a, top_at_1)
     # the cores return fluxes in the caller's orientation
     toa, sfc = (0, -1) if top_at_1 else (-1, 0)
 
@@ -430,16 +435,16 @@ def _allsky_body(lw_models, sw_models, cloud_lw, cloud_sw, gas_names, top_at_1: 
             play_t, plev_t, tlay_t, tlev_t, *cld_t = map(canon, (play, plev, tlay, tlev, *clouds))
             concs_t = {g: canon(v) for g, v in concs.items()}
         if lw_route == "megakernel":
-            fb_lw = _allsky_lw_core_mega(lw_m, tab, lw_spec, co_lw, play_t, plev_t, tlay_t,
-                                         tlev_t, tsfc, emis_b, *cld_t, concs_t,
-                                         top_at_1=top_at_1)
+            fb_lw = fused.lw_core(lw_m, tab, lw_spec, play_t, plev_t, tlay_t, tlev_t, tsfc,
+                                  emis_b, concs_t, (co_lw, cld_t), top_at_1=top_at_1)
         else:
             fb_lw = _allsky_lw_core(lw_m, tab, lw_spec, co_lw, play, plev, tlay, tlev, tsfc,
                                     emis_b, *clouds, concs, top_at_1=top_at_1,
                                     n_gauss_angles=1)
         if sw_route == "megakernel":
-            fb_sw = _allsky_sw_core_mega(sw_m, sw_spec, sol, co_sw, play_t, plev_t, tlay_t, mu0,
-                                         alb_b, alb_b, *cld_t, concs_t, top_at_1=top_at_1)
+            fb_sw = fused.sw_core(sw_m, sw_spec, play_t, plev_t, tlay_t, mu0,
+                                  *fused.sw_boundary(sw_spec, sol, alb_b, alb_b), concs_t,
+                                  (co_sw, cld_t), top_at_1=top_at_1)
         else:
             fb_sw = _allsky_sw_core_lay_major(sw_m, sw_spec, sol, co_sw, play, plev, tlay, mu0,
                                               alb_b, alb_b, *clouds, concs, top_at_1=top_at_1)
@@ -485,16 +490,7 @@ def _allsky_jobs(host: dict, body, gas_names, block_size: int, precision: str, m
                   (cloud_col[ix], "f32")]
                  + [(host[f"gas:{g}"][ix], _gas_pack_kind(host[f"gas:{g}"]))
                     for g in gas_names])
-        packed_f, packed_q, qmeta, layout = _pack_columns_mixed(specs)
-        with span("rte.replicate"):
-            qm = replicated(mesh).put(torch.from_numpy(qmeta))
-
-        def step(blk_f, blk_q):
-            fields = _unpack_with_levels(blk_f, blk_q, qm[blk_f.device], layout, dtype)
-            return body(*fields[:9], fields[9:])
-
-        # the codes travel as their int16 bits (the same two bytes)
-        return step, [packed_f, packed_q.view(np.int16)]
+        return _mixed_job(specs, body, 9, mesh, dtype)
 
     all_idx = np.arange(ncol)
     if precision == "mixed":
@@ -576,11 +572,11 @@ def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):
     its route taken; returns (ncol, 2) [olr, surface LW down]."""
     spectral = spectral_for("lw", models, entry="gcm_sweep_lw", accepts=(lw_spectral_g128,),
                             basis=_LW_BASIS)
-    route = _route("gcm_sweep_lw", device, dtype, lw=True, models=models)
+    route = driver_route("gcm_sweep_lw", device=device, dtype=dtype, lw=True, models=models)
     table = PlanckTable.kept(spectral.band_lims_wvn_array, device=mesh.devices[0],
                              dtype=dtype)
     on = replicated(mesh).put((list(models), table))
-    canon = _canon(top_at_1)
+    canon = lambda a: fused.lay_major(a, top_at_1)
     toa, sfc = (0, -1) if top_at_1 else (-1, 0)
 
     def body(play, plev, tlay, tlev, tsfc, emis, gas_vals):
@@ -590,10 +586,9 @@ def _lw_body(models, gas_names, top_at_1: bool, dtype, mesh: Mesh, device):
         concs = _full_concs(gas_names, gas_vals, ncol, nlay)
         emis_b = emis[:, None].expand(ncol, spectral.nband)
         if route == "megakernel":
-            fb = _lw_core_mega4_canon(ms, tab, spectral, canon(play), canon(plev), canon(tlay),
-                                      canon(tlev), tsfc, emis_b,
-                                      {g: canon(v) for g, v in concs.items()},
-                                      top_at_1=top_at_1)
+            fb = fused.lw_core(ms, tab, spectral, canon(play), canon(plev), canon(tlay),
+                               canon(tlev), tsfc, emis_b, {g: canon(v) for g, v in concs.items()},
+                               top_at_1=top_at_1)
         else:
             fb = _lw_core(ms, tab, spectral, play, plev, tlay, tlev, tsfc, emis_b, concs,
                           top_at_1=top_at_1, n_gauss_angles=1)
@@ -638,14 +633,7 @@ def gcm_sweep_lw(
                   (host["tsfc"], "f32"), (host["sfc_emis"], "f32")]
                  + [(host[f"gas:{g}"], _gas_pack_kind(host[f"gas:{g}"]))
                     for g in gas_names])
-        packed_f, packed_q, qmeta, layout = _pack_columns_mixed(specs)
-        qm = replicated(mesh).put(torch.from_numpy(qmeta))
-
-        def step(blk_f, blk_q):
-            fields = _unpack_with_levels(blk_f, blk_q, qm[blk_f.device], layout, dtype)
-            return body(*fields[:6], fields[6:])
-
-        arrays = [packed_f, packed_q.view(np.int16)]
+        step, arrays = _mixed_job(specs, body, 6, mesh, dtype)
     elif precision == "f32":
         step, arrays = _f32_job([host["play"], host["plev"], host["tlay"], host["tlev"],
                                  host["tsfc"], host["sfc_emis"]]

@@ -14,11 +14,12 @@ both drivers take the upstream driver's lookup-table route
 ``rte_sw`` (its own solar source, scaled to each column's TSI). The gases
 it does not name are not read. ``lut_kdist`` checks such a call.
 
-Otherwise the route is taken once per call by ``config.resolve_use_megakernel``:
-  - "megakernel": the fused-kernel cores (``_lw_core_mega4_canon``,
-    ``_sw_core_mega_canon``) on canonical layer-major inputs, which launch
-    the fused CUDA kernels K1/K2 for CUDA tensors (and run their plain
-    twins for CPU tensors);
+Otherwise the route is taken once per call by ``config.driver_route``:
+  - "megakernel": the fused-kernel cores on canonical layer-major inputs
+    (``drivers/fused.py``: ``fused.lw_core``, and ``_sw_core_mega_canon``,
+    RFMIP's SW boundary and night mask around ``fused.sw_core``), which
+    launch the fused CUDA kernels K1/K2 for CUDA tensors (and run their
+    plain twins for CPU tensors);
   - "staged": NN gas optics, then the RTE solvers. LW, with any number of
     Gauss angles, takes the general RTE path (``_lw_core``:
     gas_optics_lw_nn -> rte_lw); SW takes the layer-major core
@@ -38,7 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import cuda_dtype_refusal, resolve_use_megakernel
+from ..config import cuda_dtype_refusal, driver_route
 from ..fluxes import FluxesBroadband
 from ..gas_concs import GasConcs
 from ..gasoptics.kdist import KDist
@@ -63,15 +64,15 @@ from ..gasoptics.planck import (
     sw_spectral_g112,
 )
 from ..models.network import NNModel
-from ..ops.cuda.lw_megakernel import lw_clearsky_mega4, lw_clearsky_mega5
+from ..ops.cuda.lw_megakernel import lw_clearsky_mega5
 from ..ops.cuda.lw_prep import lw_prep
 from ..ops.cuda.lw_solver import lw_broadband_sweeps_kernel
-from ..ops.cuda.sw_megakernel import sw_clearsky_megakernel
 from ..ops.sw_solver import sw_solver_2stream_lay_major
 from ..optical_props import OpticalProps1scl, OpticalProps2str
 from ..rte import rte_lw, rte_sw
 from ..spectral import SpectralMapping
 from ..utils.timing import span
+from . import fused
 from .rfmip_io import RFMIPData
 
 
@@ -155,12 +156,7 @@ def canonicalize_rfmip_inputs(data: RFMIPData, dtype=np.float32):
     numpy arrays, and per-layer (1-D) gas profiles are materialized to 2-D
     (scalars stay scalar). Returns (play_t, plev_t, tlay_t, tlev_t,
     concs_t)."""
-    def canon(a):
-        a = np.asarray(a, dtype)
-        if not data.top_at_1:
-            a = a[:, ::-1]
-        return np.ascontiguousarray(a.T)
-
+    canon = lambda a: fused.lay_major_host(a, data.top_at_1, dtype)
     concs_t = {}
     for name, raw in data.gas_concs.concs.items():
         r = np.asarray(raw, dtype)
@@ -172,52 +168,6 @@ def canonicalize_rfmip_inputs(data: RFMIPData, dtype=np.float32):
             concs_t[name] = canon(r)
     return (canon(data.play), canon(data.plev), canon(data.tlay),
             canon(data.tlev), concs_t)
-
-
-def _stack_lanes(play_t, tlay_t, gas_desc, model):
-    """Scaled lanes stacked to one (nlay, ncol, n2d) tensor, the const
-    block and the lane permutation (compute_nn_inputs_split)."""
-    lanes, const_feats, perm = compute_nn_inputs_split(play_t, tlay_t, gas_desc, model)
-    return torch.stack(lanes, dim=-1), const_feats, perm
-
-
-def lw_mega_args(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
-):
-    """The fused LW kernel's arguments (lw_clearsky_mega4) from canonical
-    layer-major top-at-0 inputs (canonicalize_rfmip_inputs)."""
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gas_desc, models[0])
-    w1a, w1c = split_first_layer(models[0], perm, x2d.shape[-1])
-    return (models[0], x2d, const_feats, w1a, w1c, col_dry, tlay_t, tlev_t, tsfc,
-            planck_table, spectral.gpt2band_tensor(play_t.device),
-            spectral.expand(sfc_emis_band).contiguous())
-
-
-def _lw_core_mega4_canon(
-    models: Sequence[NNModel],
-    planck_table: PlanckTable,
-    spectral: SpectralMapping,
-    play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
-    top_at_1: bool,
-):
-    """LW core through the fused kernel, on canonical layer-major top-at-0
-    inputs (canonicalize_rfmip_inputs); top_at_1 only flips the output."""
-    with span("rte.prep"):
-        args = lw_mega_args(models, planck_table, spectral, play_t, plev_t, tlay_t, tlev_t,
-                            tsfc, sfc_emis_band, concs_t)
-    with span("rte.kernel.lw"):
-        up, dn = lw_clearsky_mega4(*args)
-    # the kernel's inputs are freed before its outputs are flipped and combined
-    del args
-    if not top_at_1:
-        up, dn = up.flip(1), dn.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
 def _conc_shard_spec(concs_t) -> dict:
@@ -278,7 +228,7 @@ def _sharded_core(mesh, run, col_axes, on_device):
 
 
 def lw_mega_core_sharded(mesh, models, planck_table, spectral, top_at_1):
-    """``_lw_core_mega4_canon`` split over the mesh's 'col' axis: each rank
+    """``fused.lw_core`` split over the mesh's 'col' axis: each rank
     (or each device of a one-process mesh) runs the fused LW core, one K1
     launch a call, on its own columns; columns are halo-free, so nothing
     crosses ranks on the hot path. The fused kernel's launch plan does not
@@ -298,7 +248,7 @@ def lw_mega_core_sharded(mesh, models, planck_table, spectral, top_at_1):
 
     def run(on, *args):
         m, table = on
-        fb = _lw_core_mega4_canon(m, table, spectral, *args, top_at_1=top_at_1)
+        fb = fused.lw_core(m, table, spectral, *args, top_at_1=top_at_1)
         return fb.flux_up, fb.flux_dn
 
     return _sharded_core(mesh, run, (1, 1, 1, 1, 0, 0), (list(models), planck_table))
@@ -331,10 +281,9 @@ def lw_mega5_args(
 ):
     """The raw-lane fused LW kernel's arguments (lw_clearsky_mega5) from
     canonical layer-major top-at-0 inputs: no feature is staged, only
-    col_dry and the emissivity expansion precede the kernel."""
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
+    col_dry and the emissivity expansion precede the kernel, made as
+    ``fused.lw_args`` makes them."""
+    gas_desc, col_dry = fused.gas_columns(play_t, plev_t, concs_t)
     lanes, const_feats, perm, tf_codes, scale_rows = compute_nn_inputs_split(
         play_t, tlay_t, gas_desc, models[0], raw_lanes=True)
     if models[0].input_names[perm[0]] != "tlay":
@@ -342,9 +291,8 @@ def lw_mega5_args(
                          f"(got {models[0].input_names[perm[0]]!r})")
     w1a, w1c = split_first_layer(models[0], perm, len(lanes))
     return (models[0], [l.contiguous() for l in lanes], tf_codes, scale_rows, const_feats,
-            w1a, w1c, col_dry, tlev_t, tsfc, planck_table,
-            spectral.gpt2band_tensor(play_t.device),
-            spectral.expand(sfc_emis_band).contiguous())
+            w1a, w1c, col_dry,
+            *fused.lw_tail(planck_table, spectral, tlev_t, tsfc, sfc_emis_band))
 
 
 def _lw_core_mega5_canon(
@@ -354,13 +302,11 @@ def _lw_core_mega5_canon(
     play_t, plev_t, tlay_t, tlev_t, tsfc, sfc_emis_band, concs_t,
     top_at_1: bool,
 ):
-    """_lw_core_mega4_canon through the fused kernel's raw-lane mode."""
+    """``fused.lw_core`` through the fused kernel's raw-lane mode."""
     up, dn = lw_clearsky_mega5(*lw_mega5_args(
         models, planck_table, spectral, play_t, plev_t, tlay_t, tlev_t, tsfc,
         sfc_emis_band, concs_t))
-    if not top_at_1:
-        up, dn = up.flip(1), dn.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+    return fused.fluxes(top_at_1, up, dn, None)
 
 
 def _lw_core_mega5(
@@ -373,7 +319,7 @@ def _lw_core_mega5(
     """Column-major front of _lw_core_mega5_canon: flips to top-at-0 and
     transposes on the device."""
     ncol, nlay = play.shape
-    canon = lambda a: (a if top_at_1 else a.flip(1)).T.contiguous()
+    canon = lambda a: fused.lay_major(a, top_at_1)
     gd_t = _to_lay_major(GasConcs(concs_dict), ncol, nlay, top_at_1)
     concs_t = {k: v.contiguous() for k, v in gd_t.concs.items()}
     return _lw_core_mega5_canon(
@@ -437,7 +383,7 @@ def _lw_core_prep(
     orientation. No driver routes to it, in the JAX package neither: tests
     and benchmarks call it."""
     ncol, nlay = play.shape
-    canon = lambda a: (a if top_at_1 else a.flip(1)).T.contiguous()
+    canon = lambda a: fused.lay_major(a, top_at_1)
     play_t, plev_t, tlay_t, tlev_t = canon(play), canon(plev), canon(tlay), canon(tlev)
     gd_t = _to_lay_major(GasConcs(concs_dict), ncol, nlay, top_at_1)
     col_dry = get_col_dry_lay_major(gd_t.get_raw("h2o"), plev_t).contiguous()
@@ -448,22 +394,17 @@ def _lw_core_prep(
         planck_table.interpolate(tsfc), spectral.gpt2band_tensor(play.device))
     sol = lw_broadband_sweeps_kernel(trans, src_dn, src_up,
                                      spectral.expand(sfc_emis_band).contiguous(), sfc_src)
-    up, dn = sol.flux_up, sol.flux_dn
-    if not top_at_1:
-        up, dn = up.flip(1), dn.flip(1)
-    return FluxesBroadband(flux_up=up, flux_dn=dn, flux_net=dn - up)
+    return fused.fluxes(top_at_1, sol.flux_up, sol.flux_dn, None)
 
 
-def _sw_masked(up, dn, dn_dir, usecol, top_at_1):
-    """Flip to the caller's orientation and zero the night columns."""
-    if not top_at_1:
-        up, dn, dn_dir = up.flip(1), dn.flip(1), dn_dir.flip(1)
+def _sw_masked(fb: FluxesBroadband, usecol) -> FluxesBroadband:
+    """``fb`` with the night columns zeroed."""
     mask = usecol[:, None]
     return FluxesBroadband(
-        flux_up=torch.where(mask, up, 0.0),
-        flux_dn=torch.where(mask, dn, 0.0),
-        flux_net=torch.where(mask, dn - up, 0.0),
-        flux_dn_dir=torch.where(mask, dn_dir, 0.0),
+        flux_up=torch.where(mask, fb.flux_up, 0.0),
+        flux_dn=torch.where(mask, fb.flux_dn, 0.0),
+        flux_net=torch.where(mask, fb.flux_net, 0.0),
+        flux_dn_dir=torch.where(mask, fb.flux_dn_dir, 0.0),
     )
 
 
@@ -478,20 +419,14 @@ def _sw_boundary(solar_source, tsi, sfc_alb, mu0, usecol):
     return toa_src, alb_gpt, torch.where(usecol, mu0, 1.0)
 
 
-def sw_mega_args(
-    models: Sequence[NNModel],
-    solar_source,
-    play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t,
-):
-    """The fused SW kernel's arguments (sw_clearsky_megakernel) from
-    canonical layer-major top-at-0 inputs. Night columns get mu0 = 1."""
-    gas_desc = GasConcs(concs_t)
-    nlay, ncol = play_t.shape
-    col_dry_t = get_col_dry_lay_major(gas_desc.get_vmr("h2o", nlay, ncol), plev_t)
-    x2d, const_feats, perm = _stack_lanes(play_t, tlay_t, gas_desc, models[0])
+def sw_fused_inputs(solar_source, play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t):
+    """``fused.sw_args``' inputs after its spectral mapping from the fused
+    SW core's (``sw_canonical_inputs``), with RFMIP's boundary
+    (``_sw_boundary``): (play_t, plev_t, tlay_t, mu0 with night columns at
+    1, the TOA source renormalized to each column's TSI, the albedo per
+    g-point twice, concs_t)."""
     toa_src, alb_gpt, mu0_safe = _sw_boundary(solar_source, tsi, sfc_alb, mu0, usecol)
-    return (models[0], models[1], x2d, const_feats, perm, col_dry_t, mu0_safe,
-            toa_src * mu0_safe[:, None], alb_gpt, alb_gpt)
+    return play_t, plev_t, tlay_t, mu0_safe, toa_src, alb_gpt, alb_gpt, concs_t
 
 
 def _sw_core_mega_canon(
@@ -500,17 +435,13 @@ def _sw_core_mega_canon(
     play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t,
     top_at_1: bool,
 ):
-    """SW core through the fused kernel, on canonical layer-major top-at-0
-    inputs. Night columns enter the kernel with mu0 = 1 and leave with
-    zeroed fluxes."""
+    """SW core through the fused kernel (``fused.sw_core``), on canonical
+    layer-major top-at-0 inputs. Night columns enter the kernel with mu0 =
+    1 and leave with zeroed fluxes."""
     with span("rte.prep"):
-        args = sw_mega_args(models, solar_source, play_t, plev_t, tlay_t, sfc_alb, mu0,
-                            usecol, tsi, concs_t)
-    with span("rte.kernel.sw"):
-        up, dn, dn_dir = sw_clearsky_megakernel(*args)
-    # the kernel's inputs are freed before its outputs are flipped and combined
-    del args
-    return _sw_masked(up, dn, dn_dir, usecol, top_at_1)
+        inputs = sw_fused_inputs(solar_source, play_t, plev_t, tlay_t, sfc_alb, mu0, usecol,
+                                 tsi, concs_t)
+    return _sw_masked(fused.sw_core(models, None, *inputs, top_at_1=top_at_1), usecol)
 
 
 def _sw_core_lay_major(
@@ -531,7 +462,7 @@ def _sw_core_lay_major(
     toa_src, alb_gpt, mu0_safe = _sw_boundary(solar_source, tsi, sfc_alb, mu0, usecol)
     sol = sw_solver_2stream_lay_major(tau, ssa, torch.zeros_like(tau), mu0_safe,
                                       toa_src, alb_gpt, alb_gpt)
-    return _sw_masked(sol.flux_up, sol.flux_dn, sol.flux_dn_dir, usecol, top_at_1)
+    return _sw_masked(fused.fluxes(top_at_1, sol.flux_up, sol.flux_dn, sol.flux_dn_dir), usecol)
 
 
 def _sw_core(
@@ -557,7 +488,7 @@ def _sw_core(
     sol = rte_sw(optics, top_at_1, mu0_safe, toa_src, alb_gpt, alb_gpt, scan_mode=scan_mode,
                  broadband=True)
     # rte_sw returns the caller's orientation: nothing to flip
-    return _sw_masked(sol.flux_up, sol.flux_dn, sol.flux_dn_dir, usecol, top_at_1=True)
+    return _sw_masked(fused.fluxes(True, sol.flux_up, sol.flux_dn, sol.flux_dn_dir), usecol)
 
 
 def _emis_band(data: RFMIPData, spectral: SpectralMapping, device, dtype):
@@ -702,11 +633,9 @@ def rfmip_clear_sky_lw(
             if kd is None:
                 spectral = spectral_for("lw", models, entry="rfmip_clear_sky_lw",
                                         accepts=(lw_spectral_g128,), spectral=spectral)
-                route = resolve_use_megakernel(lw=True, models=models, device=device,
-                                               dtype=dtype, n_gauss_angles=n_gauss_angles,
-                                               scan_mode=scan_mode)
-                if route.kind == "refuse":
-                    raise NotImplementedError(f"rfmip_clear_sky_lw: {route.reason}")
+                route = driver_route("rfmip_clear_sky_lw", lw=True, models=models,
+                                     device=device, dtype=dtype,
+                                     n_gauss_angles=n_gauss_angles, scan_mode=scan_mode)
         if kd is not None:
             return _lw_core(kd, None, kd.spectral,
                             *lw_staged_inputs(_lut_data(data, kd), kd.spectral, device, dtype),
@@ -717,10 +646,10 @@ def rfmip_clear_sky_lw(
                                             dtype=dtype)
         else:
             planck_table = planck_table.to(device)
-        if route.kind == "megakernel":
-            return _lw_core_mega4_canon(
-                models, planck_table, spectral,
-                *lw_canonical_inputs(data, spectral, device, dtype), top_at_1=data.top_at_1)
+        if route == "megakernel":
+            return fused.lw_core(models, planck_table, spectral,
+                                 *lw_canonical_inputs(data, spectral, device, dtype),
+                                 top_at_1=data.top_at_1)
         return _lw_core(models, planck_table, spectral,
                         *lw_staged_inputs(data, spectral, device, dtype),
                         top_at_1=data.top_at_1, n_gauss_angles=n_gauss_angles,
@@ -757,11 +686,9 @@ def rfmip_clear_sky_sw(
             if kd is None:
                 spectral = spectral_for("sw", models, entry="rfmip_clear_sky_sw",
                                         accepts=(sw_spectral_g112,), spectral=spectral)
-                route = resolve_use_megakernel(models=models, device=device, dtype=dtype,
-                                               scan_mode=scan_mode)
-                if route.kind == "refuse":
-                    raise NotImplementedError(f"rfmip_clear_sky_sw: {route.reason}")
-                if route.kind == "megakernel":
+                route = driver_route("rfmip_clear_sky_sw", models=models, device=device,
+                                     dtype=dtype, scan_mode=scan_mode)
+                if route == "megakernel":
                     _check_sw_scaling(models)
         if kd is not None:
             with span("rte.solar"):
@@ -770,7 +697,7 @@ def rfmip_clear_sky_sw(
                             *sw_staged_inputs(_lut_data(data, kd), device, dtype),
                             top_at_1=data.top_at_1, scan_mode=scan_mode)
         solar = solar_source_on(spectral, kdist, solar_source, device, dtype)
-        if route.kind == "megakernel":
+        if route == "megakernel":
             return _sw_core_mega_canon(models, solar, *sw_canonical_inputs(data, device, dtype),
                                        top_at_1=data.top_at_1)
         if scan_mode == "sequential":

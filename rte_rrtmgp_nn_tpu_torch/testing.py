@@ -768,7 +768,8 @@ def allsky_pair_setup(directory: str, width: str = "128_128", ncol: int = 1800, 
     iwp, rel, rei, column-major), and the all-sky cores' inputs after their
     nets, table or source, spectral mapping and cloud optics: "lw_staged",
     "sw_staged" (column-major, top at index 0) and "lw_canon", "sw_canon"
-    (the fused cores' layer-major ones). Call them through allsky_pair_cores."""
+    (the layer-major inputs of the JAX package's fused cores; the port's
+    are allsky_pair_fused). Call them through allsky_pair_cores."""
     import os
 
     import torch
@@ -829,6 +830,24 @@ ALLSKY_PAIR_CORES = ("lw_fused", "lw_staged", "lw_lay_major", "sw_fused", "sw_st
                      "sw_parallel")
 
 
+def allsky_pair_fused(p: dict, band: str, flavour: str) -> tuple:
+    """The positional arguments of ``fused.lw_args`` / ``lw_core``
+    (``band`` "lw") or ``fused.sw_args`` / ``sw_core`` ("sw"), clouds last,
+    on the problem ``p`` (allsky_pair_setup) with ``flavour`` cloud optics:
+    the SW boundary as the all-sky drivers pose it (``fused.sw_boundary``)."""
+    from .drivers import fused
+
+    play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t, concs_t = p["lw_canon"]
+    clouds = (p["cloud"][f"{band}_{flavour}"], tuple(cld_t))
+    if band == "lw":
+        return (p["lw_models"], p["table"], p["lw_spectral"], play_t, plev_t, tlay_t, tlev_t,
+                tsfc, emis, concs_t, clouds)
+    _, _, _, mu0, alb_dir, alb_dif, *_ = p["sw_canon"]
+    spectral = p["sw"]["spectral"]
+    return (p["sw"]["models"], spectral, play_t, plev_t, tlay_t, mu0,
+            *fused.sw_boundary(spectral, p["solar"], alb_dir, alb_dif), concs_t, clouds)
+
+
 def allsky_pair_cores(p: dict, flavour: str) -> dict:
     """The all-sky cores of both bands on the problem ``p``
     (allsky_pair_setup) with ``flavour`` ("lut" or "pade") cloud optics, as
@@ -838,19 +857,18 @@ def allsky_pair_cores(p: dict, flavour: str) -> dict:
     layer-major LW core (PyTorch sweeps: the CPU oracle), "sw_staged" the
     layer-major SW core (K5, then the PyTorch sweeps), "sw_parallel" the
     general SW core with the log-depth adding."""
-    from .drivers import allsky
+    from .drivers import allsky, fused
 
     lw_m, sw_m = p["lw_models"], p["sw"]["models"]
     lw_head = (lw_m, p["table"], p["lw_spectral"], p["cloud"][f"lw_{flavour}"])
     sw_head = (sw_m, p["sw"]["spectral"], p["solar"], p["cloud"][f"sw_{flavour}"])
     return {
-        "lw_fused": lambda: allsky._allsky_lw_core_mega(*lw_head, *p["lw_canon"],
-                                                        top_at_1=True),
+        "lw_fused": lambda: fused.lw_core(*allsky_pair_fused(p, "lw", flavour), top_at_1=True),
         "lw_staged": lambda: allsky._allsky_lw_core(*lw_head, *p["lw_staged"], top_at_1=True,
                                                     n_gauss_angles=1),
         "lw_lay_major": lambda: allsky._allsky_lw_core_lay_major(*lw_head, *p["lw_staged"],
                                                                  top_at_1=True),
-        "sw_fused": lambda: allsky._allsky_sw_core_mega(*sw_head, *p["sw_canon"], top_at_1=True),
+        "sw_fused": lambda: fused.sw_core(*allsky_pair_fused(p, "sw", flavour), top_at_1=True),
         "sw_staged": lambda: allsky._allsky_sw_core_lay_major(*sw_head, *p["sw_staged"],
                                                               top_at_1=True),
         "sw_parallel": lambda: allsky._allsky_sw_core(*sw_head, *p["sw_staged"], top_at_1=True,
@@ -859,8 +877,8 @@ def allsky_pair_cores(p: dict, flavour: str) -> dict:
 
 
 def without_clouds(kw: dict) -> dict:
-    """A fused kernel's cloud keywords (allsky_lw_mega_args /
-    allsky_sw_mega_args) with every cloud field set to 0."""
+    """A fused kernel's cloud keywords (fused.lw_args / fused.sw_args)
+    with every cloud field set to 0."""
     import torch
 
     z = lambda v: torch.zeros_like(v) if torch.is_tensor(v) else tuple(map(torch.zeros_like, v))

@@ -40,7 +40,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_k1_exp: no CUDA device", file=sys.stderr)
         return 1
-    from rte_rrtmgp_nn_tpu_torch.drivers import gcm, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, gcm, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics import planck
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -77,8 +77,9 @@ def main() -> int:
         arrays["gases"] = {k[4:]: v if v.ndim == 2 else np.repeat(v[:, None], nlay, axis=1)
                            for k, v in host.items() if k.startswith("gas:")}
         arrays["top_at_1"] = True
-        args = list(rfmip.lw_mega_args([lw_model], table, lw_spec, *rfmip.lw_canonical_inputs(
-            rfmip_data_from_arrays(arrays), lw_spec, dev)))
+        args, _ = fused.lw_args([lw_model], table, lw_spec, *rfmip.lw_canonical_inputs(
+            rfmip_data_from_arrays(arrays), lw_spec, dev))
+        args = list(args)
         a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
         a64[0] = float64_copy(lw_model)
         a64[9] = planck.PlanckTable(table.totplnk.double(), table.totplnk_diff.double(),

@@ -81,7 +81,7 @@ def main(argv) -> int:
     if opts.device == "cuda" and not torch.cuda.is_available():
         print("probe_lw_float32_ops: no CUDA device", file=sys.stderr)
         return 1
-    from rte_rrtmgp_nn_tpu_torch.drivers import gcm, rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, gcm, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics import planck
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -106,8 +106,8 @@ def main(argv) -> int:
         data = rfmip_data_from_arrays(arrays)
         table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
         model = load_model_netcdf(LW_MODEL, device=dev)
-        return list(rfmip.lw_mega_args([model], table, spec,
-                                       *rfmip.lw_canonical_inputs(data, spec, dev)))
+        args, _ = fused.lw_args([model], table, spec, *rfmip.lw_canonical_inputs(data, spec, dev))
+        return list(args)
 
     def to64(args):
         a = [x.double() if torch.is_tensor(x) and x.is_floating_point() else x for x in args]

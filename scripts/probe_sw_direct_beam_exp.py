@@ -74,7 +74,7 @@ def exp_in_float64(psw):
 
 
 def column_slices(args, a: int, b: int) -> list:
-    """The SW kernel's arguments (rfmip.sw_mega_args) for columns [a, b),
+    """The SW kernel's arguments (fused.sw_args) for columns [a, b),
     contiguous as the kernel takes them."""
     (am, rm, x2d, cf, perm, col_dry, mu0, inc, alb_dir, alb_dif) = args
     c = lambda t: t.contiguous()
@@ -99,7 +99,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     from rte_rrtmgp_nn_tpu_torch import testing
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -113,7 +113,7 @@ def main() -> int:
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spectral_g112()), dtype=f32, device=dev)
     data = rfmip_data_from_arrays(testing.synthesize_rfmip(args.ncol, NLAY, SEED))
     sw_in = rfmip.sw_canonical_inputs(data, dev)
-    kargs = rfmip.sw_mega_args([model, model], solar, *sw_in)
+    kargs = fused.sw_args([model, model], None, *rfmip.sw_fused_inputs(solar, *sw_in))[0]
     usecol = sw_in[5]
     print(f"probe_sw_direct_beam_exp: {args.ncol} x {NLAY} x {model.n_outputs}, "
           f"{int(usecol.sum())} day columns | {card}")

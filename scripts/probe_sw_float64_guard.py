@@ -35,7 +35,7 @@ def main() -> int:
         print("probe_sw_float64_guard: no CUDA device", file=sys.stderr)
         return 1
     from rte_rrtmgp_nn_tpu_torch.config import config
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -52,7 +52,9 @@ def main() -> int:
 
     def sw_args(ncol, nlay, seed):
         data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed))
-        return list(rfmip.sw_mega_args([model, model], solar, *rfmip.sw_canonical_inputs(data, dev)))
+        sw_in = rfmip.sw_canonical_inputs(data, dev)
+        args, _ = fused.sw_args([model, model], None, *rfmip.sw_fused_inputs(solar, *sw_in))
+        return list(args)
 
     resonance = sw_args(6, 20, 3)
     resonance[6] = (1.0 / math.sqrt(1.75) + torch.linspace(-2e-4, 2e-4, 6, device=dev)).float()

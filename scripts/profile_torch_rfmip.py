@@ -43,7 +43,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_rfmip: no CUDA device", file=sys.stderr)
         return 1
-    from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
     from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
     from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g128, sw_spectral_g112
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -83,7 +83,7 @@ def main() -> int:
     sw_gen_in = rfmip.sw_staged_inputs(data, dev)
 
     def fused_cores():
-        rfmip._lw_core_mega4_canon([lw_model], table, lw_spec, *lw_in, top_at_1=True)
+        fused.lw_core([lw_model], table, lw_spec, *lw_in, top_at_1=True)
         rfmip._sw_core_mega_canon([sw_model, sw_model], solar, *sw_in, top_at_1=True)
 
     def general_cores():

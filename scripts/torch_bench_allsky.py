@@ -16,8 +16,8 @@ inputs with CUDA events; ``*_ms_percall`` the drivers ``allsky_lw`` /
 the inputs copied at every call, as a run of the example does).
 
 Routes (``--core``): ``auto`` is the drivers' dispatch: on CUDA
-``_allsky_lw_core_mega`` / ``_allsky_sw_core_mega`` (K1 and K2 in their
-lookup-table cloud mode, once a call), on the CPU the staged cores;
+``fused.lw_core`` / ``fused.sw_core`` (K1 and K2 in their lookup-table
+cloud mode, once a call), on the CPU the staged cores;
 ``mega`` the fused cores anywhere; ``staged`` ``_allsky_lw_core_lay_major``
 (K3 + K7) and ``_allsky_sw_core_lay_major`` (K5 + the PyTorch sweeps).
 
@@ -51,7 +51,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from rte_rrtmgp_nn_tpu_torch import testing  # noqa: E402
-from rte_rrtmgp_nn_tpu_torch.drivers import allsky  # noqa: E402
+from rte_rrtmgp_nn_tpu_torch.drivers import allsky, fused  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils import bench, cli  # noqa: E402
 from rte_rrtmgp_nn_tpu_torch.utils.ncio import write_nc  # noqa: E402
@@ -113,18 +113,18 @@ def core_calls(routes, lw_models, sw_models, specs: dict, paths, ncol: int, dev)
     if "staged" in routes:
         (play, plev, tlay, tlev, *cld), concs = allsky._staged_tensors(atm, clouds, dev, f32)
     if routes[0] == "mega":
-        lw = lambda: allsky._allsky_lw_core_mega(
-            lw_models, table, lw_spec, co_lw, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, *cld_t,
-            concs_t, top_at_1=top)
+        lw = lambda: fused.lw_core(
+            lw_models, table, lw_spec, play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t,
+            (co_lw, cld_t), top_at_1=top)
     else:
         lw = lambda: allsky._allsky_lw_core_lay_major(
             lw_models, table, lw_spec, co_lw, play, plev, tlay, tlev, tsfc, emis, *cld, concs,
             top_at_1=top)
     if routes[1] == "mega":
         allsky._check_sw_scaling(sw_models)
-        sw = lambda: allsky._allsky_sw_core_mega(
-            sw_models, sw_spec, solar, co_sw, play_t, plev_t, tlay_t, mu0, alb, alb, *cld_t,
-            concs_t, top_at_1=top)
+        sw = lambda: fused.sw_core(
+            sw_models, sw_spec, play_t, plev_t, tlay_t, mu0,
+            *fused.sw_boundary(sw_spec, solar, alb, alb), concs_t, (co_sw, cld_t), top_at_1=top)
     else:
         sw = lambda: allsky._allsky_sw_core_lay_major(
             sw_models, sw_spec, solar, co_sw, play, plev, tlay, mu0, alb, alb, *cld, concs,

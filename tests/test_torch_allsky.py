@@ -20,6 +20,7 @@ from rte_rrtmgp_nn_tpu.gasoptics import planck as jplanck
 from rte_rrtmgp_nn_tpu_torch.config import config_override as pco
 from rte_rrtmgp_nn_tpu_torch.config import resolve_use_megakernel
 from rte_rrtmgp_nn_tpu_torch.drivers import allsky as pallsky
+from rte_rrtmgp_nn_tpu_torch.drivers import fused
 from rte_rrtmgp_nn_tpu_torch.drivers import rfmip as prfmip
 from rte_rrtmgp_nn_tpu_torch.gasoptics import planck as pplanck
 from rte_rrtmgp_nn_tpu_torch.models.network import nn_model_from_arrays
@@ -84,9 +85,9 @@ def test_allsky_lw_cores_match_jax(tmp_path, models, core, flavour, top_at_1):
         ref = jallsky._allsky_lw_core_mega(
             jm, jt, jspec, jc, j(play_t), j(plev_t), j(tlay_t), j(tlev_t), j(tsfc), j(emis),
             *map(j, cld_t), {k: j(v) for k, v in concs_t.items()}, top_at_1=top_at_1, tile_c=8)
-        got = pallsky._allsky_lw_core_mega(
-            pm, pt, pspec, pc, t(play_t), t(plev_t), t(tlay_t), t(tlev_t), t(tsfc), t(emis),
-            *map(t, cld_t), {k: t(v) for k, v in concs_t.items()}, top_at_1=top_at_1)
+        got = fused.lw_core(
+            pm, pt, pspec, t(play_t), t(plev_t), t(tlay_t), t(tlev_t), t(tsfc), t(emis),
+            {k: t(v) for k, v in concs_t.items()}, (pc, tuple(map(t, cld_t))), top_at_1=top_at_1)
     else:
         concs = {k: np.asarray(v) for k, v in atm.gas_concs.concs.items()}
         jargs = (jm, jt, jspec, jc, *map(j, (atm.play, atm.plev, atm.tlay, atm.tlev, tsfc, emis)),
@@ -121,9 +122,10 @@ def test_allsky_sw_cores_match_jax(tmp_path, models, core, flavour, top_at_1):
         ref = jallsky._allsky_sw_core_mega(
             jm, jspec, j(solar), jc, j(play_t), j(plev_t), j(tlay_t), j(mu0), j(alb), j(alb),
             *map(j, cld_t), {k: j(v) for k, v in concs_t.items()}, top_at_1=top_at_1, tile_c=8)
-        got = pallsky._allsky_sw_core_mega(
-            pm, pspec, t(solar), pc, t(play_t), t(plev_t), t(tlay_t), t(mu0), t(alb), t(alb),
-            *map(t, cld_t), {k: t(v) for k, v in concs_t.items()}, top_at_1=top_at_1)
+        got = fused.sw_core(
+            pm, pspec, t(play_t), t(plev_t), t(tlay_t), t(mu0),
+            *fused.sw_boundary(pspec, t(solar), t(alb), t(alb)),
+            {k: t(v) for k, v in concs_t.items()}, (pc, tuple(map(t, cld_t))), top_at_1=top_at_1)
     else:
         concs = {k: np.asarray(v) for k, v in atm.gas_concs.concs.items()}
         jargs = (jm, jspec, j(solar), jc, *map(j, (atm.play, atm.plev, atm.tlay, mu0, alb, alb)),

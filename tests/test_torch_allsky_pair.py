@@ -36,6 +36,7 @@ from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist as jload_kdist
 from rte_rrtmgp_nn_tpu_torch import testing as T
 from rte_rrtmgp_nn_tpu_torch.config import config_override as pco
 from rte_rrtmgp_nn_tpu_torch.drivers import allsky as pallsky
+from rte_rrtmgp_nn_tpu_torch.drivers import fused
 from rte_rrtmgp_nn_tpu_torch.drivers import gcm as pgcm
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
 from rte_rrtmgp_nn_tpu_torch.ops import sw_solver as psw
@@ -175,8 +176,7 @@ def test_staged_coefficients_equal_the_twins_bit_for_bit_under_clouds(problems, 
     equal K2 twin's bit for bit on the same tau, ssa, g and mu0: the
     layer-major broadband route and the column-major spectral route."""
     p = problems[0]()
-    args, kw = pallsky.allsky_sw_mega_args(p["sw"]["models"], p["sw"]["spectral"], p["solar"],
-                                           p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
+    args, kw = fused.sw_args(*T.allsky_pair_fused(p, "sw", flavour))
     taken = []
     _spy(monkeypatch, k2, "pifm_coefficients", taken)
     k2.sw_clearsky_megakernel_plain(*args, **kw)
@@ -203,16 +203,14 @@ def test_cloud_modes_without_clouds_give_the_clear_sky_fluxes(problems, monkeypa
     field 0 gives the clear mode's fluxes within 1e-3 W/m2 (the combine's
     float32 rounding), and K1's twin on the 64-wide net the same."""
     p = problems[0]()
-    sargs, skw = pallsky.allsky_sw_mega_args(p["sw"]["models"], p["sw"]["spectral"], p["solar"],
-                                             p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
+    sargs, skw = fused.sw_args(*T.allsky_pair_fused(p, "sw", flavour))
     taken = []
     _spy(monkeypatch, k2, "pifm_coefficients", taken)
     clear = k2.sw_clearsky_megakernel_plain(*sargs)
     assert bool((taken[0][0][0] < k2.CLD_EPS).any())  # cells under the guard
     got = k2.sw_clearsky_megakernel_plain(*sargs, **T.without_clouds(skw))
     assert max(float((a - b).abs().max()) for a, b in zip(got, clear)) <= 1e-3
-    largs, lkw = pallsky.allsky_lw_mega_args(p["lw_models"], p["table"], p["lw_spectral"],
-                                             p["cloud"][f"lw_{flavour}"], *p["lw_canon"])
+    largs, lkw = fused.lw_args(*T.allsky_pair_fused(p, "lw", flavour))
     got = k1.lw_clearsky_mega4_plain(*largs, **T.without_clouds(lkw))
     clear = k1.lw_clearsky_mega4_plain(*largs)
     assert max(float((a - b).abs().max()) for a, b in zip(got, clear)) <= 1e-3

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
 from rte_rrtmgp_nn_tpu_torch.gasoptics import planck
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -60,8 +60,8 @@ def _lw_args(dev, ncol, nlay, seed):
     spec = planck.lw_spectral_g128()
     data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed))
     table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
-    return rfmip.lw_mega_args([load_model_netcdf(LW_MODEL, device=dev)], table, spec,
-                              *rfmip.lw_canonical_inputs(data, spec, dev))
+    return fused.lw_args([load_model_netcdf(LW_MODEL, device=dev)], table, spec,
+                         *rfmip.lw_canonical_inputs(data, spec, dev))[0]
 
 
 def _sw_args(dev, ncol, nlay, seed):
@@ -69,7 +69,8 @@ def _sw_args(dev, ncol, nlay, seed):
     data = rfmip_data_from_arrays(synthesize_rfmip(ncol, nlay, seed))
     model = load_model_netcdf(SW_MODEL, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32, device=dev)
-    return rfmip.sw_mega_args([model, model], solar, *rfmip.sw_canonical_inputs(data, dev))
+    return fused.sw_args([model, model], None,
+                         *rfmip.sw_fused_inputs(solar, *rfmip.sw_canonical_inputs(data, dev)))[0]
 
 
 # nlay 13 is not a multiple of the rows the kernels' MLP takes per pass
@@ -426,17 +427,18 @@ def test_sw_routes_on_the_real_pair_match_twin_and_float64(dev, tmp_path):
     kw = dict(spectral=pair["spectral"], solar_source=pair["solar"])
     ref = rfmip.rfmip_clear_sky_sw(data, pair64["models"], dtype=f64, device=cpu, **kw)
     solar = torch.as_tensor(pair["solar"], dtype=torch.float32, device=dev)
-    args = rfmip.sw_mega_args(pair["models"], solar, *rfmip.sw_canonical_inputs(data, dev))
+    args, _ = fused.sw_args(pair["models"], None,
+                            *rfmip.sw_fused_inputs(solar, *rfmip.sw_canonical_inputs(data, dev)))
     n2, n5 = k2.LAUNCHES, mlp.LAUNCHES["fused_predict_sw"]
     got = k2.sw_clearsky_megakernel(*args)
-    fused = rfmip.rfmip_clear_sky_sw(data, pair["models"], device=dev, **kw)
+    fb_fused = rfmip.rfmip_clear_sky_sw(data, pair["models"], device=dev, **kw)
     with config_override(use_megakernel=False):
         staged = rfmip.rfmip_clear_sky_sw(data, pair["models"], device=dev, **kw)
     torch.cuda.synchronize()
     assert (k2.LAUNCHES - n2, mlp.LAUNCHES["fused_predict_sw"] - n5) == (2, 1)
     for a, b in zip(got, k2.sw_clearsky_megakernel_plain(*args)):
         assert _maxabs(a, b) <= SW_ATOL
-    for fb in (fused, staged):
+    for fb in (fb_fused, staged):
         for n in ("flux_up", "flux_dn", "flux_dn_dir"):
             err = (getattr(fb, n).double().cpu() - getattr(ref, n)).abs().amax(1)
             assert float(err.max()) <= SW_ATOL, (n, int(err.argmax()), float(err.max()))
@@ -455,16 +457,13 @@ def test_cloud_modes_at_real_net_shapes_match_twins_and_float64(dev, tmp_path, w
     cores within LW 2e-3 / SW 2e-2 W/m2 of the port's float64 CPU run in
     every column."""
     from rte_rrtmgp_nn_tpu_torch import testing
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
 
     cpu, f64 = torch.device("cpu"), torch.float64
     mode = {"lut": "cld_lut", "pade": "cld_bands"}[flavour]
     p = testing.allsky_pair_setup(str(tmp_path), width, 300, 60, 0, dev)
     p64 = testing.allsky_pair_setup(str(tmp_path), width, 300, 60, 0, cpu, f64)
-    sargs, skw = allsky.allsky_sw_mega_args(p["sw"]["models"], p["sw"]["spectral"], p["solar"],
-                                            p["cloud"][f"sw_{flavour}"], *p["sw_canon"])
-    largs, lkw = allsky.allsky_lw_mega_args(p["lw_models"], p["table"], p["lw_spectral"],
-                                            p["cloud"][f"lw_{flavour}"], *p["lw_canon"])
+    sargs, skw = fused.sw_args(*testing.allsky_pair_fused(p, "sw", flavour))
+    largs, lkw = fused.lw_args(*testing.allsky_pair_fused(p, "lw", flavour))
     for kernel, plain, args, kw, tol in (
             (k2.sw_clearsky_megakernel, k2.sw_clearsky_megakernel_plain, sargs, skw, SW_ATOL),
             (k1.lw_clearsky_mega4, k1.lw_clearsky_mega4_plain, largs, lkw, LW_ATOL)):
@@ -513,15 +512,15 @@ def _allsky_args(dev, ncol, nlay, seed, flavour):
     cld = allsky.cloud_fields_lay_major(d["play"], d["tlay"], lw_co, True, dev)
     table = planck.PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev)
     lw_in = rfmip.lw_canonical_inputs(data, lw_spec, dev)
-    lw = allsky.allsky_lw_mega_args([load_model_netcdf(LW_MODEL, device=dev)], table, lw_spec,
-                                    lw_co, *lw_in[:6], *cld, lw_in[6])
+    lw = fused.lw_args([load_model_netcdf(LW_MODEL, device=dev)], table, lw_spec, *lw_in,
+                       (lw_co, cld))
     play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, dev)
     sw_model = load_model_netcdf(SW_MODEL, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spec), dtype=torch.float32, device=dev)
     mu0 = torch.full((ncol,), 0.86, device=dev)
     alb = torch.full((ncol, sw_spec.nband), 0.06, device=dev)
-    sw = allsky.allsky_sw_mega_args([sw_model, sw_model], sw_spec, solar, sw_co, play_t, plev_t,
-                                    tlay_t, mu0, alb, alb, *cld, concs_t)
+    sw = fused.sw_args([sw_model, sw_model], sw_spec, play_t, plev_t, tlay_t, mu0,
+                       *fused.sw_boundary(sw_spec, solar, alb, alb), concs_t, (sw_co, cld))
     return lw, sw, float(((cld[0] > 0) | (cld[1] > 0)).float().mean())
 
 
@@ -621,7 +620,7 @@ def test_lane_modes_match_twins(dev, ncol, nlay):
     got = k1.lw_clearsky_mega5(*args5)
     torch.cuda.synchronize()
     assert (k1.LAUNCHES, k1.MODE_LAUNCHES["lanes"]) == (n + 1, nm + 1)
-    stacked = k1.lw_clearsky_mega4(*rfmip.lw_mega_args([model], table, spec, *lw_in))
+    stacked = k1.lw_clearsky_mega4(*fused.lw_args([model], table, spec, *lw_in)[0])
     for a, b, c in zip(got, k1.lw_clearsky_mega5_plain(*args5), stacked):
         assert tuple(a.shape) == (ncol, nlay + 1)
         assert _maxabs(a, b) <= LW_ATOL and _maxabs(a, c) <= LW_ATOL
@@ -1101,7 +1100,7 @@ def test_k1_on_gcm_columns_within_lw_atol_of_float64(dev, nlay):
     spec = planck.lw_spectral_g128()
     table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     model = load_model_netcdf(LW_MODEL, device=dev)
-    args = rfmip.lw_mega_args([model], table, spec, *rfmip.lw_canonical_inputs(data, spec, dev))
+    args, _ = fused.lw_args([model], table, spec, *rfmip.lw_canonical_inputs(data, spec, dev))
     got = k1.lw_clearsky_mega4(*args)
     torch.cuda.synchronize()
     twin = k1.lw_clearsky_mega4_plain(*args)
@@ -1276,7 +1275,7 @@ def test_sharded_cores_at_world_size_one_are_the_unsharded_cores(dev, ncol, nlay
     table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
     li, si = rfmip.lw_canonical_inputs(data, spec, dev), rfmip.sw_canonical_inputs(data, dev)
-    fl = rfmip._lw_core_mega4_canon([lw], table, spec, *li, top_at_1=True)
+    fl = fused.lw_core([lw], table, spec, *li, top_at_1=True)
     fs = rfmip._sw_core_mega_canon([sw, sw], solar, *si, top_at_1=True)
     pdist.initialize(f"127.0.0.1:{pdist.free_port()}", 1, 0, device=dev)
     try:
@@ -1310,7 +1309,7 @@ def test_sharded_cores_on_two_gloo_ranks_sharing_the_card(dev):
     sw = load_model_netcdf(SW_MODEL, device=dev)
     table = planck.PlanckTable.compute(spec.band_lims_wvn_array, device=dev)
     solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32, device=dev)
-    fl = rfmip._lw_core_mega4_canon([lw], table, spec,
+    fl = fused.lw_core([lw], table, spec,
                                     *rfmip.lw_canonical_inputs(data, spec, dev), top_at_1=True)
     fs = rfmip._sw_core_mega_canon([sw, sw], solar, *rfmip.sw_canonical_inputs(data, dev),
                                    top_at_1=True)

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from rte_rrtmgp_nn_tpu_torch.config import config_override, grad_refusal, refuse_grad
-from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
 from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g128, sw_spectral_g112
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
@@ -176,8 +176,9 @@ def _cases():
     spec = lw_spectral_g128()
     table = PlanckTable.compute(spec.band_lims_wvn_array, device=CPU)
     solar = torch.as_tensor(rfmip.default_solar_source(sw_spectral_g112()), dtype=torch.float32)
-    lw_args = rfmip.lw_mega_args([lw], table, spec, *rfmip.lw_canonical_inputs(DATA, spec, CPU))
-    sw_args = rfmip.sw_mega_args([sw, sw], solar, *rfmip.sw_canonical_inputs(DATA, CPU))
+    lw_args, _ = fused.lw_args([lw], table, spec, *rfmip.lw_canonical_inputs(DATA, spec, CPU))
+    sw_args, _ = fused.sw_args([sw, sw], None,
+                               *rfmip.sw_fused_inputs(solar, *rfmip.sw_canonical_inputs(DATA, CPU)))
     x = torch.rand(12, 10, 18)
     col_dry = torch.rand(12, 10)
     tau = torch.rand(4, 5, 8)

@@ -23,6 +23,7 @@ import torch
 from rte_rrtmgp_nn_tpu.drivers import rfmip as jrfmip
 from rte_rrtmgp_nn_tpu.gasoptics import planck as jplanck
 from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import lw_prep_pallas
+from rte_rrtmgp_nn_tpu_torch.drivers import fused
 from rte_rrtmgp_nn_tpu_torch.drivers import rfmip as prfmip
 from rte_rrtmgp_nn_tpu_torch.gas_concs import GasConcs
 from rte_rrtmgp_nn_tpu_torch.gasoptics import nn_gas_optics as go
@@ -118,11 +119,10 @@ def test_prep_core_matches_jax_core(top_at_1):
         np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(ref, n)),
                                    atol=LW_ATOL, err_msg=n)
     # the prep core and the fused-kernel core solve the same problem
-    fused = prfmip._lw_core_mega4_canon([pm], pt, pspec,
-                                        *prfmip.lw_canonical_inputs(pd, pspec, CPU),
-                                        top_at_1=top_at_1)
-    np.testing.assert_allclose(got.flux_dn.numpy(), fused.flux_dn.numpy(), atol=LW_ATOL)
-    np.testing.assert_allclose(got.flux_up.numpy(), fused.flux_up.numpy(), atol=LW_ATOL)
+    mega = fused.lw_core([pm], pt, pspec, *prfmip.lw_canonical_inputs(pd, pspec, CPU),
+                         top_at_1=top_at_1)
+    np.testing.assert_allclose(got.flux_dn.numpy(), mega.flux_dn.numpy(), atol=LW_ATOL)
+    np.testing.assert_allclose(got.flux_up.numpy(), mega.flux_up.numpy(), atol=LW_ATOL)
 
 
 def test_wrapper_runs_the_twin_on_cpu():

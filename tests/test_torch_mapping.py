@@ -49,9 +49,9 @@ LW_ATOL = 2e-3  # W/m2: two-net LW against the one-net sweep
 # everything an entry does after its check: each armed to fail the test
 TRIPWIRES = ((bench, "build_seconds"), (build, "library"), (T, "synthesize_rfmip"),
              (T, "synthesize_garand"), (T, "synthesize_cloud_optics"), (ncio, "write_nc"),
-             (distributed, "launch"), (NNModel, "to"), (prfmip, "resolve_use_megakernel"),
-             (pallsky, "resolve_use_megakernel"), (pallsky, "read_garand"),
-             (pgcm, "_route"), (pgcm, "_f32_job"), (pgcm, "_pack_columns_mixed"))
+             (distributed, "launch"), (NNModel, "to"), (prfmip, "driver_route"),
+             (pallsky, "driver_route"), (pallsky, "read_garand"),
+             (pgcm, "driver_route"), (pgcm, "_f32_job"), (pgcm, "_pack_columns_mixed"))
 
 SCRIPTS = {"bench_torch": ("bench_torch.py", ["--ncol", "16"]),
            "torch_bench_allsky": ("scripts/torch_bench_allsky.py", ["--ncol", "16"]),

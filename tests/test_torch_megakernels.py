@@ -17,7 +17,7 @@ import torch
 from rte_rrtmgp_nn_tpu.gasoptics import planck as jplanck
 from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import lw_clearsky_mega4 as jax_lw_mega4
 from rte_rrtmgp_nn_tpu.ops.pallas.sw_megakernel import sw_clearsky_megakernel as jax_sw_mega
-from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
 from rte_rrtmgp_nn_tpu_torch.gasoptics import planck as pplanck
 from rte_rrtmgp_nn_tpu_torch.ops.cuda import lw_megakernel as k1
 from rte_rrtmgp_nn_tpu_torch.ops.cuda import sw_megakernel as k2
@@ -35,8 +35,7 @@ def _lw_case(device, ncol=NCOL, nlay=NLAY, seed=11):
     spec = pplanck.lw_spectral_g128()
     table = pplanck.PlanckTable.compute(spec.band_lims_wvn_array, device=device)
     model = load_model_netcdf(LW_MODEL, device=device)
-    return rfmip.lw_mega_args([model], table, spec,
-                              *rfmip.lw_canonical_inputs(data, spec, device))
+    return fused.lw_args([model], table, spec, *rfmip.lw_canonical_inputs(data, spec, device))[0]
 
 
 def _sw_case(device, ncol=NCOL, nlay=NLAY, seed=12):
@@ -48,7 +47,7 @@ def _sw_case(device, ncol=NCOL, nlay=NLAY, seed=12):
     model = load_model_netcdf(SW_MODEL, device=device)
     solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32, device=device)
     sw_in = rfmip.sw_canonical_inputs(data, device)
-    return rfmip.sw_mega_args([model, model], solar, *sw_in), sw_in, d
+    return fused.sw_args([model, model], None, *rfmip.sw_fused_inputs(solar, *sw_in))[0], sw_in, d
 
 
 def test_lw_twin_matches_jax_kernel():
@@ -296,7 +295,6 @@ def test_lw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
     lanes of absorption tau) against the Pallas kernel's cld_fields +
     cld_lut and cld_tau_band options; the clouds move the fluxes."""
     from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import cloud_lut_pack as jax_lut_pack
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 
     jco_, pco_, cld, d = _cloud_case(tmp_path, "lw", flavour)
@@ -304,8 +302,8 @@ def test_lw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
     spec = pplanck.lw_spectral_g128()
     table = pplanck.PlanckTable.compute(spec.band_lims_wvn_array, device=CPU)
     lw_in = rfmip.lw_canonical_inputs(data, spec, CPU)
-    args, kw = allsky.allsky_lw_mega_args([load_model_netcdf(LW_MODEL, device=CPU)], table, spec,
-                                          pco_, *lw_in[:6], *cld, lw_in[6])
+    args, kw = fused.lw_args([load_model_netcdf(LW_MODEL, device=CPU)], table, spec, *lw_in,
+                             (pco_, cld))
     assert set(kw) == ({"cld_fields", "cld_lut"} if flavour == "lut" else {"cld_tau_band"})
     (_, x2d, cf, w1a, w1c, col_dry, tlay, tlev, tsfc, _, _, emis) = args
     jm, _ = model_pair(LW_MODEL)
@@ -338,7 +336,6 @@ def test_sw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
     kernel's cld_fields + cld_lut and cld_bands options, with the all-sky
     driver's mu0 = 0.86 and albedo 0.06."""
     from rte_rrtmgp_nn_tpu.ops.pallas.lw_megakernel import cloud_lut_pack as jax_lut_pack
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 
     jco_, pco_, cld, d = _cloud_case(tmp_path, "sw", flavour, seed=14)
@@ -348,8 +345,8 @@ def test_sw_twin_cloud_modes_match_jax_kernel(tmp_path, flavour):
     solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32)
     play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, CPU)
     mu0, alb = torch.full((NCOL,), 0.86), torch.full((NCOL, spec.nband), 0.06)
-    args, kw = allsky.allsky_sw_mega_args([model, model], spec, solar, pco_, play_t, plev_t,
-                                          tlay_t, mu0, alb, alb, *cld, concs_t)
+    args, kw = fused.sw_args([model, model], spec, play_t, plev_t, tlay_t, mu0,
+                             *fused.sw_boundary(spec, solar, alb, alb), concs_t, (pco_, cld))
     assert set(kw) == {"gpt2band"} | ({"cld_fields", "cld_lut"} if flavour == "lut"
                                       else {"cld_bands"})
     (_, _, x2d, cf, perm, col_dry, _, inc, alb_dir, alb_dif) = args
@@ -376,7 +373,6 @@ def test_sw_twin_delta_scalings_agree(tmp_path):
     """The lookup-table mode delta-scales in the subtraction form inside
     the kernel, the band mode takes the classic chain of delta_scale from
     outside: on the same tables the two differ by float32 rounding only."""
-    from rte_rrtmgp_nn_tpu_torch.drivers import allsky
     from rte_rrtmgp_nn_tpu_torch.extensions.cloud_optics import cloud_optics
     from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
     from rte_rrtmgp_nn_tpu_torch.optical_props import delta_scale
@@ -388,8 +384,8 @@ def test_sw_twin_delta_scalings_agree(tmp_path):
     solar = torch.as_tensor(rfmip.default_solar_source(spec), dtype=torch.float32)
     play_t, plev_t, tlay_t, _, _, _, _, concs_t = rfmip.sw_canonical_inputs(data, CPU)
     mu0, alb = torch.full((NCOL,), 0.86), torch.full((NCOL, spec.nband), 0.06)
-    args, kw = allsky.allsky_sw_mega_args([model, model], spec, solar, pco_, play_t, plev_t,
-                                          tlay_t, mu0, alb, alb, *cld, concs_t)
+    args, kw = fused.sw_args([model, model], spec, play_t, plev_t, tlay_t, mu0,
+                             *fused.sw_boundary(spec, solar, alb, alb), concs_t, (pco_, cld))
     c = delta_scale(cloud_optics(pco_, *cld, as_2str=True))
     ts = c.tau * c.ssa
     in_kernel = k2.sw_clearsky_megakernel_plain(*args, **kw)
@@ -421,7 +417,7 @@ def test_lw_raw_lane_twin_matches_jax_core(top_at_1):
     got = rfmip._lw_core_mega5_canon([pm], pt, pspec, *lw_in, top_at_1=top_at_1)
     col = rfmip._lw_core_mega5([pm], pt, pspec, *rfmip.lw_staged_inputs(pd, pspec, CPU),
                                top_at_1=top_at_1)
-    stacked = rfmip._lw_core_mega4_canon([pm], pt, pspec, *lw_in, top_at_1=top_at_1)
+    stacked = fused.lw_core([pm], pt, pspec, *lw_in, top_at_1=top_at_1)
     for n in ("flux_up", "flux_dn", "flux_net"):
         np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(ref, n)),
                                    atol=LW_ATOL, err_msg=n)

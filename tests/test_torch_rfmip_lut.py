@@ -11,6 +11,7 @@ orientations:
   - each refusal in words, the stages' spans, K7 once off the CPU, and the
     nets' dispatch as before.
 """
+import importlib
 import json
 
 import jax.numpy as jnp
@@ -36,6 +37,9 @@ from rte_rrtmgp_nn_tpu_torch.gasoptics.planck import PlanckTable, lw_spectral_g2
 from rte_rrtmgp_nn_tpu_torch.gasoptics.synthetic import generate_kdist_nc
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 from test_torch_core import CPU, LW_MODEL, SW_MODEL
+
+# the module, which the package's ``config`` (the settings object) shadows
+pconfig = importlib.import_module("rte_rrtmgp_nn_tpu_torch.config")
 
 GPB, NEXP, NSITES, NLAY = 3, 3, 4, 12
 # float64 (the same equations, summed in other orders; the port's
@@ -227,12 +231,12 @@ def test_a_gas_the_data_lacks_is_refused(files):
 
 @pytest.mark.parametrize("band", ["lw", "sw"])
 def test_the_nets_dispatch_as_before(nets, monkeypatch, band):
-    """With nets the drivers take their route from resolve_use_megakernel,
-    called once with the same arguments as before; with a k-distribution
-    they do not ask it."""
+    """With nets the drivers take their route from resolve_use_megakernel
+    (through config.driver_route), called once with the same arguments as
+    before; with a k-distribution they do not ask it."""
     seen = []
-    real = prfmip.resolve_use_megakernel
-    monkeypatch.setattr(prfmip, "resolve_use_megakernel",
+    real = pconfig.resolve_use_megakernel
+    monkeypatch.setattr(pconfig, "resolve_use_megakernel",
                         lambda **kw: seen.append(kw) or real(**kw))
     data = rfmip_data_from_arrays(T.synthesize_rfmip(5, 6, seed=3))
     if band == "lw":

@@ -18,7 +18,7 @@ import _torch_rank_workers as W
 from rte_rrtmgp_nn_tpu.drivers import rfmip as jrfmip
 from rte_rrtmgp_nn_tpu.gasoptics import planck as jplanck
 from rte_rrtmgp_nn_tpu.parallel.sharding import make_mesh as jmake_mesh
-from rte_rrtmgp_nn_tpu_torch.drivers import rfmip
+from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
 from rte_rrtmgp_nn_tpu_torch.gasoptics import planck as pplanck
 from rte_rrtmgp_nn_tpu_torch.parallel import distributed as pdist
 from rte_rrtmgp_nn_tpu_torch.parallel.sharding import make_mesh
@@ -42,8 +42,8 @@ def _port_unsharded(pd):
     spec, sspec = pplanck.lw_spectral_g128(), pplanck.sw_spectral_g112()
     table = pplanck.PlanckTable.compute(spec.band_lims_wvn_array, device=CPU)
     solar = torch.as_tensor(rfmip.default_solar_source(sspec), dtype=torch.float32)
-    fl = rfmip._lw_core_mega4_canon([lw], table, spec, *rfmip.lw_canonical_inputs(pd, spec, CPU),
-                                    top_at_1=pd.top_at_1)
+    fl = fused.lw_core([lw], table, spec, *rfmip.lw_canonical_inputs(pd, spec, CPU),
+                       top_at_1=pd.top_at_1)
     fs = rfmip._sw_core_mega_canon([sw, sw], solar, *rfmip.sw_canonical_inputs(pd, CPU),
                                    top_at_1=pd.top_at_1)
     return {"lw": [fl.flux_up.numpy(), fl.flux_dn.numpy()],

@@ -25,6 +25,7 @@ from rte_rrtmgp_nn_tpu.gasoptics.kdist import load_kdist as jload_kdist
 from rte_rrtmgp_nn_tpu.ops.pallas.sw_megakernel import sw_clearsky_megakernel as jax_sw_mega
 from rte_rrtmgp_nn_tpu_torch import testing as T
 from rte_rrtmgp_nn_tpu_torch.config import config_override
+from rte_rrtmgp_nn_tpu_torch.drivers import fused
 from rte_rrtmgp_nn_tpu_torch.drivers import rfmip as prfmip
 from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
 from rte_rrtmgp_nn_tpu_torch.ops import sw_solver as psw
@@ -123,7 +124,8 @@ def test_staged_coefficients_equal_the_twins_bit_for_bit(problem, monkeypatch, c
     (rte_sw), taken whole or in chunks of layers."""
     p = problem["pair"]
     solar = torch.as_tensor(p["solar"], dtype=torch.float32)
-    args = prfmip.sw_mega_args(p["models"], solar, *prfmip.sw_canonical_inputs(problem["pd"], CPU))
+    sw_in = prfmip.sw_canonical_inputs(problem["pd"], CPU)
+    args, _ = fused.sw_args(p["models"], None, *prfmip.sw_fused_inputs(solar, *sw_in))
     taken = []
     _spy(monkeypatch, k2, "pifm_coefficients", taken)
     k2.sw_clearsky_megakernel_plain(*args)
@@ -179,7 +181,8 @@ def test_twin_against_the_jax_kernel_on_the_pair(problem):
     n = 32
     pd = problem["pd"].block(0, n)
     solar = torch.as_tensor(p["solar"], dtype=torch.float32)
-    args = prfmip.sw_mega_args(p["models"], solar, *prfmip.sw_canonical_inputs(pd, CPU))
+    sw_in = prfmip.sw_canonical_inputs(pd, CPU)
+    args, _ = fused.sw_args(p["models"], None, *prfmip.sw_fused_inputs(solar, *sw_in))
     (_, _, x2d, cf, perm, col_dry, mu0, inc, alb_dir, alb_dif) = args
     got = k2.sw_clearsky_megakernel_plain(*args)
     ja, jr = (model_pair(path)[0] for path in p["paths"])
