@@ -155,7 +155,7 @@ def canonicalize_rfmip_inputs(data: RFMIPData, dtype=np.float32):
     (ncol, nlay[+1]) fields become contiguous (nlay[+1], ncol) top-at-0
     numpy arrays, and per-layer (1-D) gas profiles are materialized to 2-D
     (scalars stay scalar). Returns (play_t, plev_t, tlay_t, tlev_t,
-    concs_t)."""
+    concs_t). ``lw/sw_canonical_inputs`` lay out the same on the device."""
     canon = lambda a: fused.lay_major_host(a, data.top_at_1, dtype)
     concs_t = {}
     for name, raw in data.gas_concs.concs.items():
@@ -504,29 +504,45 @@ def _sun(data: RFMIPData, device, dtype):
             torch.as_tensor(usecol, device=device))
 
 
+def _lay_out(data: RFMIPData, fields, concs):
+    """``canonicalize_rfmip_inputs``' layout of ``data``'s (ncol, nlay[+1])
+    ``fields`` and gas dict ``concs``, copied as they are, done on their
+    device with ``fused.lay_major``: the same bits. A per-layer (1-D) gas
+    is broadcast over the columns first; a scalar stays a scalar. Returns
+    (the fields, the gas dict)."""
+    lay = lambda a: fused.lay_major(a, data.top_at_1)
+    gas = lambda v: v if v.ndim == 0 else lay(v.expand(data.ncol, -1) if v.ndim == 1 else v)
+    return [lay(a) for a in fields], {k: gas(v) for k, v in concs.items()}
+
+
 def lw_canonical_inputs(data: RFMIPData, spectral: SpectralMapping, device,
                         dtype=torch.float32):
     """The fused LW core's inputs on ``device``: (play_t, plev_t, tlay_t,
-    tlev_t, tsfc, sfc_emis_band, concs_t)."""
+    tlev_t, tsfc, sfc_emis_band, concs_t). Each host array is copied as it
+    is (``rte.h2d``) and laid out on ``device`` (``rte.canon``)."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    with span("rte.canon"):
-        play_t, plev_t, tlay_t, tlev_t, concs_t = canonicalize_rfmip_inputs(data)
     with span("rte.h2d"):
-        return (t(play_t), t(plev_t), t(tlay_t), t(tlev_t), t(data.tsfc),
-                _emis_band(data, spectral, device, dtype),
-                {k: t(v) for k, v in concs_t.items()})
+        fields = [t(a) for a in (data.play, data.plev, data.tlay, data.tlev)]
+        tsfc, emis = t(data.tsfc), _emis_band(data, spectral, device, dtype)
+        concs = {k: t(v) for k, v in data.gas_concs.concs.items()}
+    with span("rte.canon"):
+        (play_t, plev_t, tlay_t, tlev_t), concs_t = _lay_out(data, fields, concs)
+    return play_t, plev_t, tlay_t, tlev_t, tsfc, emis, concs_t
 
 
 def sw_canonical_inputs(data: RFMIPData, device, dtype=torch.float32):
     """The fused SW core's inputs on ``device``: (play_t, plev_t, tlay_t,
-    sfc_alb, mu0, usecol, tsi, concs_t)."""
+    sfc_alb, mu0, usecol, tsi, concs_t), copied and laid out as
+    ``lw_canonical_inputs``'."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    with span("rte.canon"):
-        play_t, plev_t, tlay_t, _, concs_t = canonicalize_rfmip_inputs(data)
-        mu0, usecol = _sun(data, device, dtype)
     with span("rte.h2d"):
-        return (t(play_t), t(plev_t), t(tlay_t), t(data.sfc_alb), mu0, usecol,
-                t(data.tsi), {k: t(v) for k, v in concs_t.items()})
+        fields = [t(a) for a in (data.play, data.plev, data.tlay)]
+        sfc_alb, tsi = t(data.sfc_alb), t(data.tsi)
+        concs = {k: t(v) for k, v in data.gas_concs.concs.items()}
+    with span("rte.canon"):
+        (play_t, plev_t, tlay_t), concs_t = _lay_out(data, fields, concs)
+        mu0, usecol = _sun(data, device, dtype)
+    return play_t, plev_t, tlay_t, sfc_alb, mu0, usecol, tsi, concs_t
 
 
 def _check_sw_scaling(models):

@@ -59,8 +59,9 @@ def _calls(cell, n: int, k0: int, device) -> list:
 
 
 # the port's modules that open spans
-SPAN_USERS = ("drivers.rfmip", "drivers.allsky", "drivers.gcm", "gasoptics.nn_gas_optics",
-              "ops.cuda.mlp", "parallel.streaming")
+SPAN_USERS = ("drivers.fused", "drivers.gcm", "drivers.rfmip", "gasoptics.lut_gas_optics",
+              "gasoptics.nn_gas_optics", "gasoptics.planck", "ops.cuda.lut_gas_optics",
+              "ops.cuda.mlp", "ops.gas_optics_lut", "parallel.streaming", "rte")
 
 
 @contextlib.contextmanager
@@ -89,7 +90,8 @@ def _spans_off():
 
 def _by_span(tw) -> dict:
     """Count and self ms a call of each span; idle ms a call by the
-    innermost span over each idle gap's middle."""
+    innermost span over each idle gap's middle (where there is none, by the
+    innermost host range or op there)."""
     agg = collections.defaultdict(lambda: [0, 0.0])
     for name, us in S.self_us(tw):
         agg[name][0] += 1
@@ -103,7 +105,12 @@ def _by_span(tw) -> dict:
             continue
         mid = 0.5 * (s + e)
         cover = [sp for sp in spans if sp[0] <= mid < sp[1]]
-        name = min(cover, key=lambda sp: sp[1] - sp[0])[2] if cover else "(no span)"
+        if cover:
+            name = min(cover, key=lambda sp: sp[1] - sp[0])[2]
+        else:  # the innermost host range or op there
+            ops = [(float(h["dur"]), h["name"]) for h in tw.host
+                   if float(h["ts"]) <= mid < float(h["ts"]) + float(h.get("dur", 0.0))]
+            name = "(no span) " + (min(ops)[1] if ops else "-")
         idle[name] += (e - s) * 1e-3
     return {"self_ms": {n: [c / tw.calls, us * 1e-3 / tw.calls] for n, (c, us) in
                         sorted(agg.items(), key=lambda kv: -kv[1][1])},

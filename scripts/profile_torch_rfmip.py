@@ -70,9 +70,9 @@ def main() -> int:
         table = host("PlanckTable.compute",
                      lambda: PlanckTable.compute(lw_spec.band_lims_wvn_array, device=dev))
         host("canonicalize_rfmip_inputs", lambda: rfmip.canonicalize_rfmip_inputs(data))
-        lw_in = host("lw_canonical_inputs (canonicalize + H2D)",
+        lw_in = host("lw_canonical_inputs (H2D + layout on the device)",
                      lambda: rfmip.lw_canonical_inputs(data, lw_spec, dev))
-        sw_in = host("sw_canonical_inputs (canonicalize + H2D)",
+        sw_in = host("sw_canonical_inputs (H2D + layout on the device)",
                      lambda: rfmip.sw_canonical_inputs(data, dev))
         host("rfmip_clear_sky_lw", lambda: rfmip.rfmip_clear_sky_lw(data, [lw_model], device=dev))
         host("rfmip_clear_sky_sw",

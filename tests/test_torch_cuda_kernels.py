@@ -11,7 +11,9 @@ staged SW, parallel scans), the prep LW core and the lookup-table gas
 optics with the solvers behind it (alone and as the RFMIP drivers' route
 for a k-distribution), against the same paths in float64 on the CPU. The sharded fused cores (drivers.rfmip lw_mega_core_sharded /
 sw_mega_core_sharded) at world size 1 on NCCL and on two gloo ranks
-sharing the card, against the unsharded cores bit for bit.
+sharing the card, against the unsharded cores bit for bit. The RFMIP fused
+route's inputs laid out on the card, against the host canonicalization
+bit for bit, to the drivers' fluxes.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; elsewhere they
 skip. The file imports neither JAX nor the JAX package, so on a GPU host
@@ -119,6 +121,44 @@ def test_drivers_on_cuda_match_float64_cpu(dev, top_at_1):
     for n in ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"):
         assert _maxabs(getattr(got_sw, n), getattr(ref_sw, n)) <= SW_ATOL, n
         assert (getattr(got_sw, n).cpu()[night] == 0).all(), n
+
+
+@pytest.mark.parametrize("top_at_1", [True, False])
+def test_fused_route_lays_out_on_the_card_as_the_host_does(dev, top_at_1):
+    """The RFMIP fused route's inputs, copied as they are and laid out on
+    the card, equal the host canonicalization's arrays copied to the card,
+    bit for bit, every gas included; the drivers' LW and SW fluxes equal
+    the fused cores' on the host layout, bit for bit."""
+    data = rfmip_data_from_arrays(synthesize_rfmip(1800, 60, seed=35, top_at_1=top_at_1))
+    f32 = torch.float32
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
+    *fields, concs = rfmip.canonicalize_rfmip_inputs(data)
+    fields, concs = [t(a) for a in fields], {k: t(v) for k, v in concs.items()}
+    spec, sspec = planck.lw_spectral_g128(), planck.sw_spectral_g112()
+    li = rfmip.lw_canonical_inputs(data, spec, dev)
+    si = rfmip.sw_canonical_inputs(data, dev)
+    for got_fields, got_concs in ((li[:4], li[6]), (si[:3], si[7])):
+        assert list(got_concs) == list(concs)
+        got = [*got_fields, *got_concs.values()]
+        for i, (g, w) in enumerate(zip(got, [*fields[:len(got_fields)], *concs.values()])):
+            assert g.is_cuda and (g.dtype, g.shape, g.is_contiguous()) == (
+                w.dtype, w.shape, w.is_contiguous()), i
+            assert torch.equal(g, w), i
+    lw, sw = load_model_netcdf(LW_MODEL, device=dev), load_model_netcdf(SW_MODEL, device=dev)
+    table = planck.PlanckTable.kept(spec.band_lims_wvn_array, device=dev, dtype=f32)
+    want_lw = fused.lw_core([lw], table, spec, *fields, li[4], li[5], concs, top_at_1=top_at_1)
+    want_sw = rfmip._sw_core_mega_canon(
+        [sw, sw], rfmip.kept_solar_source(sspec, device=dev, dtype=f32), *fields[:3], *si[3:7],
+        concs, top_at_1=top_at_1)
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    got_lw = rfmip.rfmip_clear_sky_lw(data, [lw], device=dev)
+    got_sw = rfmip.rfmip_clear_sky_sw(data, [sw, sw], device=dev)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k2.LAUNCHES) == (n1 + 1, n2 + 1)
+    for n in ("flux_up", "flux_dn", "flux_net"):
+        assert torch.equal(getattr(got_lw, n), getattr(want_lw, n)), n
+    for n in ("flux_up", "flux_dn", "flux_net", "flux_dn_dir"):
+        assert torch.equal(getattr(got_sw, n), getattr(want_sw, n)), n
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

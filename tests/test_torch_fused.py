@@ -1,11 +1,14 @@
 """The fused kernels' front (drivers/fused.py): a cloud mode of K1 or K2
 is its clear mode's positional arguments, bit for bit, plus the cloud
 keywords of its flavour, and the clear mode has none; the host and the
-device layout helpers lay out the same bits."""
+device layout helpers lay out the same bits, and so do the RFMIP fused
+route's inputs laid out on the device and the host canonicalization, to
+the drivers' fluxes."""
 import numpy as np
 import pytest
 import torch
 
+from rte_rrtmgp_nn_tpu_torch.config import config_override, driver_route
 from rte_rrtmgp_nn_tpu_torch.drivers import fused, rfmip
 from rte_rrtmgp_nn_tpu_torch.drivers.allsky import cloud_fields_lay_major
 from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
@@ -73,3 +76,82 @@ def test_host_and_device_layouts_are_the_same_bits(top_at_1):
     np.testing.assert_array_equal(host, dev.numpy())
     top = a[:, 0] if top_at_1 else a[:, -1]
     np.testing.assert_array_equal(host[0], top.astype(np.float32))
+
+
+def _rfmip_data(top_at_1, host_dtype):
+    """synthesize_rfmip's problem (2-D, per-layer and scalar gases) with
+    its host arrays in ``host_dtype``: in float64 moved off the float32
+    grid, so that the cast to float32 rounds."""
+    arrays = synthesize_rfmip(NCOL, NLAY, SEED, top_at_1=top_at_1)
+    if host_dtype == np.float64:
+        rng = np.random.default_rng(SEED)
+        off = lambda v: np.asarray(v, np.float64) * (1.0 + rng.uniform(-2.0 ** -23, 2.0 ** -23,
+                                                                         np.shape(v)))
+        arrays = {k: off(v) if isinstance(v, np.ndarray) else v for k, v in arrays.items()}
+        arrays["gases"] = {k: off(v) for k, v in arrays["gases"].items()}
+    return rfmip_data_from_arrays(arrays)
+
+
+def _host_laid_out(data):
+    """canonicalize_rfmip_inputs' arrays as tensors: (the four fields, the
+    gas dict)."""
+    *fields, concs_t = rfmip.canonicalize_rfmip_inputs(data)
+    return [torch.as_tensor(a) for a in fields], {k: torch.as_tensor(v) for k, v in concs_t.items()}
+
+
+@pytest.mark.parametrize("host_dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("top_at_1", [True, False], ids=["top_at_1", "bottom_first"])
+def test_canonical_inputs_are_the_host_layout_bit_for_bit(top_at_1, host_dtype):
+    data = _rfmip_data(top_at_1, host_dtype)
+    assert {v.ndim for v in data.gas_concs.concs.values()} == {0, 1, 2}
+    assert data.play.dtype == host_dtype
+    fields, concs = _host_laid_out(data)
+    lw = rfmip.lw_canonical_inputs(data, planck.lw_spectral_g128(), CPU)
+    sw = rfmip.sw_canonical_inputs(data, CPU)
+    for got_fields, got_concs in ((lw[:4], lw[6]), (sw[:3], sw[7])):
+        assert list(got_concs) == list(concs)
+        got = [*got_fields, *got_concs.values()]
+        want = [*fields[:len(got_fields)], *concs.values()]
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert (g.dtype, g.shape, g.is_contiguous()) == (w.dtype, w.shape, w.is_contiguous()), i
+            assert torch.equal(g, w), i
+
+
+@pytest.fixture(scope="module")
+def nets():
+    return load_model_netcdf(LW_MODEL, device=CPU), load_model_netcdf(SW_MODEL, device=CPU)
+
+
+@pytest.mark.parametrize("top_at_1", [True, False], ids=["top_at_1", "bottom_first"])
+@pytest.mark.parametrize("band", ["lw", "sw"])
+def test_fused_routes_equal_the_cores_on_host_laid_out_inputs(nets, band, top_at_1):
+    """The drivers' fused route (taken on the CPU when asked for: the
+    kernels' plain twins) against its core on the host layout."""
+    data = _rfmip_data(top_at_1, np.float32)
+    lw, sw = nets
+    f32 = torch.float32
+    t = lambda a: torch.as_tensor(a, dtype=f32)
+    (play_t, plev_t, tlay_t, tlev_t), concs_t = _host_laid_out(data)
+    if band == "lw":
+        spec = planck.lw_spectral_g128()
+        table = planck.PlanckTable.kept(spec.band_lims_wvn_array, device=CPU, dtype=f32)
+        emis = t(data.sfc_emis)[:, None].expand(NCOL, spec.nband)
+        want = fused.lw_core([lw], table, spec, play_t, plev_t, tlay_t, tlev_t, t(data.tsfc),
+                             emis, concs_t, top_at_1=top_at_1)
+        with config_override(use_megakernel=True):
+            assert driver_route("lw", lw=True, models=[lw], device=CPU) == "megakernel"
+            got = rfmip.rfmip_clear_sky_lw(data, [lw], device=CPU)
+        names = ("flux_up", "flux_dn", "flux_net")
+    else:
+        spec = planck.sw_spectral_g112()
+        solar = rfmip.kept_solar_source(spec, device=CPU, dtype=f32)
+        mu0, usecol = rfmip._sun(data, CPU, f32)
+        want = rfmip._sw_core_mega_canon([sw, sw], solar, play_t, plev_t, tlay_t,
+                                         t(data.sfc_alb), mu0, usecol, t(data.tsi), concs_t,
+                                         top_at_1=top_at_1)
+        with config_override(use_megakernel=True):
+            assert driver_route("sw", models=[sw, sw], device=CPU) == "megakernel"
+            got = rfmip.rfmip_clear_sky_sw(data, [sw, sw], device=CPU)
+        names = ("flux_up", "flux_dn", "flux_net", "flux_dn_dir")
+    for n in names:
+        assert torch.equal(getattr(got, n), getattr(want, n)), n
