@@ -1,7 +1,11 @@
 """What each rank runs in the port's multi-process tests (spawned by
-parallel.distributed.launch on two gloo ranks, on the CPU or sharing the
-card). No JAX here: the test processes hold the JAX references, the ranks
+parallel.distributed.launch, or set up and stepped by
+parallel.distributed.RankGroup, on two gloo ranks, on the CPU or sharing
+the card). No JAX here: the test processes hold the JAX references, the ranks
 only the port."""
+import os
+import time
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -91,3 +95,72 @@ def sharded_cores(arrays, lw_path, sw_path):
             calls[name + "_all"] = [t.cpu().numpy() for t in fn(*args, gather=True)]
     return {"rank": dist.get_rank(), "device": str(dev), **calls, "k1": k1.LAUNCHES,
             "k2": k2.LAUNCHES}
+
+
+# A RankGroup's ranks (parallel.distributed.RankGroup): make(rank, device)
+# once a rank, then fn(state, *args) a step.
+MADE = []
+
+
+def counting_make(rank, device):
+    """Counts the set-ups of this process."""
+    MADE.append(rank)
+    return {"rank": rank, "steps": 0, "pid": os.getpid()}
+
+
+def counting_step(state, what="count"):
+    """[rank, set-ups of this process, steps of this state, pid, intra-op
+    threads, then the allowed cores, -1 beyond them]; ``what``: "raise" or
+    "stall" make rank 1 raise or stall."""
+    if state["rank"] == 1 and what == "raise":
+        raise RuntimeError("a fault planted in rank 1")
+    if state["rank"] == 1 and what == "stall":
+        time.sleep(600)
+    state["steps"] += 1
+    cores = sorted(os.sched_getaffinity(0))
+    out = np.full(5 + os.cpu_count(), -1.0, np.float32)
+    out[:5] = (state["rank"], len(MADE), state["steps"], state["pid"], torch.get_num_threads())
+    out[5:5 + len(cores)] = cores
+    return out
+
+
+def failing_make(rank, device):
+    if rank == 1:
+        raise RuntimeError("a set-up fault planted in rank 1")
+    return counting_make(rank, device)
+
+
+def binding():
+    """This rank's intra-op threads and allowed cores."""
+    return torch.get_num_threads(), sorted(os.sched_getaffinity(0))
+
+
+def gcm_make(rank, device, cloud_files, ncol, nlay):
+    """A GCM rank's set-up: the 64-wide LW net and the SW demo net, the
+    lookup-table cloud optics of ``cloud_files`` (lw, sw), and ``ncol``
+    columns of its own (seed: the rank)."""
+    from rte_rrtmgp_nn_tpu_torch import testing as T
+    from rte_rrtmgp_nn_tpu_torch.drivers.allsky import load_cloud_optics_checked
+    from rte_rrtmgp_nn_tpu_torch.drivers.gcm import synthesize_gcm_columns
+    from rte_rrtmgp_nn_tpu_torch.drivers.rfmip_io import rfmip_data_from_arrays
+    from rte_rrtmgp_nn_tpu_torch.models.network import load_model_netcdf
+
+    data = rfmip_data_from_arrays(T.synthesize_rfmip(24, nlay, seed=rank))
+    return {"host": synthesize_gcm_columns(data, ncol, seed=rank),
+            "lw": load_model_netcdf(T.artifact_path(T.LW_NET_64), device=device),
+            "sw": load_model_netcdf(T.artifact_path(
+                "sw-g112-demo_absorption_48_48_HR_3.64e-02_FRC_2.14e+00.nc"), device=device),
+            "co": [load_cloud_optics_checked(p, device=device) for p in cloud_files],
+            "device": device}
+
+
+def gcm_step(state, block):
+    """The rank's all-sky sweep in blocks of ``block``: its (ncol, 3)
+    diagnostics."""
+    from rte_rrtmgp_nn_tpu_torch.drivers.gcm import gcm_sweep_allsky
+
+    with torch.no_grad():
+        r = gcm_sweep_allsky(state["host"], [state["lw"]], [state["sw"], state["sw"]],
+                             *state["co"], block_size=block, precision="f32",
+                             device=state["device"])
+    return r["diagnostics"]
