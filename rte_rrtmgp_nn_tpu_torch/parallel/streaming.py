@@ -3,26 +3,36 @@
 Port of rte_rrtmgp_nn_tpu/parallel/streaming.py (the reference's OpenMP
 block loop over columns held in host memory, rrtmgp_rfmip_lw.F90:364-446).
 
-On a CUDA device each block travels through a ring of ``prefetch`` staging
-slots, each one flat pinned host buffer and one flat device buffer. The
-host writes the block's rows of every host array into the slot field-major,
-one region after another (``_slot_layout``: each region starts on a
-256-byte boundary), one contiguous copy per array, since the arrays are
-column-leading; a copy stream of the device's own then copies the slot's
-used bytes into its device buffer as ONE copy without blocking, and the
-compute stream (the device's current stream, on which the kernels launch)
-waits for that copy's event before it runs the step on one view per array
-of the device buffer. A pinned buffer is refilled only after the event of
-its previous copy has completed, and a device buffer's next copy waits for
-the compute stream's work queued up to then (the step that read the buffer
-and its result's copy), so block k+1's copy overlaps block k's step and
+On a CUDA device each block travels through a ring of two staging slots,
+each one flat pinned host buffer and one flat device buffer. The host
+writes the block's rows of every host array into the slot field-major, one
+region after another (``_slot_layout``: each region starts on a 256-byte
+boundary), one contiguous copy per array, since the arrays are
+column-leading; a slot of ``_POOL_MIN_BYTES`` or more is written by the
+process's copy threads, each taking an equal share of every region's rows
+(``_fill``). A copy stream of the device's own then copies the slot's used
+bytes into its device buffer as ONE copy without blocking, and the compute
+stream (the device's current stream, on which the kernels launch) waits for
+that copy's event before it runs the step on one view per array of the
+device buffer.
+
+Block 0 is staged and run at once. Block k+1 is staged after block k's step
+is queued and the caller has queued its reads of block k's results (after
+the ``yield``), so the card waits for the host through one fill a sweep and
+every later fill overlaps the step before it. A pinned buffer is refilled
+only after the event of its previous copy has completed. A device buffer's
+next copy waits only for the compute-stream work that read the buffer: the
+step of the block that last used the slot and the reads of its results (a
+step may return views of its inputs). An event recorded on the compute
+stream when the following block is staged, before that block's step is
+queued, marks that work; so block k+1's copy overlaps block k's step, and
 neither side overwrites data still in use. The device buffers are allocated
 once, before the sweep, so the caching allocator never hands the copy
 stream memory that the compute stream still reads. Each block's results
 come back as a non-blocking copy into pinned host memory; ``stream_reduce``
 synchronizes once, at the end.
 
-On the CPU it is a plain loop over blocks.
+On the CPU it is a plain loop over blocks, in the same order.
 
 The last block runs at its own size, without padding: the kernels mask
 ragged columns, so the stitched result is the result without blocks.
@@ -32,6 +42,9 @@ streams, and the shares are joined in column order.
 """
 from __future__ import annotations
 
+import collections
+import os
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -62,6 +75,15 @@ def _sharding(sharding, device) -> ColumnSharding:
 # bytes: every region of a staging slot starts on this boundary, so each
 # view keeps its dtype's alignment and its rows coalesce
 _SLOT_ALIGN = 256
+# bytes: a slot's fill of less than this stays on the calling thread, where
+# handing it to threads would cost about what it saves
+_POOL_MIN_BYTES = 8 << 20
+# the most copy threads a process keeps: on an H100 host one thread fills a
+# 64 MB slot in 13.4 ms, two in 7.8, four in 4.6 and eight in 4.0
+# (scripts/probe_stage_copy.py), and a rank of a four-card host has 8 cores
+_POOL_MAX_THREADS = 4
+# (pid, executor or None, threads) of the process's copy threads
+_POOL: tuple = (None, None, 1)
 
 
 def _slot_layout(arrays: Sequence[np.ndarray], n: int) -> list[tuple[int, tuple, np.dtype]]:
@@ -94,45 +116,102 @@ def _slot_views(buf: torch.Tensor, layout) -> list[torch.Tensor]:
             for offset, shape, dtype in layout]
 
 
-class _CudaStager:
-    """The staging ring of one CUDA device: ``slots`` flat pinned host
-    buffers, each with a flat device buffer and the event of its last copy,
-    sized for a block of ``rows`` rows of the host arrays laid out by
-    ``_slot_layout``; blocks are staged and run in the same order, so a
-    counter each names the slot."""
+def _copy_pool() -> tuple:
+    """(executor, threads) of this process's copy threads, made at the
+    process's first pooled fill: at most ``_POOL_MAX_THREADS`` and no more
+    than the cores the process may run on; no executor where that is one
+    thread. Keyed by the process id, so a forked process makes its own."""
+    global _POOL
+    pid, pool, threads = _POOL
+    if pid != os.getpid():
+        threads = min(_POOL_MAX_THREADS, len(os.sched_getaffinity(0)))
+        pool = ThreadPoolExecutor(threads, "rte-stage") if threads > 1 else None
+        _POOL = (os.getpid(), pool, threads)
+    return pool, threads
 
-    def __init__(self, device, host_arrays, rows: int, slots: int):
+
+def _fill(regions: Sequence[np.ndarray], parts: Sequence[np.ndarray]) -> None:
+    """Copy each of ``parts`` into its region of a staging slot: on the
+    calling thread below ``_POOL_MIN_BYTES``, else by the process's copy
+    threads (span ``rte.stage.pool``)."""
+    pool, threads = (_copy_pool() if sum(a.nbytes for a in parts) >= _POOL_MIN_BYTES
+                     else (None, 1))
+    if pool is None:
+        for region, a in zip(regions, parts):
+            np.copyto(region, a)
+        return
+    with span("rte.stage.pool"):
+        _fill_pooled(regions, parts, pool, threads)
+
+
+def _fill_pooled(regions, parts, pool: ThreadPoolExecutor, threads: int) -> None:
+    """``_fill`` on ``threads`` threads of ``pool``: thread i copies rows
+    [n i / t, n (i + 1) / t) of every region, so each copies the same bytes
+    to a row. The views are made here; the threads only copy."""
+    n = regions[0].shape[0]
+    t = max(1, min(threads, n))
+    cuts = [n * i // t for i in range(t + 1)]
+    chunks = [[(r[lo:hi], a[lo:hi]) for r, a in zip(regions, parts)]
+              for lo, hi in zip(cuts, cuts[1:])]
+    done, _ = wait([pool.submit(_copy_pairs, c) for c in chunks])
+    for f in done:
+        f.result()
+
+
+def _copy_pairs(pairs) -> None:
+    for dst, src in pairs:
+        np.copyto(dst, src)
+
+
+class _CudaStager:
+    """The staging ring of one CUDA device for a sweep whose blocks give it
+    ``shares`` shares each: two blocks' worth of flat pinned host buffers,
+    each with a flat device buffer, the event of its last copy and the event
+    after which the compute stream no longer reads its device buffer, sized
+    for ``rows`` rows of the host arrays laid out by ``_slot_layout``.
+    Shares are staged and run in the same order, so a counter each names
+    the slot."""
+
+    def __init__(self, device, host_arrays, rows: int, shares: int):
         self.device = device
         self.compute = torch.cuda.current_stream(device)
+        self.shares = shares
         nbytes = _slot_bytes(_slot_layout(host_arrays, rows))
         with span("rte.ring"), torch.cuda.device(device):
             self.copy = torch.cuda.Stream(device)
             self.slots = [{
                 "pinned": torch.empty(nbytes, dtype=torch.uint8, pin_memory=True),
                 "dev": torch.empty(nbytes, dtype=torch.uint8, device=device),
-                "copied": None, "layout": None} for _ in range(slots)]
+                "copied": None, "read": None, "layout": None} for _ in range(2 * shares)]
         self.staged = self.ran = 0
 
     def stage(self, parts: Sequence[np.ndarray]) -> None:
         """Copy ``parts`` (one row block per host array) into the next slot,
         field-major, and that slot to the device in one copy."""
-        slot = self.slots[self.staged % len(self.slots)]
+        i = self.staged % len(self.slots)
+        slot = self.slots[i]
         self.staged += 1
         with span("rte.stage"):
             if slot["copied"] is not None:
                 with span("rte.wait"):
                     slot["copied"].synchronize()  # the pinned buffer's last copy has left it
             layout = _slot_layout(parts, parts[0].shape[0])
-            for region, a in zip(_slot_views(slot["pinned"], layout), parts):
-                np.copyto(region.numpy(), a)
+            _fill([v.numpy() for v in _slot_views(slot["pinned"], layout)], parts)
             used = _slot_bytes(layout)
             with torch.cuda.device(self.device), torch.cuda.stream(self.copy):
-                # the step that read the device buffer, and everything queued
-                # on the compute stream after it, was queued before this copy
-                self.copy.wait_stream(self.compute)
+                if slot["read"] is not None:
+                    # the step of the block that last used this slot, and the
+                    # reads of its results, are done with the device buffer
+                    self.copy.wait_event(slot["read"])
                 slot["dev"][:used].copy_(slot["pinned"][:used], non_blocking=True)
                 slot["copied"] = torch.cuda.Event()
                 slot["copied"].record(self.copy)
+                # the compute stream holds the previous block's work and none
+                # of this one's yet: what the same share of the next block
+                # waits for, in the slot this share used last
+                read = torch.cuda.Event()
+                read.record(self.compute)
+                self.slots[(i + self.shares) % len(self.slots)]["read"] = read
         slot["layout"] = layout
 
     def run(self, fn: Callable):
@@ -143,6 +222,22 @@ class _CudaStager:
         with torch.cuda.device(self.device), torch.cuda.stream(self.compute):
             self.compute.wait_event(slot["copied"])
             return fn(*_slot_views(slot["dev"], slot["layout"]))
+
+
+class _HostStager:
+    """A device without a staging ring (the CPU): each share's rows made
+    tensors as they are staged, and run in the same order."""
+
+    def __init__(self, device):
+        self.device = device
+        self.staged = collections.deque()
+
+    def stage(self, parts: Sequence[np.ndarray]) -> None:
+        self.staged.append([torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+                            for p in parts])
+
+    def run(self, fn: Callable):
+        return fn(*self.staged.popleft())
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -164,7 +259,6 @@ def stream_blocks(
     host_arrays: Sequence[np.ndarray],
     block_size: int,
     sharding=None,
-    prefetch: int = 2,
     *,
     device=None,
 ):
@@ -175,40 +269,31 @@ def stream_blocks(
     host_arrays: column-leading numpy arrays of equal ncol. The blocks go to
     ``device``, or are split over ``sharding``'s devices. Yields (start,
     size, result) triples; with a sharding of several devices a result is
-    the shares' results joined in column order on the first device's."""
+    the shares' results joined in column order on the first device's. A
+    result may be a view of the block's staging slot: read it, or queue its
+    reads, before the next block is asked for."""
     shards = _sharding(sharding, device)
     ncol = host_arrays[0].shape[0]
     blocks = list(iter_blocks(ncol, block_size))
     share = shards.split(block_size)
     stagers = {}
     for d, _, rows in share:
-        if d.type == "cuda" and d not in stagers:
-            # up to ``prefetch`` blocks are staged ahead, each with this
-            # device's shares of it
-            n = sum(1 for e, _, _ in share if e == d)
-            stagers[d] = _CudaStager(d, host_arrays, rows, prefetch * n)
+        if d not in stagers:
+            stagers[d] = (_CudaStager(d, host_arrays, rows, sum(e == d for e, _, _ in share))
+                          if d.type == "cuda" else _HostStager(d))
 
-    def put(k: int):
-        start, size = blocks[k]
-        staged = []
+    def put(start: int, size: int) -> None:
         for d, s, n in shards.split(size):
-            parts = [a[start + s:start + s + n] for a in host_arrays]
-            if d.type == "cuda":
-                stagers[d].stage(parts)
-                staged.append((d, None))
-            else:
-                staged.append((d, [torch.from_numpy(np.ascontiguousarray(p)).to(d)
-                                   for p in parts]))
-        return staged
+            stagers[d].stage([a[start + s:start + s + n] for a in host_arrays])
 
-    pending = [put(k) for k in range(min(prefetch, len(blocks)))]
+    if blocks:
+        put(*blocks[0])
     for k, (start, size) in enumerate(blocks):
         with span("rte.step"):
-            results = [stagers[d].run(fn) if d.type == "cuda" else fn(*args)
-                       for d, args in pending.pop(0)]
+            results = [stagers[d].run(fn) for d, _, _ in shards.split(size)]
         yield start, size, _join(results)
-        if k + prefetch < len(blocks):
-            pending.append(put(k + prefetch))
+        if k + 1 < len(blocks):
+            put(*blocks[k + 1])  # the caller has queued its reads of block k's results
 
 
 def stream_reduce(

@@ -11,8 +11,10 @@ on CUDA card 0):
     calls in turns: with no profiler; with no profiler and no spans (each
     module's ``span`` a ``with`` of nothing); with a CPU + CUDA
     ``torch.profiler`` recording; and with it recording and the spans off;
-  - from the profiled calls: each span's count and self time a call, and
-    the card's idle time by the innermost span over each gap's middle;
+  - from the profiled calls: each span's count and self time a call, the
+    count a call of every ``rte.*`` range (those ``radbench/spans.py`` does
+    not list too, such as ``rte.stage.pool``), and the card's idle time by
+    the innermost span over each gap's middle;
   - the calls that make the host wait for the card in one call
     (``torch.cuda.set_sync_debug_mode``), by the port's frames they come
     from.
@@ -112,8 +114,11 @@ def _by_span(tw) -> dict:
                    if float(h["ts"]) <= mid < float(h["ts"]) + float(h.get("dur", 0.0))]
             name = "(no span) " + (min(ops)[1] if ops else "-")
         idle[name] += (e - s) * 1e-3
+    ranges = collections.Counter(e["name"] for e in tw.host if e.get("cat") == "user_annotation"
+                                 and e["name"].startswith("rte."))
     return {"self_ms": {n: [c / tw.calls, us * 1e-3 / tw.calls] for n, (c, us) in
                         sorted(agg.items(), key=lambda kv: -kv[1][1])},
+            "count": {n: c / tw.calls for n, c in sorted(ranges.items())},
             "idle_ms": {n: v / tw.calls for n, v in sorted(idle.items(), key=lambda kv: -kv[1])},
             "window_ms": tw.window_s * 1e3 / tw.calls, "busy_ms": tw.busy_s * 1e3 / tw.calls}
 

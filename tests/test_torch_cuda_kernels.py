@@ -1164,7 +1164,7 @@ def _cuda_meshes():
 @pytest.mark.parametrize("devices", _cuda_meshes(), ids=lambda d: "x".join(d))
 def test_cuda_mesh_streams_as_no_mesh(dev, devices):
     """stream_reduce and gcm_sweep_lw over a CUDA mesh (a card listed twice
-    takes prefetch x 2 staging slots on one stager; several cards, one
+    takes 2 x 2 staging slots on one stager; several cards, one
     stager each, the shares joined on the first) give the result with no
     mesh: an elementwise step exactly, on ragged blocks, and the LW sweep's
     diagnostics within float32 noise."""
@@ -1236,6 +1236,46 @@ def test_stream_reduce_stages_each_block_in_one_copy(dev, dtypes):
         stream_reduce(step, arrays, block, builder, device=dev)
         torch.cuda.synchronize(dev)
     assert sum("Memcpy HtoD" in e.name for e in prof.events()) == 3
+
+
+def test_stream_reduce_never_overwrites_a_slot_still_read(dev):
+    """stream_reduce over five blocks, the last ragged, with a step that
+    first holds the card (``torch.cuda._sleep``) and then hands back views
+    of its inputs: a slot refilled while its step or its results' copies
+    still read it would show in the results, so they must equal the CPU
+    loop's bit for bit. The four full blocks (~20 MB slots) are filled by
+    the process's copy threads, one ``rte.stage.pool`` each where the
+    process may run on more than one core; the ragged one (~6 MB) inline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rte_rrtmgp_nn_tpu_torch.parallel import streaming
+
+    rng = np.random.default_rng(23)
+    block = 40_000
+    ncol = 4 * block + 13_000
+    arrays = [rng.standard_normal((ncol, 60)).astype(np.float32),
+              rng.standard_normal((ncol, 61)).astype(np.float32),
+              rng.standard_normal(ncol).astype(np.float32)]
+    arrays.append(arrays[1][:, 7])  # a per-column field as a strided view
+
+    def step(*fields):
+        if fields[0].is_cuda:
+            torch.cuda._sleep(20_000_000)  # ~10 ms: the next block's copy is queued meanwhile
+        return (*fields, fields[0][:, 0] + fields[2])
+
+    def builder(n):
+        return [np.zeros((n,) + a.shape[1:], a.dtype) for a in arrays] + [np.zeros(n, np.float32)]
+
+    want = streaming.stream_reduce(step, arrays, block, builder, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = streaming.stream_reduce(step, arrays, block, builder, device=dev)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for g, a in zip(got, arrays):
+        np.testing.assert_array_equal(g, a)
+    threads = min(streaming._POOL_MAX_THREADS, len(os.sched_getaffinity(0)))
+    assert sum(e.name == "rte.stage.pool" for e in prof.events()) == (4 if threads > 1 else 0)
+    assert sum("Memcpy HtoD" in e.name for e in prof.events()) == 5
 
 
 def _routes(dev):

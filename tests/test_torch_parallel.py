@@ -1,14 +1,21 @@
 """The port's single-process parallel package against the JAX package:
-block iteration, streaming and its reduction on the CPU, the column split
+block iteration, streaming and its reduction on the CPU, the order in which
+blocks are staged and run, the staging slot's fill by the process's copy
+threads (against the fill on one thread, in a forked process too), the column split
 over a device mesh (its shares against the JAX sharding's on the suite's 8
 virtual CPU devices), replication, padding; the GCM sweeps on a two-device
 CPU mesh against no mesh; and the g-point split, which the port refuses in
 words."""
+import multiprocessing
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from rte_rrtmgp_nn_tpu.parallel import sharding as jsh
 from rte_rrtmgp_nn_tpu.parallel import streaming as jst
@@ -91,6 +98,126 @@ def test_slot_layout_holds_each_array_of_a_block_bit_for_bit(n):
         np.testing.assert_array_equal(got.view(np.uint8), a.view(np.uint8))
     assert all(end <= offset for end, (offset, _, _) in zip(ends, layout[1:]))
     assert ends[-1] == pst._slot_bytes(layout) <= buf.size
+
+
+@pytest.mark.parametrize("mesh", [None, 2], ids=["device", "mesh2"])
+def test_stream_blocks_runs_each_block_as_soon_as_it_is_staged(monkeypatch, mesh):
+    """Block 0 is staged and run at once; block k+1 is staged only after the
+    caller has received block k's result, so no more than two blocks are
+    held at a time: the one that ran and the one staged."""
+    log = []
+
+    class Recording(pst._HostStager):
+        def stage(self, parts):
+            log.append(("stage", int(parts[0][0, 0])))
+            super().stage(parts)
+
+        def run(self, fn):
+            log.append(("run", int(self.staged[0][0][0, 0])))
+            return super().run(fn)
+
+    monkeypatch.setattr(pst, "_HostStager", Recording)
+    arrays = _host_arrays()
+    arrays[0][:, 0] = np.arange(arrays[0].shape[0])  # each row names its column
+    kw = (dict(device=CPU) if mesh is None
+          else dict(sharding=psh.column_sharding(psh.make_mesh(devices=["cpu"] * mesh), 2)))
+    for start, size, _ in pst.stream_blocks(_fn, arrays, 8, **kw):
+        log.append(("yield", start))
+    want = []
+    for start, size in pst.iter_blocks(23, 8):
+        firsts = [start] if mesh is None else [start, start + -(-size // 2)]
+        want += [("stage", f) for f in firsts] + [("run", f) for f in firsts] + [("yield", start)]
+    assert log == want
+    staged, handed = set(), 0
+    for what, col in log:
+        staged |= {col // 8} if what == "stage" else set()
+        handed += what == "yield"
+        assert len(staged) - handed <= 1  # beside the block whose result is out
+
+
+def _fill_case(case):
+    """(rows, host arrays) of one fill case: float32 profiles, per-column
+    lanes, a strided per-column view, a float32 + int16 pair, fewer rows than
+    threads, one row."""
+    rng = np.random.default_rng(31)
+    n = {"few_rows": 3, "one_row": 1}.get(case, 517)
+    prof = lambda w: rng.standard_normal((n, w)).astype(np.float32)
+    if case in ("profiles", "few_rows", "one_row"):
+        return n, [prof(60), prof(61), prof(1)[:, 0]]
+    if case == "lanes":
+        return n, [prof(1)[:, 0] for _ in range(8)]
+    if case == "strided":
+        p = prof(61)
+        return n, [p, p[:, 5], p[:, 60]]
+    return n, [prof(25), rng.integers(-2 ** 15, 2 ** 15, (n, 40)).astype(np.int16)]
+
+
+def _filled(parts, fill) -> np.ndarray:
+    """A staging slot (a byte buffer laid out by _slot_layout, its padding
+    preset) after ``fill(regions, parts)``."""
+    layout = pst._slot_layout(parts, parts[0].shape[0])
+    buf = np.full(pst._slot_bytes(layout), 0xA5, np.uint8)
+    fill([v.numpy() for v in pst._slot_views(torch.from_numpy(buf), layout)], parts)
+    return buf
+
+
+def _fill_inline(regions, parts):
+    for r, a in zip(regions, parts):
+        np.copyto(r, a)
+
+
+@pytest.mark.parametrize("case", ["profiles", "lanes", "strided", "mixed_pair", "few_rows",
+                                  "one_row"])
+def test_pooled_fill_of_a_slot_equals_the_fill_on_one_thread(case):
+    """Four threads, each copying its share of every region's rows, leave
+    the slot byte for byte as one thread copying each region whole."""
+    n, parts = _fill_case(case)
+    with ThreadPoolExecutor(4) as pool:
+        got = _filled(parts, lambda r, p: pst._fill_pooled(r, p, pool, 4))
+    np.testing.assert_array_equal(got, _filled(parts, _fill_inline))
+    layout = pst._slot_layout(parts, n)
+    for (offset, shape, dtype), a in zip(layout, parts):
+        np.testing.assert_array_equal(got[offset:offset + a.nbytes].view(dtype).reshape(shape), a)
+
+
+@pytest.mark.parametrize("rows,pooled", [(4096, False), (43200, True)], ids=["under", "over"])
+def test_a_slot_of_8_mb_or_more_is_filled_by_the_pool(rows, pooled):
+    """Under _POOL_MIN_BYTES a slot is filled on the calling thread and
+    opens no ``rte.stage.pool``; a 43,200-row slot of a GCM block (~20 MB
+    here) opens exactly one, when the process may run on more than one
+    core; both fills are the one-thread fill byte for byte."""
+    rng = np.random.default_rng(33)
+    parts = [rng.standard_normal((rows, w)).astype(np.float32) for w in (60, 61)]
+    assert (sum(a.nbytes for a in parts) >= pst._POOL_MIN_BYTES) == pooled
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = _filled(parts, pst._fill)
+    threads = min(pst._POOL_MAX_THREADS, len(os.sched_getaffinity(0)))
+    opened = sum(e.name == "rte.stage.pool" for e in prof.events())
+    assert opened == (1 if pooled and threads > 1 else 0)
+    np.testing.assert_array_equal(got, _filled(parts, _fill_inline))
+
+
+def _fill_in_a_forked_child(inherited_pid):
+    """In a forked child: the parent's pool is left alone, a pool of the
+    child's own fills a slot as one thread does."""
+    assert pst._POOL[0] == inherited_pid != os.getpid()
+    parent_pool = pst._POOL[1]
+    pool, threads = pst._copy_pool()
+    assert pst._POOL[0] == os.getpid()
+    assert pool is None if threads == 1 else pool is not parent_pool
+    _, parts = _fill_case("strided")
+    fill = ((lambda r, p: pst._fill_pooled(r, p, pool, threads)) if pool is not None
+            else _fill_inline)
+    np.testing.assert_array_equal(_filled(parts, fill), _filled(parts, _fill_inline))
+
+
+def test_a_forked_process_fills_with_a_pool_of_its_own():
+    pst._copy_pool()  # the parent's pool, made before the fork
+    child = multiprocessing.get_context("fork").Process(
+        target=_fill_in_a_forked_child, args=(os.getpid(),))
+    child.start()
+    child.join(timeout=60)
+    assert not child.is_alive() and child.exitcode == 0
 
 
 @pytest.mark.parametrize("ndev,ncol", [(2, 8), (4, 12), (8, 16)])
